@@ -35,3 +35,8 @@ def pytest_configure(config):
         "by pytest.ini's `addopts = -m \"not slow\"`; run them with "
         "`pytest -m slow tests/`, or everything with `pytest -m '' tests/`",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's kernels); skips "
+        "without one -- run on the card with `pytest -m gpu tests/`",
+    )
