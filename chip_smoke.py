@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
   1. build both CUDA kernels from ``fourk_nerf_torch/csrc`` (one nvcc per
      source, in parallel) and print the build time and ptxas summary;
   2. sweep kernel vs its plain version on a small scene (viewdir PE 4,
-     spatial PE 2, mask at grid resolution), float32 and bf16 grids;
+     spatial PE 2, mask at grid resolution), float32 and bf16 paths;
   3. dense-block kernel vs its plain version, plain and tail mode, on a
      100x150 frame that does not divide the 8x16 tile;
   4. the 4K frame at full width, synthetic scene (the fern geometry of
@@ -149,15 +149,16 @@ def phase_sweep_small(dev):
                                          use_bf16=True, **kw)
     sync()
     check_sweep("f32 grid vs plain f32", got32, ref32)
-    check_sweep("bf16 grid vs plain on the same bf16 grid", got16, ref16)
-    # bf16 storage of the grid vs the float32 reference: the grid's
-    # rounding (2^-9 relative) moves alphas and features a little; the
-    # mean error must stay well under one 8-bit colour level
+    check_sweep("bf16 path vs plain bf16 path", got16, ref16)
+    # the bf16 path (grid, x weights and MLP rounded to bf16, as the JAX
+    # kernel's use_bf16) vs the float32 reference: rounding at 2^-9
+    # relative moves alphas and features a little; the mean error must
+    # stay well under one 8-bit colour level
     d = (got16["rgb_marched"] - ref32["rgb_marched"]).abs()
     mean, mx = float(d.mean()), float(d.max())
-    log(f"  bf16 grid vs plain f32: rgb max abs {mx:.3e}, mean {mean:.3e}")
+    log(f"  bf16 path vs plain f32: rgb max abs {mx:.3e}, mean {mean:.3e}")
     if not (mean < 2e-3 and mx < 0.1):
-        raise AssertionError("bf16-grid sweep too far from the f32 plain")
+        raise AssertionError("bf16 sweep too far from the f32 plain")
 
 
 def phase_rdb_small(dev, sr_model):
@@ -254,23 +255,30 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     sync()
     plain_sweep_ms = (time.perf_counter() - t0) * 1e3
     ref = plane_sweep.assemble(*ref, H, W, 1.0)
-    sweep_err = check_sweep("encoder kernel vs plain (bf16 grid)", enc, ref)
+    sweep_err = check_sweep("encoder kernel vs plain (bf16 path)", enc, ref)
     log(f"  samples in bounds and live {stats['samples']}, with non-zero "
         f"weight (MLP evaluated) {stats['mlp_samples']}")
 
     sweep_ms = cuda_ms(lambda: cuda_sweep.sweep(g.packed, g.act_shift, a, b,
                                                 vde, mlp, **kw), 3)
+    # bound: the grid's live channels (density, k0, mask; not the padding)
+    # read once, rays in, maps out; the MLP of the samples with a non-zero
+    # weight at the peak of its type (bf16 tensor cores on the bf16 path,
+    # the JAX kernel's MLP type there)
     cin0 = mlp[0][0].shape[0]
     width = mlp[0][0].shape[1]
     mlp_flop = 2 * (cin0 * width + (len(mlp) - 2) * width * width + width * 3)
-    sweep_bytes = (g.packed.numel() * g.packed.element_size()
+    Z, Xp, Yp, _ = g.packed.shape
+    sweep_bytes = (Z * Xp * Yp * (g.mask_ch + 1) * g.packed.element_size()
                    + (a.numel() + b.numel() + vde.numel()) * 4 + H * W * 5 * 4)
     t_bytes = sweep_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = stats["mlp_samples"] * mlp_flop / FP32_FLOPS * 1e3
+    bf16 = g.packed.dtype == torch.bfloat16
+    t_ops = stats["mlp_samples"] * mlp_flop \
+        / (BF16_FLOPS if bf16 else FP32_FLOPS) * 1e3
     sweep_bound = max(t_bytes, t_ops)
     log(f"  sweep kernel {sweep_ms:.3f} ms, plain {plain_sweep_ms:.1f} ms, "
-        f"bound {sweep_bound:.3f} ms (bytes {t_bytes:.4f} ms, fp32 MLP ops "
-        f"{t_ops:.4f} ms)")
+        f"bound {sweep_bound:.3f} ms (bytes {t_bytes:.4f} ms, "
+        f"{'bf16' if bf16 else 'fp32'} MLP ops {t_ops:.4f} ms)")
 
     # decoder: kernel vs plain at the main path's dense-block input
     prep = pipe.sr
@@ -357,8 +365,12 @@ def profile_frame(pipe, K, c2w):
         log("  profiler: no device time recorded")
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms > wall_ms:
+        raise AssertionError(f"device kernel time {busy_ms:.1f} ms exceeds "
+                             f"the frame's wall time {wall_ms:.1f} ms: the "
+                             "kernel rows are counted twice")
     log(f"  profiler: frame wall {wall_ms:.1f} ms (profiled), device kernels "
-        f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for us, key, n in rows[:8]:
         log(f"    {us / 1e3:9.2f} ms  x{n:<4d} {key[:90]}")
 

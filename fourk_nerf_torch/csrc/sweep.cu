@@ -26,12 +26,20 @@
 // spilled at width 128). The MLP runs only for samples with a non-zero
 // composite weight, which is exact.
 //
-// What bounds it on the H100: the MLP's float32 FMAs on the samples that
-// stay alive (~5k FMA each at width 64); reading the whole grid once
-// (1.2 GB in bf16 at fern scale) takes 0.37 ms at full bandwidth. This
-// first version runs the MLP on the FP32 pipes with one thread per ray;
-// warp divergence between live and dead lanes is its known cost, left for
-// a later version (a tensor-core MLP over compacted samples).
+// Precision. With a bf16 grid (the main path, use_bf16) the kernel rounds
+// where the TPU kernel does: the two bilinear x weights (the TPU kernel
+// interpolates along x with a bf16 matmul), and the MLP's inputs, weights
+// and hidden activations; products accumulate in float32 and the y weights,
+// biases and composite stay float32. With a float32 grid nothing is rounded.
+//
+// What bounds it on the H100: the MLP on the samples with a non-zero weight
+// (~5k MAC each at width 64), at the bf16 tensor-core peak, the type of the
+// reference kernel's MLP on the main path; reading the grid's 11 live
+// channels once at fern scale takes ~0.25 ms. This first version does the
+// bf16-rounded products as float32 FMAs on the FP32 pipes, one thread per
+// ray, so it stays far above that bound; warp divergence between live and
+// dead lanes adds to it. A tensor-core MLP over compacted samples is the
+// known next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +70,14 @@ __device__ __forceinline__ float ld(const float* p, size_t i) {
 }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(__ldg(p + i));
+}
+
+// the compute type follows the grid's: with a bf16 grid the x weights and
+// the MLP's inputs and hidden activations are rounded to bf16 (the MLP
+// weights are rounded by the wrapper)
+__device__ __forceinline__ float rnd(float v, const float*) { return v; }
+__device__ __forceinline__ float rnd(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float act_fn(float x, int act) {
@@ -150,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepArgs p) {
       const size_t o10 = ((pl + x1) * p.Y + y0) * p.Cp;
       const size_t o01 = ((pl + x0) * p.Y + y1) * p.Cp;
       const size_t o11 = ((pl + x1) * p.Y + y1) * p.Cp;
-      const float wx0 = __fsub_rn(1.f, fx), wx1 = fx;
+      const float wx0 = rnd(__fsub_rn(1.f, fx), grid), wx1 = rnd(fx, grid);
       const float wy0 = __fsub_rn(1.f, fy), wy1 = fy;
       // channel c interpolated along x at the two y taps
       auto rows = [&](int c, float& r0, float& r1) {
@@ -187,29 +203,33 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepArgs p) {
         for (int j = 0; j < WP; ++j) acc[j] = B0[j];
         int i = 0;
         for (int c = 0; c < p.k0_dim; ++c)
-          feed<WP>(acc, W0 + (i++) * WP, sample(1 + c));
+          feed<WP>(acc, W0 + (i++) * WP, rnd(sample(1 + c), grid));
         const float sv[3] = {2.f * kf / zden - 1.f, py / yhi * 2.f - 1.f,
                              px / xhi * 2.f - 1.f};
 #pragma unroll
-        for (int c = 0; c < 3; ++c) feed<WP>(acc, W0 + (i++) * WP, sv[c]);
+        for (int c = 0; c < 3; ++c)
+          feed<WP>(acc, W0 + (i++) * WP, rnd(sv[c], grid));
 #pragma unroll
         for (int c = 0; c < 3; ++c)
           for (int f = 0; f < p.spatial_pe; ++f)
-            feed<WP>(acc, W0 + (i++) * WP, sinf(sv[c] * (float)(1 << f)));
+            feed<WP>(acc, W0 + (i++) * WP,
+                     rnd(sinf(sv[c] * (float)(1 << f)), grid));
 #pragma unroll
         for (int c = 0; c < 3; ++c)
           for (int f = 0; f < p.spatial_pe; ++f)
-            feed<WP>(acc, W0 + (i++) * WP, cosf(sv[c] * (float)(1 << f)));
+            feed<WP>(acc, W0 + (i++) * WP,
+                     rnd(cosf(sv[c] * (float)(1 << f)), grid));
         const float* vr = p.vde + (size_t)r * p.E;
         for (int e = 0; e < p.E; ++e)
-          feed<WP>(acc, W0 + (i++) * WP, __ldg(vr + e));
+          feed<WP>(acc, W0 + (i++) * WP, rnd(__ldg(vr + e), grid));
 
         // hidden layers: the activations go through this thread's column
         // of shared scratch, so one register vector (acc) is live
         const float* Wl = B0 + WP;
         for (int l = 1; l < p.n_layers - 1; ++l) {
 #pragma unroll
-          for (int j = 0; j < WP; ++j) hs[j * kThreads] = act_fn(acc[j], p.act);
+          for (int j = 0; j < WP; ++j)
+            hs[j * kThreads] = rnd(act_fn(acc[j], p.act), grid);
           const float* Bl = Wl + WP * WP;
 #pragma unroll
           for (int j = 0; j < WP; ++j) acc[j] = Bl[j];
@@ -220,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepArgs p) {
         float o0 = Wl[WP * 4], o1 = Wl[WP * 4 + 1], o2 = Wl[WP * 4 + 2];
 #pragma unroll
         for (int ii = 0; ii < WP; ++ii) {
-          const float h = act_fn(acc[ii], p.act);
+          const float h = rnd(act_fn(acc[ii], p.act), grid);
           const float4 wv = *reinterpret_cast<const float4*>(Wl + ii * 4);
           o0 += h * wv.x;
           o1 += h * wv.y;

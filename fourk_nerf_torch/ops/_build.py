@@ -46,44 +46,31 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h[:16]}.so")
 
 
-def _start(name: str):
-    out = _lib_path(name)
-    if os.path.exists(out):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    log = open(f"{tmp}.log", "w+")
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out, log
-
-
 def build_all(names=KERNELS) -> dict:
-    """Build every named kernel, one nvcc each, all started together; waits
-    for all of them before raising on any failure. Returns {name: (seconds,
-    compiler log)}; a kernel already built reports 0 s and an empty log."""
+    """Build every named kernel that is not built yet, one nvcc each, all
+    started together; waits for all of them, then raises on any failure.
+    Returns {name: (seconds, compiler log)}; a kernel already built
+    reports 0 s and an empty log."""
     t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in names}
-    done, failed = {}, []
-    while len(done) < len(jobs):
-        for n, job in jobs.items():
-            if n in done:
-                continue
-            if job is None:
-                done[n] = (0.0, "")
-            elif job[0].poll() is not None:
-                proc, tmp, out, log = job
-                log.seek(0)
-                text = log.read()
-                log.close()
-                os.remove(log.name)
-                done[n] = (time.perf_counter() - t0, text)
-                if proc.returncode == 0:
-                    os.replace(tmp, out)
-                else:
-                    failed.append(f"nvcc failed for {n}.cu:\n{text}")
-        time.sleep(0.05)
+    jobs, done, failed = {}, {}, []
+    for n in names:
+        out = _lib_path(n)
+        if os.path.exists(out):
+            done[n] = (0.0, "")
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        jobs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True),
+                   tmp, out)
+    for n, (proc, tmp, out) in jobs.items():
+        text = proc.communicate()[0]
+        done[n] = (time.perf_counter() - t0, text)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"nvcc failed for {n}.cu:\n{text}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return done

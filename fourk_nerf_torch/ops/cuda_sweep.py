@@ -38,11 +38,13 @@ def pack_grids_kernel(params: dict, buffers: dict, *,
         dtype=torch.bfloat16 if use_bf16 else torch.float32)
 
 
-def pack_mlp(mlp, cin0: int):
+def pack_mlp(mlp, cin0: int, *, bf16: bool = False):
     """[(w [Cin, W], b [W]), ...] -> (flat float32 buffer, padded width WP,
     n_layers) in the kernel's shared-memory layout: W0 [cin0][WP], b0 [WP],
     hidden W [WP][WP], b [WP], output W [WP][4], b [4]. Zero padding is
-    exact: a padded unit's outgoing weights are zero."""
+    exact: a padded unit's outgoing weights are zero. ``bf16`` rounds the
+    weights (not the biases) to bfloat16 values, the MLP type of a bf16
+    grid."""
     n = len(mlp)
     if n < 2:
         raise ValueError("the sweep kernel needs an rgbnet of depth >= 2")
@@ -65,7 +67,8 @@ def pack_mlp(mlp, cin0: int):
     for li, (w, b) in enumerate(mlp):
         rows = cin0 if li == 0 else wp
         cols = 4 if li == n - 1 else wp
-        parts += [pad(w.float(), rows, cols), pad(b.float()[None], 1, cols)]
+        w = plane_sweep.round_bf16(w.float()) if bf16 else w.float()
+        parts += [pad(w, rows, cols), pad(b.float()[None], 1, cols)]
     return torch.cat(parts).contiguous(), wp, n
 
 
@@ -100,7 +103,8 @@ def sweep(packed, act_shift, a, b, vde, mlp, *, Xl: int, Yl: int,
     if not (0 <= mask_ch < Cp and 1 + k0_dim <= Cp and Xl <= X and Yl <= Y):
         raise ValueError("sweep: channel layout or logical dims out of range")
     cin0 = k0_dim + 3 * (1 + 2 * spatial_pe) + E
-    flat, wp, n_layers = pack_mlp(mlp, cin0)
+    flat, wp, n_layers = pack_mlp(mlp, cin0,
+                                  bf16=packed.dtype == torch.bfloat16)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     depth = torch.empty(R, dtype=torch.float32, device=dev)
     ail = torch.empty(R, dtype=torch.float32, device=dev)
@@ -129,8 +133,10 @@ def render_frame_cuda(cfg, params, buffers, H: int, W: int, K, c2w, *,
 
     Returns ``rgb_feature [H,W,3]``, ``rgb_marched`` (feature plus
     ``alphainv_last * bg``), ``depth [H,W]`` and ``alphainv_last [H,W]``.
-    ``packed`` (from :func:`pack_grids_kernel`) saves re-packing the grid
-    for every frame of a fixed scene."""
+    ``use_bf16`` stores the grid in bfloat16 and runs the MLP in bfloat16,
+    as the JAX kernel's flag does. ``packed`` (from
+    :func:`pack_grids_kernel`) saves re-packing the grid for every frame of
+    a fixed scene, and its dtype then sets both."""
     if not dmpigo.plane_aligned_ok(cfg, stepsize, ndc=True):
         raise ValueError("the sweep needs the plane-aligned NDC setup "
                          "(dmpigo.plane_aligned_ok)")

@@ -11,6 +11,9 @@ and the front-to-back composite. Same semantics as the JAX package's
 TPU's patch and hat-weight machinery (which exists to avoid gathers) is
 replaced by plain gathers, and a mask whose resolution differs from the
 grid's is nearest-resampled onto the grid first, as the Pallas kernel does.
+With a bfloat16 grid the sweep rounds where the Pallas kernel does under
+``use_bf16``: the bilinear x weights (it interpolates along x with a bf16
+matmul) and the MLP's inputs, weights and hidden activations.
 
 :func:`sweep_plain` is what ``ops.cuda_sweep.sweep`` runs for CPU tensors,
 and what the kernel is held against on the card.
@@ -118,8 +121,12 @@ def sweep_plain(packed, act_shift, a, b, vde, mlp, *, Xl: int, Yl: int,
                 stats: dict | None = None):
     """Plain sweep over rays ``a, b [R, 2]``, ``vde [R, E]``.
 
-    ``packed [Z, X, Y, Cp]`` (any float dtype, read as float32),
-    ``act_shift [Z]``, ``mlp`` a list of (w, b). Returns
+    ``packed [Z, X, Y, Cp]`` float32 or bfloat16 (read as float32),
+    ``act_shift [Z]``, ``mlp`` a list of (w, b). A bfloat16 grid also sets
+    the compute type, as ``use_bf16`` does in the JAX kernel: the bilinear
+    x weights and the MLP's inputs, weights and hidden activations are
+    rounded to bfloat16; products accumulate in float32 and the y weights,
+    biases and composite stay float32. Returns
     (rgb_feature [R,3], depth [R], alphainv_last [R]). When ``stats`` is a
     dict, it receives ``samples`` (in-bounds live (ray, plane) pairs) and
     ``mlp_samples`` (pairs with a non-zero composite weight, the only ones
@@ -131,13 +138,15 @@ def sweep_plain(packed, act_shift, a, b, vde, mlp, *, Xl: int, Yl: int,
     ail = torch.ones(R, dtype=torch.float32, device=a.device)
     n_samp = torch.zeros((), dtype=torch.long, device=a.device)
     n_mlp = torch.zeros((), dtype=torch.long, device=a.device)
+    rnd = round_bf16 if packed.dtype == torch.bfloat16 else (lambda t: t)
+    mlp = [(rnd(w), bias) for w, bias in mlp]
     for s in range(0, R, _RAY_CHUNK):
         sl = slice(s, min(s + _RAY_CHUNK, R))
         ns, nm = _sweep_chunk(
             packed, act_shift, a[sl], b[sl], vde[sl], mlp, rgb[sl],
             depth[sl], ail[sl], Xl=Xl, Yl=Yl, mask_ch=mask_ch, k0_dim=k0_dim,
             interval=interval, fast_thres=fast_thres, spatial_pe=spatial_pe,
-            act=common.activation(act_type))
+            act=common.activation(act_type), rnd=rnd)
         n_samp += ns
         n_mlp += nm
     if stats is not None:
@@ -146,9 +155,17 @@ def sweep_plain(packed, act_shift, a, b, vde, mlp, *, Xl: int, Yl: int,
     return rgb, depth, ail
 
 
+def round_bf16(t):
+    """Round float32 values to the nearest bfloat16, kept as float32."""
+    return t.to(torch.bfloat16).float()
+
+
 def _sweep_chunk(packed, act_shift, a, b, vde, mlp, rgb, depth, t, *, Xl,
-                 Yl, mask_ch, k0_dim, interval, fast_thres, spatial_pe, act):
-    """Sweep one ray chunk; accumulates into the ``rgb, depth, t`` views."""
+                 Yl, mask_ch, k0_dim, interval, fast_thres, spatial_pe, act,
+                 rnd):
+    """Sweep one ray chunk; accumulates into the ``rgb, depth, t`` views.
+    ``rnd`` rounds the x weights and the MLP's inputs and hidden
+    activations to the compute type."""
     Z, X, Y, Cp = packed.shape
     flat = packed.reshape(Z, X * Y, Cp)
     n_samp = torch.zeros((), dtype=torch.long, device=a.device)
@@ -168,7 +185,7 @@ def _sweep_chunk(packed, act_shift, a, b, vde, mlp, rgb, depth, t, *, Xl,
         x1 = torch.clamp_max(x0 + 1, X - 1)
         y1 = torch.clamp_max(y0 + 1, Y - 1)
         plane = flat[k]
-        wx0, wx1 = (1.0 - fx)[:, None], fx[:, None]
+        wx0, wx1 = rnd(1.0 - fx)[:, None], rnd(fx)[:, None]
         # x-interpolated rows at the two y taps, then the y blend
         r0 = wx0 * plane[x0 * Y + y0].float() + wx1 * plane[x1 * Y + y0].float()
         r1 = wx0 * plane[x0 * Y + y1].float() + wx1 * plane[x1 * Y + y1].float()
@@ -197,13 +214,13 @@ def _sweep_chunk(packed, act_shift, a, b, vde, mlp, rgb, depth, t, *, Xl,
             py[sel] / (Yl - 1) * 2.0 - 1.0,
             px[sel] / (Xl - 1) * 2.0 - 1.0,
         ], dim=-1)
-        h = torch.cat([samp[sel, 1:1 + k0_dim],
-                       ray_ops.positional_encoding(pe_spa, spatial_pe),
-                       vde[ridx]], dim=-1)
+        h = rnd(torch.cat([samp[sel, 1:1 + k0_dim],
+                           ray_ops.positional_encoding(pe_spa, spatial_pe),
+                           vde[ridx]], dim=-1))
         for li, (wl, bl) in enumerate(mlp):
             h = h @ wl + bl
             if li < len(mlp) - 1:
-                h = act(h)
+                h = rnd(act(h))
         ws = w[sel]
         rgb.index_add_(0, ridx, ws[:, None] * torch.sigmoid(h))
         depth.index_add_(0, ridx, ws * ((kf + 0.5) / Z))

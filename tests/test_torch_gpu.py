@@ -31,6 +31,7 @@ def cuda():
     (False, 32, 3, "lkrelu"),   # padded to the 64-wide kernel
     (True, 32, 3, "lkrelu"),
     (False, 100, 4, "gauss"),   # the 128-wide kernel, two hidden layers
+    (True, 100, 4, "gauss"),    # the same with the bf16 MLP
     (False, 64, 2, "relu"),     # no hidden layer
 ])
 def test_sweep_kernel_matches_plain(cuda, use_bf16, width, depth, act):

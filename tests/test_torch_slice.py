@@ -10,42 +10,46 @@ import subprocess
 import sys
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from fourk_nerf_tpu.models import sr_esrnet as jsr
-from fourk_nerf_tpu.ops import pallas_sr, plane_sweep as jps
+from fourk_nerf_tpu.ops import pallas_sweep, plane_sweep as jps
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.models import dmpigo as td
 from fourk_nerf_torch.ops import cuda_sweep
 from fourk_nerf_torch.pipeline import FramePipeline
 from test_plane_sweep import _cam, _scene
+from test_torch_sr import numpy_params, sftnet_pallas
 from test_torch_sweep import port_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "fourk_nerf_torch")
 
 
-def test_slice_matches_jax_chain():
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_slice_matches_jax_chain(use_bf16):
+    """float32: the XLA plane sweep -> Pallas SFTNet; bf16 (the main path's
+    precision): the Pallas sweep with use_bf16 -> Pallas SFTNet."""
     cfg, params, buffers = _scene()
     H, W = 24, 32
     K, c2w = _cam(H, W)
     model = jsr.SFTNet(n_in_colors=3, scale=4, num_feat=64, num_block=1,
                        num_grow_ch=32, num_cond=1)
-    sp = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 8, 8, 3)),
-                    jnp.zeros((1, 8, 8, 1)))["params"]
+    sp = numpy_params(model, np.random.default_rng(1), jnp.zeros((1, 8, 8, 3)),
+                      jnp.zeros((1, 8, 8, 1)))
 
-    enc = jps.render_frame(cfg, params, buffers, H, W, K, c2w, stepsize=1.0,
-                           bg=1.0, tile=8, patch=24, use_bf16=False)
-    ref = np.asarray(pallas_sr.sftnet_apply_pallas(
-        sp, enc["rgb_feature"][None], enc["depth"][None, ..., None], scale=4,
-        num_block=1, th=8, tw=16, interpret=True, upchain="dilated"))
+    render = pallas_sweep.render_frame_pallas if use_bf16 else jps.render_frame
+    kw = dict(interpret=True) if use_bf16 else {}
+    enc = render(cfg, params, buffers, H, W, K, c2w, stepsize=1.0, bg=1.0,
+                 tile=8, patch=24, use_bf16=use_bf16, **kw)
+    ref = np.asarray(sftnet_pallas(sp, enc["rgb_feature"][None],
+                                   enc["depth"][None, ..., None]))
 
     tcfg, tp, tb = port_scene(cfg, params, buffers)
     pipe = FramePipeline(tcfg, tp, tb, weights.sftnet_from_flax(sp, "cpu"),
-                         use_bf16=False, device="cpu")
+                         use_bf16=use_bf16, device="cpu")
     sr, tenc = pipe(H, W, K, c2w)
     np.testing.assert_allclose(tenc["rgb_feature"].numpy(),
                                np.asarray(enc["rgb_feature"]), atol=2e-4)

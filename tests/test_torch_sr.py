@@ -4,6 +4,8 @@ rdb_apply runs for CPU tensors) and conv_up_dilated vs the JAX package.
 float32 paths agree to 1e-4 (relative to the output scale); bf16 paths to
 0.05, the JAX suite's dense-block tolerance."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -19,11 +21,27 @@ from fourk_nerf_torch.ops import cuda_sr, s2d as ts2d
 BF16_TOL = 0.05
 
 
-def random_biases(tree, rng):
-    """Flax init zeroes the biases; random ones make the checks see them."""
-    return {k: (random_biases(v, rng) if isinstance(v, dict) else
-                jnp.asarray(rng.uniform(-0.1, 0.1, v.shape).astype(np.float32))
-                if k == "bias" else v) for k, v in tree.items()}
+def numpy_params(module, rng, *args):
+    """A flax parameter tree for ``module`` with values drawn by numpy.
+    Shapes come from ``jax.eval_shape`` (tracing only, no compiling).
+    Conv kernels follow the flax inits' scales: dense-block convs at 0.1x
+    kaiming normal, the rest lecun normal. Biases, zero at flax init, are
+    uniform in +-0.1 so the checks see them."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+
+    def draw(path, leaf):
+        names = [k.key for k in path]
+        if names[-1] == "bias":
+            v = rng.uniform(-0.1, 0.1, leaf.shape)
+        else:
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            dense = (any(n.startswith("rdb") for n in names)
+                     and names[-2].startswith("conv"))
+            std = 0.1 * np.sqrt(2.0 / fan_in) if dense else np.sqrt(1.0 / fan_in)
+            v = rng.normal(0.0, std, leaf.shape)
+        return jnp.asarray(v.astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(draw, shapes["params"])
 
 
 def load_convs(module, tree):
@@ -44,10 +62,15 @@ def _rrdb(seed=0, H=37, W=55):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(1, H, W, 64)).astype(np.float32)
     c = rng.normal(size=(1, H, W, 32)).astype(np.float32)
-    p = jsr.RRDBSFT(64, 32).init(jax.random.PRNGKey(seed), jnp.asarray(x),
-                                 jnp.asarray(c))["params"]
-    p = random_biases(p, rng)
+    p = numpy_params(jsr.RRDBSFT(64, 32), rng, jnp.asarray(x), jnp.asarray(c))
     return x, c, p, load_convs(tsr.RRDBSFT(64, 32), p), rng
+
+
+# the JAX references run jitted: one compile of the whole graph costs far
+# less on the CPU than compiling each op eagerly
+sftnet_pallas = jax.jit(functools.partial(
+    pallas_sr.sftnet_apply_pallas, scale=4, num_block=1, th=8, tw=16,
+    interpret=True, upchain="dilated"))
 
 
 def nchw(a):
@@ -56,7 +79,7 @@ def nchw(a):
 
 def test_dense_block_f32_matches_flax():
     x, c, p, trr, _ = _rrdb()
-    ref = np.asarray(jsr.ResidualDenseBlockSFT(64, 32).apply(
+    ref = np.asarray(jax.jit(jsr.ResidualDenseBlockSFT(64, 32).apply)(
         {"params": p["rdb1"]}, jnp.asarray(x), jnp.asarray(c)))
     with torch.no_grad():
         got = trr.rdb1(nchw(x), nchw(c)).permute(0, 2, 3, 1).numpy()
@@ -65,8 +88,8 @@ def test_dense_block_f32_matches_flax():
 
 def test_rrdb_f32_matches_flax():
     x, c, p, trr, _ = _rrdb(seed=1, H=12, W=20)
-    ref = np.asarray(jsr.RRDBSFT(64, 32).apply({"params": p}, jnp.asarray(x),
-                                               jnp.asarray(c)))
+    ref = np.asarray(jax.jit(jsr.RRDBSFT(64, 32).apply)(
+        {"params": p}, jnp.asarray(x), jnp.asarray(c)))
     with torch.no_grad():
         got = trr(nchw(x), nchw(c)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4)
@@ -85,13 +108,12 @@ def test_rdb_plain_matches_pallas_kernel(tail):
         return jnp.pad(jnp.concatenate([jnp.asarray(a), b], -1).astype(
             jnp.bfloat16), ((0, ny * th - H), (0, nx * tw - W), (0, 0)))
 
-    ref = pallas_sr.rdb_apply_pallas(
+    ref = jax.jit(functools.partial(
+        pallas_sr.rdb_apply_pallas, H=H, W=W, th=th, tw=tw, interpret=True))(
         body(x[0], jnp.concatenate([jnp.asarray(c[0]),
                                     jnp.zeros((H, W, 32))], -1)),
         pallas_sr.pack_rdb_weights(p["rdb3"], p["sft0"] if tail else None),
-        H=H, W=W, th=th, tw=tw,
-        xin=body(xin, jnp.zeros((H, W, 64))) if tail else None,
-        interpret=True)[:H, :W, :64]
+        xin=body(xin, jnp.zeros((H, W, 64))) if tail else None)[:H, :W, :64]
     w = cuda_sr.pack_rdb_weights(trr.rdb3, trr.sft0 if tail else None)
     bf = torch.bfloat16
     got = cuda_sr.rdb_apply(torch.as_tensor(x[0]).to(bf),
@@ -133,14 +155,14 @@ def _sftnet(H=16, W=20, seed=0):
                        num_grow_ch=32, num_cond=1)
     x = rng.uniform(size=(1, H, W, 3)).astype(np.float32)
     c = rng.uniform(size=(1, H, W, 1)).astype(np.float32)
-    p = random_biases(model.init(jax.random.PRNGKey(seed), jnp.asarray(x),
-                                 jnp.asarray(c))["params"], rng)
+    p = numpy_params(model, rng, jnp.asarray(x), jnp.asarray(c))
     return model, p, x, c, weights.sftnet_from_flax(p, device="cpu")
 
 
 def test_sftnet_f32_matches_flax():
     model, p, x, c, tm = _sftnet()
-    ref = np.asarray(model.apply({"params": p}, jnp.asarray(x), jnp.asarray(c)))
+    ref = np.asarray(jax.jit(model.apply)({"params": p}, jnp.asarray(x),
+                                          jnp.asarray(c)))
     with torch.no_grad():
         got = tm(torch.as_tensor(x), torch.as_tensor(c)).numpy()
     assert got.shape == ref.shape == (1, 64, 80, 3)
@@ -149,7 +171,8 @@ def test_sftnet_f32_matches_flax():
 
 def test_sftnet_apply_bf16_matches_flax():
     model, p, x, c, tm = _sftnet(seed=1)
-    ref = np.asarray(jsr.apply_bf16(model, p, jnp.asarray(x), jnp.asarray(c)))
+    ref = np.asarray(jax.jit(functools.partial(jsr.apply_bf16, model))(
+        p, jnp.asarray(x), jnp.asarray(c)))
     got = tsr.apply_bf16(tm, torch.as_tensor(x), torch.as_tensor(c)).numpy()
     assert got.dtype == np.float32
     assert float(np.abs(got - ref).max()) < BF16_TOL
@@ -183,9 +206,7 @@ def test_sftnet_fused_decode_matches_pallas():
     """sftnet_apply_cuda on the CPU (plain dense blocks) vs the JAX
     package's sftnet_apply_pallas (interpret, dilated upchain)."""
     model, p, x, c, tm = _sftnet(H=24, W=32, seed=3)
-    ref = np.asarray(pallas_sr.sftnet_apply_pallas(
-        p, jnp.asarray(x), jnp.asarray(c), scale=4, num_block=1, th=8, tw=16,
-        interpret=True, upchain="dilated"))
+    ref = np.asarray(sftnet_pallas(p, jnp.asarray(x), jnp.asarray(c)))
     got = cuda_sr.sftnet_apply_cuda(tm, torch.as_tensor(x), torch.as_tensor(c))
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert float(np.abs(got.numpy() - ref).max()) < BF16_TOL

@@ -2,8 +2,9 @@
 (fourk_nerf_torch.ops.plane_sweep.sweep_plain, which ops.cuda_sweep.sweep
 runs for CPU tensors) vs the JAX package's XLA plane sweep and its Pallas
 sweep kernel in interpret mode, on the scenes of tests/test_plane_sweep.py
-and tests/test_pallas_sweep.py. float32 grids; tolerance 2e-4 as the JAX
-suite, with nearest-mask tie flips counted as there."""
+and tests/test_pallas_sweep.py. float32 grids, and bf16 (use_bf16=True)
+against the Pallas kernel's bf16 path; tolerance 2e-4 as the JAX suite,
+with nearest-mask tie flips counted as there."""
 
 import numpy as np
 import jax
@@ -30,10 +31,10 @@ def port_scene(cfg, params, buffers):
     return tcfg, tp, tb
 
 
-def port_render(cfg, params, buffers, H, W, K, c2w, bg):
+def port_render(cfg, params, buffers, H, W, K, c2w, bg, use_bf16=False):
     tcfg, tp, tb = port_scene(cfg, params, buffers)
     out = cuda_sweep.render_frame_cuda(tcfg, tp, tb, H, W, K, c2w,
-                                       stepsize=1.0, bg=bg, use_bf16=False,
+                                       stepsize=1.0, bg=bg, use_bf16=use_bf16,
                                        device="cpu")
     return {k: v.numpy() for k, v in out.items()}
 
@@ -100,6 +101,43 @@ def test_plain_sweep_mismatched_mask():
     mse = float(np.mean((got["rgb_marched"] - np.asarray(ref["rgb_marched"]))
                         ** 2))
     assert -10 * np.log10(mse + 1e-12) > 20.0
+
+
+@pytest.mark.parametrize("scene", ["plain", "pe"])
+def test_plain_sweep_bf16_matches_pallas_bf16(scene):
+    """The main path's precision, use_bf16=True: bf16 grid, bf16 x weights
+    and bf16 MLP in both. Held to the float32 limits (2e-4, nearest-mask
+    tie flips counted); and much nearer the Pallas bf16 render than the
+    port's float32 render is, so the rounding is the reference's."""
+    if scene == "plain":
+        (cfg, params, buffers), H, W, f, tile = _scene(), 24, 32, 30.0, 8
+    else:
+        (cfg, params, buffers), H, W, f, tile = _pe_scene("match"), 16, 16, 40.0, 4
+    K, c2w = _cam(H, W, f=f)
+    pal = pallas_sweep.render_frame_pallas(
+        cfg, params, buffers, H, W, K, c2w, stepsize=1.0, bg=0.25, tile=tile,
+        patch=24, use_bf16=True, early_exit=True, interpret=True)
+    got = port_render(cfg, params, buffers, H, W, K, c2w, 0.25, use_bf16=True)
+    err = max_err(got, pal)
+    assert float((err > 2e-4).mean()) < 0.02
+    assert float(err.max()) < 0.05
+    f32 = port_render(cfg, params, buffers, H, W, K, c2w, 0.25)
+    assert float(err.mean()) < 0.1 * float(max_err(f32, pal).mean())
+
+
+def test_pack_mlp_rounds_weights_for_bf16():
+    rng = np.random.default_rng(8)
+    mlp = [(torch.as_tensor(rng.normal(size=(12, 16)), dtype=torch.float32),
+            torch.as_tensor(rng.normal(size=16), dtype=torch.float32)),
+           (torch.as_tensor(rng.normal(size=(16, 3)), dtype=torch.float32),
+            torch.as_tensor(rng.normal(size=3), dtype=torch.float32))]
+    f32, wp, _ = cuda_sweep.pack_mlp(mlp, 12)
+    b16, _, _ = cuda_sweep.pack_mlp(mlp, 12, bf16=True)
+    w0 = slice(0, 12 * wp)
+    b0 = slice(12 * wp, 13 * wp)
+    torch.testing.assert_close(b16[w0], tps.round_bf16(f32[w0]), rtol=0, atol=0)
+    assert not torch.equal(b16[w0], f32[w0])
+    torch.testing.assert_close(b16[b0], f32[b0], rtol=0, atol=0)
 
 
 def test_nearest_resample_mask_matches_pallas():
