@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build both CUDA kernels from ``fourk_nerf_torch/csrc`` (one nvcc per
-     source, in parallel) and print the build time and ptxas summary;
+  1. build the four CUDA kernels from ``fourk_nerf_torch/csrc`` (one nvcc
+     per source, in parallel) and print the build time and ptxas summary;
   2. sweep kernel vs its plain version on a small scene (viewdir PE 4,
      spatial PE 2, mask at grid resolution), float32 and bf16 paths;
   3. dense-block kernel vs its plain version, plain and tail mode, on a
@@ -19,7 +19,16 @@ Phases (any failure raises and the script exits non-zero):
      finiteness, kernel vs plain on the main path's inputs, timings;
   5. the same frame on the trained-content anchor
      ``tools/assets/med_sr_grids_f16.npz`` upsampled onto that geometry;
-  6. one JSON line per kernel summary, then the result line.
+  6. box kernel vs its plain version on a small bounded scene, float32
+     and bf16 paths, three poses (sweep axis and sign);
+  7. whole-RRDB kernel vs its plain version on the 100x150 frame, and vs
+     three dense-block launches;
+  8. the bounded-scene fly-through at full width: a 160^3 DirectVoxGO scene
+     (12-ch k0, rgbnet 3x128 on 39 inputs, blob fill 0.15, numpy seed 0),
+     three 800x800 poses through ``pipeline.render_video`` with a scale-1
+     SFTNet (64 feat, 5 RRDBs) and ``fuse_rrdb=True``: launch counts,
+     finiteness, both kernels vs plain on the path's inputs, timings;
+  9. one JSON line with the kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -45,6 +54,8 @@ FP32_FLOPS = 67e12         # H100 SXM, non-tensor
 BF16_FLOPS = 989e12        # H100 SXM, dense tensor core
 SWEEP_TOL = dict(tie=2e-4, tie_frac=0.02, max=0.05)
 RDB_TOL = 0.05             # max abs, as the JAX package's dense-block test
+BOX_HW = 800               # the bounded-scene frame (synthetic-NeRF size)
+BOX_FRAMES = 3
 SR_TOL = 0.1               # max abs of the full decode, kernel vs plain
 
 
@@ -85,12 +96,23 @@ def sweep_errors(got: dict, ref: dict, *, tie: float):
 
 
 def check_sweep(name: str, got: dict, ref: dict):
+    """Hold a sweep kernel's maps (plane sweep or box sweep) against the
+    plain version's: under 2% of the pixels above 2e-4, none above 0.05."""
     mx, frac = sweep_errors(got, ref, tie=SWEEP_TOL["tie"])
     log(f"  {name}: max abs {mx:.3e}, pixels above {SWEEP_TOL['tie']:.0e}"
         f" (tie flips) {frac:.4%}")
     if not (frac < SWEEP_TOL["tie_frac"] and mx < SWEEP_TOL["max"]):
         raise AssertionError(f"sweep kernel disagrees with plain ({name})")
     return mx
+
+
+def rdb_macs_per_px() -> int:
+    """MACs of one dense block per pixel: five 3x3 convs, SFT0 on 64
+    channels and SFT1 on 32 (each a scale and a shift branch of 32x32 then
+    32xC)."""
+    from fourk_nerf_torch.ops import cuda_sr
+    return (9 * sum(ci * co for ci, co in zip(cuda_sr._CIN, cuda_sr._COUT))
+            + 2 * (32 * 32 + 32 * 64) + 2 * (32 * 32 + 32 * 32))
 
 
 def phase_build():
@@ -297,8 +319,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     rdb_tail_ms = cuda_ms(
         lambda: cuda_sr.rdb_apply(body, ch, prep.packs[2], xin=body), 5)
     rdb_plain_ms = cuda_ms(lambda: cuda_sr.rdb_plain(body, ch, prep.packs[0]), 2)
-    mac_px = 9 * sum(ci * co for ci, co in zip(cuda_sr._CIN, cuda_sr._COUT)) \
-        + 2 * (32 * 32 + 32 * 64) + 2 * (32 * 32 + 32 * 32)
+    mac_px = rdb_macs_per_px()
     rdb_ops = 2 * mac_px * H * W / BF16_FLOPS * 1e3
     rdb_bytes = (H * W * (64 + 32 + 64) * 2
                  + prep.packs[0].conv.numel() * 2) / HBM_BYTES_PER_S * 1e3
@@ -335,7 +356,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     out = {"enc_ms": statistics.median(enc_t), "sr_ms": statistics.median(sr_t),
            "fps": 1e3 / statistics.median(tot_t)}
     log(f"  {label}: " + json.dumps({k: round(v, 3) for k, v in out.items()}))
-    profile_frame(pipe, K, c2w)
+    profile_frame(pipe, H, W, K, c2w)
     out.update(launches=launches, sweep_err=sweep_err, sweep_ms=sweep_ms,
                plain_sweep_ms=plain_sweep_ms, sweep_bound=sweep_bound,
                sweep_bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -345,7 +366,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     return out
 
 
-def profile_frame(pipe, K, c2w):
+def profile_frame(pipe, H, W, K, c2w):
     """One frame under torch.profiler: device time by kernel (top 8) and
     the device's idle share of the frame's wall time. Only device-side
     kernel rows are summed (operator rows repeat their kernels' time)."""
@@ -373,6 +394,288 @@ def profile_frame(pipe, K, c2w):
         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for us, key, n in rows[:8]:
         log(f"    {us / 1e3:9.2f} ms  x{n:<4d} {key[:90]}")
+
+
+def box_pose(ang: float):
+    """The orbit pose of the JAX package's bounded-scene bench: elevation
+    0.5 rad, azimuth ``ang``, the camera 4 units out looking at the origin
+    (-z forward)."""
+    ax, ay = 0.5, ang
+    Rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
+                   [0, np.sin(ax), np.cos(ax)]])
+    Ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
+                   [-np.sin(ay), 0, np.cos(ay)]])
+    R = (Ry @ Rx).astype(np.float32)
+    c2w = np.eye(4, dtype=np.float32)[:3, :4]
+    c2w[:3, :3] = R
+    c2w[:3, 3] = R @ np.array([0, 0, 4.0], np.float32)
+    return c2w
+
+
+def box_camera(hw: int):
+    f = 0.9 * hw
+    return np.array([[f, 0, hw / 2], [0, f, hw / 2], [0, 0, 1]], np.float32)
+
+
+def box_synthetic(dev, G: int = 160, fill: float = 0.15, *, direct=True,
+                  width: int = 128):
+    """The bounded scene of the JAX package's ``tools/perf/bench_box.py``
+    from numpy seed 0: a G^3 grid over [-1.2, 1.2]^3, 12-ch k0, rgbnet
+    3 x ``width`` (``rgbnet_direct`` as the published default config has
+    it), a central blob of volume share ``fill`` with density N(15, 5)
+    inside and -6 outside, the mask equal to the blob."""
+    import torch
+    from fourk_nerf_torch.models import dvgo
+    cfg = dvgo.make_config(
+        xyz_min=[-1.2, -1.2, -1.2], xyz_max=[1.2, 1.2, 1.2],
+        num_voxels=G ** 3, num_voxels_base=G ** 3, alpha_init=1e-6,
+        rgbnet_dim=12, rgbnet_width=width, rgbnet_depth=3, viewbase_pe=4,
+        rgbnet_direct=direct, fast_color_thres=1e-4)
+    params, buffers = dvgo.init(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    X, Y, Z = cfg.world_size
+    gx, gy, gz = np.meshgrid(np.linspace(-1, 1, X), np.linspace(-1, 1, Y),
+                             np.linspace(-1, 1, Z), indexing="ij")
+    blob = gx ** 2 + gy ** 2 + gz ** 2 \
+        < (3.0 * fill / (4.0 * np.pi) * 8.0) ** (2 / 3)
+    dens = np.where(blob, rng.normal(15.0, 5.0, blob.shape), -6.0)
+    params["density"] = torch.as_tensor(dens[..., None].astype(np.float32),
+                                        device=dev)
+    params["k0"] = torch.as_tensor(
+        rng.normal(0, 1, tuple(params["k0"].shape)).astype(np.float32),
+        device=dev)
+    buffers["mask_cache"] = torch.as_tensor(blob, device=dev)
+    return cfg, params, buffers
+
+
+BOX_RENDER = dict(stepsize=0.5, near=0.2, far=1e9, bg=1.0)
+
+
+def phase_box_small(dev):
+    from fourk_nerf_torch.ops import box_sweep, cuda_box
+    cfg, params, buffers = box_synthetic(dev, G=32, fill=0.3, direct=False,
+                                         width=64)
+    h, w = 96, 128
+    K = box_camera(w)
+    K[1, 2] = h / 2
+    log("[6] box kernel vs plain, small bounded scene (grid "
+        f"{cfg.world_size}, residual rgbnet 3x64, {h}x{w})")
+    worst = 0.0
+    # azimuths that sweep along +z, -x and -z of the grid
+    for ang in (0.1, 0.5 * np.pi, np.pi + 0.2):
+        c2w = box_pose(ang)
+        for use_bf16 in (False, True):
+            kw = dict(stepsize=0.5, near=0.2, bg=0.25, use_bf16=use_bf16,
+                      device=dev)
+            ref = box_sweep.render_frame_box(cfg, params, buffers, h, w, K,
+                                             c2w, **kw)
+            got = cuda_box.render_frame_box_cuda(cfg, params, buffers, h, w,
+                                                 K, c2w, **kw)
+            sync()
+            frame = box_sweep.prepare_frame_box(
+                cfg, h, w, K, c2w, stepsize=0.5, near=0.2, device=dev)
+            worst = max(worst, check_sweep(
+                f"azimuth {ang:.2f} (axis {frame.axis}, flip {frame.flip}) "
+                f"{'bf16' if use_bf16 else 'f32'}", got, ref))
+            if not float((ref["rgb_marched"] - 0.25).abs().max()) > 0.05:
+                raise AssertionError("the small bounded scene is not seen")
+    return worst
+
+
+def phase_rrdb_small(dev, sr_model):
+    import torch
+    from fourk_nerf_torch.ops import cuda_sr
+    h, w = 100, 150
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev).to(
+        torch.bfloat16).contiguous()
+    x, c = (t(rng.normal(size=(h, w, n))) for n in (64, 32))
+    wts = cuda_sr.pack_rrdb_weights(sr_model.body0)
+    log(f"[7] whole-RRDB kernel vs plain, {h}x{w} (divides neither the 8x16 "
+        "tile nor the 36x60 region)")
+    got = cuda_sr.rrdb_apply(x, c, wts)
+    ref = cuda_sr.rrdb_plain(x, c, wts)
+    cur = cuda_sr.rdb_apply(x, c, wts.block(0))
+    cur = cuda_sr.rdb_apply(cur, c, wts.block(1))
+    three = cuda_sr.rdb_apply(cur, c, wts.block(2), xin=x)
+    sync()
+    err = float((got.float() - ref.float()).abs().max())
+    err3 = float((got.float() - three.float()).abs().max())
+    log(f"  vs rrdb_plain: max abs {err:.3e}; vs three dense-block launches "
+        f"(bf16 between blocks): {err3:.3e} (|ref| max "
+        f"{float(ref.float().abs().max()):.2f})")
+    if not (err <= RDB_TOL and err3 <= RDB_TOL):
+        raise AssertionError("whole-RRDB kernel disagrees")
+    return err
+
+
+def run_flythrough(dev):
+    """Phase 8: the bounded-scene fly-through through ``render_video`` with
+    the launch counts, checks against the plain versions, then timings."""
+    import torch
+    from fourk_nerf_torch import weights
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sr, cuda_sweep
+    from fourk_nerf_torch.ops.plane_sweep import mlp_layers
+    from fourk_nerf_torch.pipeline import FramePipeline, render_video
+    from fourk_nerf_torch.train.trainer import DataFlags
+
+    hw = BOX_HW
+    cfg, params, buffers = box_synthetic(dev)
+    sr_model = weights.sftnet_init(num_block=5, scale=1, seed=2, device=dev)
+    prep = cuda_sr.prepare_sftnet(sr_model)
+    K = box_camera(hw)
+    poses = [box_pose(0.1 + 0.2 * i) for i in range(BOX_FRAMES)]
+    log(f"  scene: grid {cfg.world_size}, occupancy "
+        f"{float(buffers['mask_cache'].float().mean()):.3f}, rgbnet input "
+        f"{cfg.dim0}, K {cfg.n_samples(0.5)} samples per ray at most")
+    sync()
+
+    # the main path, counted
+    counters = {"box": cuda_box.sweep_box, "rrdb": cuda_sr.rrdb_apply,
+                "rdb": cuda_sr.rdb_apply, "sweep": cuda_sweep.sweep}
+    for fn in counters.values():
+        fn.launches = 0
+    out = render_video(dvgo, cfg, params, buffers, prep, poses, (hw, hw), K,
+                       data=DataFlags(), render_kwargs=BOX_RENDER,
+                       fuse_rrdb=True, device=dev)
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"  main-path launches over {BOX_FRAMES} frames: {launches}")
+    want = {"box": BOX_FRAMES, "rrdb": BOX_FRAMES * sr_model.num_block,
+            "rdb": 0, "sweep": 0}
+    if launches != want:
+        raise AssertionError(f"unexpected launch counts {launches}")
+    frames, enc = out["frames"], out["encoder"]
+    if tuple(frames.shape) != (BOX_FRAMES, hw, hw, 3) or enc["path"] != "box":
+        raise AssertionError(f"frames {tuple(frames.shape)} via {enc['path']}")
+    for k in ("rgb_features", "depths", "bgmaps"):
+        if not bool(torch.isfinite(enc[k]).all()):
+            raise AssertionError(f"non-finite encoder {k}")
+    if not bool(torch.isfinite(frames).all()) or float(frames.min()) < 0 \
+            or float(frames.max()) > 1:
+        raise AssertionError("SR frames not finite in [0, 1]")
+    covered = float((enc["bgmaps"] < 0.5).float().mean())
+    log(f"  frames {tuple(frames.shape)}, all finite in [0,1]; share of "
+        f"pixels the blob covers {covered:.3f}; encoder "
+        f"{[round(t * 1e3, 1) for t in enc['frame_times']]} ms, decoder "
+        f"{[round(t * 1e3, 1) for t in out['sr_times']]} ms (first frame "
+        "includes warm-up)")
+    if not 0.02 < covered < 0.95:
+        raise AssertionError("the blob is not in view")
+
+    # box kernel vs plain at the path's inputs (frame 0, the bf16 path)
+    pipe = FramePipeline(cfg, params, buffers, prep, fuse_rrdb=True,
+                         device=dev, **{k: BOX_RENDER[k]
+                                        for k in ("stepsize", "near", "bg")})
+    c2w = poses[0]
+    frame = box_sweep.prepare_frame_box(cfg, hw, hw, K, c2w, stepsize=0.5,
+                                        near=0.2, device=dev)
+    mlp = mlp_layers(params["rgbnet"])
+    kw = box_sweep.sweep_kwargs(cfg, frame, pipe.packed, 0.5)
+    vox = pipe.packed.voxels
+    stats: dict = {}
+    t0 = time.perf_counter()
+    ref = box_sweep.sweep_box_plain(vox, frame.consts, frame.vde, mlp,
+                                    stats=stats, **kw)
+    sync()
+    box_plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = box_sweep.assemble(*ref, hw, hw, BOX_RENDER["bg"])
+    got = {"rgb_marched": enc["rgbs"][0], "depth": enc["depths"][0],
+           "alphainv_last": enc["bgmaps"][0]}
+    box_err = check_sweep("box kernel vs plain (bf16 path, frame 0)", got, ref)
+    log(f"  sweep axis {frame.axis}, flip {frame.flip}; samples in range "
+        f"{stats['samples']}, with non-zero weight (MLP evaluated) "
+        f"{stats['mlp_samples']}")
+    box_ms = cuda_ms(lambda: cuda_box.sweep_box(vox, frame.consts, frame.vde,
+                                                mlp, **kw), 5)
+    width = mlp[0][0].shape[1]
+    mlp_flop = 2 * (cfg.dim0 * width + (len(mlp) - 2) * width * width
+                    + width * 3)
+    box_bytes = (vox.shape[0] * (pipe.packed.mask_ch + 1) * vox.element_size()
+                 + (frame.consts.numel() + frame.vde.numel()) * 4
+                 + hw * hw * 5 * 4)
+    t_bytes = box_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = stats["mlp_samples"] * mlp_flop / BF16_FLOPS * 1e3
+    box_bound = max(t_bytes, t_ops)
+    log(f"  box kernel {box_ms:.3f} ms, plain {box_plain_ms:.1f} ms, bound "
+        f"{box_bound:.4f} ms (bytes {t_bytes:.4f} ms, bf16 MLP ops "
+        f"{t_ops:.4f} ms)")
+
+    # rrdb kernel vs plain at the path's first RRDB input
+    feat = enc["rgb_features"][0][None]
+    depth = enc["depths"][0][None, ..., None]
+    _, _, body, ch = cuda_sr.sftnet_head(prep, feat, depth)
+    w0 = prep.rrdb_packs[0]
+    got = cuda_sr.rrdb_apply(body, ch, w0)
+    want_ = cuda_sr.rrdb_plain(body, ch, w0)
+    sync()
+    rrdb_err = float((got.float() - want_.float()).abs().max())
+    log(f"  rrdb kernel vs plain at {hw}x{hw}: max abs {rrdb_err:.3e}")
+    if not rrdb_err <= RDB_TOL:
+        raise AssertionError("whole-RRDB kernel disagrees on the main path")
+    del got, want_
+    rrdb_ms = cuda_ms(lambda: cuda_sr.rrdb_apply(body, ch, w0), 3)
+
+    def three_rdb():
+        cur = cuda_sr.rdb_apply(body, ch, prep.packs[0])
+        cur = cuda_sr.rdb_apply(cur, ch, prep.packs[1])
+        return cuda_sr.rdb_apply(cur, ch, prep.packs[2], xin=body)
+
+    three_ms = cuda_ms(three_rdb, 3)
+    rrdb_plain_ms = cuda_ms(lambda: cuda_sr.rrdb_plain(body, ch, w0), 2)
+    mac_px = 3 * rdb_macs_per_px() + 2 * (32 * 32 + 32 * 64)
+    rrdb_ops = 2 * mac_px * hw * hw / BF16_FLOPS * 1e3
+    rrdb_bytes = (hw * hw * (64 + 32 + 64) * 2 + w0.conv.numel() * 2
+                  + (w0.bias.numel() + w0.sftm.numel() + w0.sftb.numel()) * 4
+                  ) / HBM_BYTES_PER_S * 1e3
+    rrdb_bound = max(rrdb_ops, rrdb_bytes)
+    log(f"  rrdb kernel {rrdb_ms:.3f} ms, three dense-block launches "
+        f"{three_ms:.3f} ms, plain {rrdb_plain_ms:.1f} ms, bound "
+        f"{rrdb_bound:.4f} ms ({mac_px} MAC/px at the bf16 peak; bytes "
+        f"{rrdb_bytes:.4f} ms)")
+
+    # the decode: kernel chain vs plain chain on frame 0
+    sr_ref = cuda_sr.sftnet_apply_plain(prep, feat, depth, fuse_rrdb=True)
+    sync()
+    d = (frames[0] - sr_ref[0].clamp(0, 1)).abs()
+    sr_err, sr_mean = float(d.max()), float(d.mean())
+    log(f"  SR kernel chain vs plain chain (fuse_rrdb): max abs {sr_err:.3e},"
+        f" mean {sr_mean:.3e}")
+    if not sr_err <= SR_TOL:
+        raise AssertionError("fused SR output disagrees with the plain chain")
+    del sr_ref, d
+
+    # timings: one warm-up frame, then the poses in turn, five frames
+    pipe(hw, hw, K, poses[0])
+    sync()
+    enc_t, sr_t, tot_t = [], [], []
+    for i in range(5):
+        t0 = time.perf_counter()
+        e = pipe.encode(hw, hw, K, poses[i % BOX_FRAMES])
+        sync()
+        t1 = time.perf_counter()
+        pipe.decode(e)
+        sync()
+        t2 = time.perf_counter()
+        enc_t.append((t1 - t0) * 1e3)
+        sr_t.append((t2 - t1) * 1e3)
+        tot_t.append((t2 - t0) * 1e3)
+    res = {"enc_ms": statistics.median(enc_t),
+           "sr_ms": statistics.median(sr_t),
+           "fps": 1e3 / statistics.median(tot_t)}
+    log("  fly-through: " + json.dumps({k: round(v, 3)
+                                        for k, v in res.items()}))
+    profile_frame(pipe, hw, hw, K, poses[0])
+    res.update(launches=launches, box_err=box_err, box_ms=box_ms,
+               box_plain_ms=box_plain_ms, box_bound=box_bound,
+               box_bound_by="bytes" if t_bytes >= t_ops else "operations",
+               rrdb_err=rrdb_err, rrdb_ms=rrdb_ms, rrdb_plain_ms=rrdb_plain_ms,
+               rrdb_bound=rrdb_bound, three_rdb_ms=three_ms,
+               rrdb_bound_by="operations" if rrdb_ops >= rrdb_bytes
+               else "bytes")
+    return res
 
 
 def main() -> int:
@@ -416,6 +719,14 @@ def main() -> int:
     anc = run_frame("anchor", *weights.load_anchor(device=dev), sr_model, dev)
     log(f"  anchor asset: {os.path.basename(weights.ANCHOR_ASSET)}, sweep "
         f"{anc['sweep_ms']:.3f} ms, bound {anc['sweep_bound']:.3f} ms")
+    del anc
+    torch.cuda.empty_cache()
+
+    phase_box_small(dev)
+    phase_rrdb_small(dev, sr_model)
+    log(f"[8] bounded-scene fly-through, {BOX_FRAMES} frames of "
+        f"{BOX_HW}x{BOX_HW}, fuse_rrdb")
+    fly = run_flythrough(dev)
 
     kernels = [
         {"name": "sweep", "route": "cuda",
@@ -432,6 +743,22 @@ def main() -> int:
          "max_abs_err": syn["rdb_err"], "ms": syn["rdb_ms"],
          "plain_ms": syn["rdb_plain_ms"], "bound_ms": syn["rdb_bound"],
          "bound_by": syn["rdb_bound_by"], "library_ms": None},
+        # library_ms is null for both: no single PyTorch call renders a
+        # volume sweep or a whole RRDB
+        {"name": "box", "route": "cuda",
+         "source": "fourk_nerf_torch/csrc/box.cu",
+         "replaces": "fourk_nerf_tpu/ops/pallas_box.py:533",
+         "launches": fly["launches"]["box"],
+         "max_abs_err": fly["box_err"], "ms": fly["box_ms"],
+         "plain_ms": fly["box_plain_ms"], "bound_ms": fly["box_bound"],
+         "bound_by": fly["box_bound_by"], "library_ms": None},
+        {"name": "rrdb", "route": "cuda",
+         "source": "fourk_nerf_torch/csrc/rrdb.cu",
+         "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:428",
+         "launches": fly["launches"]["rrdb"],
+         "max_abs_err": fly["rrdb_err"], "ms": fly["rrdb_ms"],
+         "plain_ms": fly["rrdb_plain_ms"], "bound_ms": fly["rrdb_bound"],
+         "bound_by": fly["rrdb_bound_by"], "library_ms": None},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

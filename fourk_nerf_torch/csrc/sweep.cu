@@ -40,15 +40,18 @@
 // ray, so it stays far above that bound; warp divergence between live and
 // dead lanes adds to it. A tensor-core MLP over compacted samples is the
 // known next step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sweep_common.cuh"
 
 namespace {
 
+using sweepc::act_fn;
+using sweepc::axis_interval;
+using sweepc::feed;
+using sweepc::kThreads;
+using sweepc::ld;
+using sweepc::rnd;
+
 constexpr float kEarlyTerm = 1e-3f;
-constexpr float kBig = 1e9f;
-constexpr int kThreads = 128;
 
 struct SweepArgs {
   const void* grid;        // [Z, X, Y, Cp], float or bf16
@@ -56,7 +59,7 @@ struct SweepArgs {
   const float* a;          // [R, 2] grid-space xy at plane 0
   const float* b;          // [R, 2] xy step per plane
   const float* vde;        // [R, E] viewdir embedding
-  const float* mlp;        // packed weights, layout above sweep_kernel
+  const float* mlp;        // packed weights, layout of sweep_common.cuh
   float* rgb;              // [R, 3] rgb_feature (no background)
   float* depth;            // [R]
   float* ail;              // [R] alphainv_last
@@ -65,58 +68,7 @@ struct SweepArgs {
   float interval, fast_thres;
 };
 
-__device__ __forceinline__ float ld(const float* p, size_t i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(__ldg(p + i));
-}
-
-// the compute type follows the grid's: with a bf16 grid the x weights and
-// the MLP's inputs and hidden activations are rounded to bf16 (the MLP
-// weights are rounded by the wrapper)
-__device__ __forceinline__ float rnd(float v, const float*) { return v; }
-__device__ __forceinline__ float rnd(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float act_fn(float x, int act) {
-  if (act == 0) return fmaxf(x, 0.f);
-  if (act == 1) return x >= 0.f ? x : 0.01f * x;
-  return expf(-(x * x) / 0.005f);  // GaussianActivation(a=0.05)
-}
-
-// in-bounds plane interval of one axis (pos = a + b*k in [0, hi])
-__device__ __forceinline__ void axis_interval(float a, float b, float hi,
-                                              float& lo_k, float& hi_k) {
-  const bool degen = fabsf(b) <= 1e-12f;
-  const float bb = degen ? 1e-12f : b;
-  const float t1 = (0.f - a) / bb, t2 = (hi - a) / bb;
-  lo_k = fminf(t1, t2);
-  hi_k = fmaxf(t1, t2);
-  if (degen) {
-    const bool inside = a >= 0.f && a <= hi;
-    lo_k = inside ? -kBig : kBig;
-    hi_k = inside ? kBig : -kBig;
-  }
-}
-
-template <int WP>
-__device__ __forceinline__ void feed(float (&acc)[WP], const float* row,
-                                     float v) {
-#pragma unroll
-  for (int j = 0; j < WP; j += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(row + j);
-    acc[j] += v * w.x;
-    acc[j + 1] += v * w.y;
-    acc[j + 2] += v * w.z;
-    acc[j + 3] += v * w.w;
-  }
-}
-
-// Shared-memory layout (floats): the MLP, W0 [cin0][WP], b0 [WP]; then for
-// each hidden layer W [WP][WP], b [WP]; then the output layer W [WP][4],
-// b [4]; then WP x kThreads floats of hidden-activation scratch.
+// Shared memory: the MLP and its scratch, in the layout of sweep_common.cuh.
 template <typename Tg, int WP>
 __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepArgs p) {
   extern __shared__ __align__(16) float sm[];
@@ -223,29 +175,10 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepArgs p) {
         for (int e = 0; e < p.E; ++e)
           feed<WP>(acc, W0 + (i++) * WP, rnd(__ldg(vr + e), grid));
 
-        // hidden layers: the activations go through this thread's column
-        // of shared scratch, so one register vector (acc) is live
-        const float* Wl = B0 + WP;
-        for (int l = 1; l < p.n_layers - 1; ++l) {
-#pragma unroll
-          for (int j = 0; j < WP; ++j)
-            hs[j * kThreads] = rnd(act_fn(acc[j], p.act), grid);
-          const float* Bl = Wl + WP * WP;
-#pragma unroll
-          for (int j = 0; j < WP; ++j) acc[j] = Bl[j];
-          for (int ii = 0; ii < WP; ++ii)
-            feed<WP>(acc, Wl + ii * WP, hs[ii * kThreads]);
-          Wl = Bl + WP;
-        }
-        float o0 = Wl[WP * 4], o1 = Wl[WP * 4 + 1], o2 = Wl[WP * 4 + 2];
-#pragma unroll
-        for (int ii = 0; ii < WP; ++ii) {
-          const float h = rnd(act_fn(acc[ii], p.act), grid);
-          const float4 wv = *reinterpret_cast<const float4*>(Wl + ii * 4);
-          o0 += h * wv.x;
-          o1 += h * wv.y;
-          o2 += h * wv.z;
-        }
+        // hidden and output layers (one register vector stays live)
+        float o0, o1, o2;
+        sweepc::rest<Tg, WP>(acc, B0 + WP, p.n_layers, p.act, hs, grid, o0, o1,
+                          o2);
         c0 += w * (1.f / (1.f + expf(-o0)));
         c1 += w * (1.f / (1.f + expf(-o1)));
         c2 += w * (1.f / (1.f + expf(-o2)));

@@ -13,11 +13,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from fourk_nerf_torch.device import resolve_device
+
 
 def mlp_init(dims: Sequence[int], *, generator: torch.Generator,
-             device="cpu") -> dict:
-    """nn.Linear-style init: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    final bias zeroed."""
+             device=None) -> dict:
+    """nn.Linear-style init on ``device`` (default ``cuda``): W, b ~
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), final bias zeroed."""
+    device = resolve_device(device)
     params = {}
     n_layers = len(dims) - 1
     for li in range(n_layers):
@@ -75,3 +78,13 @@ def mpi_act_shift(mpi_depth: int, voxel_size_ratio: float) -> np.ndarray:
         p.append((1 - g[: i + 1].sum()) / (1 - g[:i].sum()))
     return np.array([np.log(pi ** (-1.0 / voxel_size_ratio) - 1.0)
                      for pi in p], dtype=np.float32)
+
+
+def dvgo_grid_resolution(xyz_min, xyz_max, num_voxels: int):
+    """Cubic-voxel world size and voxel size of a bounded scene (float64 on
+    the host)."""
+    xyz_min = np.asarray(xyz_min, dtype=np.float64)
+    xyz_max = np.asarray(xyz_max, dtype=np.float64)
+    voxel_size = (np.prod(xyz_max - xyz_min) / num_voxels) ** (1.0 / 3.0)
+    world_size = ((xyz_max - xyz_min) / voxel_size).astype(np.int64)
+    return tuple(int(w) for w in world_size), float(voxel_size)

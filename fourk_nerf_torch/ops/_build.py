@@ -5,7 +5,8 @@ compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library under ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), then loaded with ``ctypes``. No PyTorch header is
 included, so a build takes seconds, not minutes. The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt.
 
 Nothing is built when the module is imported: the first :func:`load` of a
 kernel builds it, and :func:`build_all` builds every source at once, one
@@ -24,7 +25,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-KERNELS = ("sweep", "rdb")
+KERNELS = ("sweep", "rdb", "box", "rrdb")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
@@ -41,9 +42,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{h[:16]}.so")
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=KERNELS) -> dict:

@@ -1,5 +1,6 @@
-"""The decoder of the 4K frame on the card: the fused SFT dense-block kernel
-(``csrc/rdb.cu``) and the SFTNet driver around it.
+"""The SFTNet decoder on the card: the fused SFT dense-block kernel
+(``csrc/rdb.cu``), the whole-RRDB kernel (``csrc/rrdb.cu``) and the SFTNet
+decode around them.
 
 :func:`rdb_apply` is the kernel's wrapper: one ResidualDenseBlock_SFT on
 NHWC bf16 ``x [H,W,64]`` and ``cond [H,W,32]``, in tail mode (``xin``
@@ -8,11 +9,17 @@ it launches the kernel (and raises if the launch fails); for CPU tensors,
 and only for them, it runs the plain version :func:`rdb_plain`. It counts
 its launches in ``rdb_apply.launches``.
 
+:func:`rrdb_apply` wraps the whole-RRDB kernel the same way: three dense
+blocks, the RRDB's trailing SFT and both residuals in one launch, with the
+features carried in float32 between the blocks. Its plain version is
+:func:`rrdb_plain`, its count ``rrdb_apply.launches``.
+
 :func:`sftnet_apply_cuda` is the decode of the JAX package's
 ``pallas_sr.sftnet_apply_pallas`` with ``upchain="dilated"``: bf16 head
-convs (cuDNN), the 15 dense blocks through :func:`rdb_apply`, bf16 tail
+convs (cuDNN), the 15 dense blocks through :func:`rdb_apply` (or, with
+``fuse_rrdb=True``, the 5 RRDBs through :func:`rrdb_apply`), bf16 tail
 convs, a float32 ``conv_last``. :func:`sftnet_apply_plain` is the same
-chain with :func:`rdb_plain` in place of the kernel.
+chain with the plain versions in place of the kernels.
 """
 
 from __future__ import annotations
@@ -85,21 +92,24 @@ def _unpack_conv(w: RdbWeights, s: int):
     return k.reshape(3, 3, _CIN[s], _COUT[s]).permute(3, 2, 0, 1)
 
 
-def rdb_plain(x, cond, w: RdbWeights, xin=None):
-    """Plain PyTorch dense block with the kernel's rounding points:
-    bf16 storage, float32 sums, full-frame SAME zero padding."""
+def _sft_plain(cf, w: RdbWeights, base: int, n: int):
+    """(scale, shift) ``[H,W,n]`` of SFT rows ``base..base+3`` on the float32
+    condition ``cf``; the hidden layer is rounded to bf16."""
     bf = torch.bfloat16
-    xf, cf = x.float(), cond.float()
+    h = lrelu(cf @ w.sftm[base, :, :_G] + w.sftb[base, :_G]).to(bf).float()
+    scale = h @ w.sftm[base + 1, :, :n] + w.sftb[base + 1, :n]
+    h2 = lrelu(cf @ w.sftm[base + 2, :, :_G]
+               + w.sftb[base + 2, :_G]).to(bf).float()
+    shift = h2 @ w.sftm[base + 3, :, :n] + w.sftb[base + 3, :n]
+    return scale, shift
 
-    def sft(base, n):
-        h = lrelu(cf @ w.sftm[base, :, :_G] + w.sftb[base, :_G]).to(bf).float()
-        scale = h @ w.sftm[base + 1, :, :n] + w.sftb[base + 1, :n]
-        h2 = lrelu(cf @ w.sftm[base + 2, :, :_G]
-                   + w.sftb[base + 2, :_G]).to(bf).float()
-        shift = h2 @ w.sftm[base + 3, :, :n] + w.sftb[base + 3, :n]
-        return scale, shift
 
-    sc, sh = sft(0, _F)
+def _block_plain(xf, cf, w: RdbWeights):
+    """One dense block on float32 ``xf [H,W,64]``: the float32 output
+    ``conv5 * 0.2 + xf`` (not rounded), with the kernel's rounding points
+    inside: bf16 conv operands, float32 sums, full-frame SAME padding."""
+    bf = torch.bfloat16
+    sc, sh = _sft_plain(cf, w, 0, _F)
     srcs = [(xf * (sc + 1.0) + sh).to(bf)]
     for s in range(5):
         inp = torch.cat(srcs, -1).float().permute(2, 0, 1)[None]
@@ -108,13 +118,21 @@ def rdb_plain(x, cond, w: RdbWeights, xin=None):
         if s < 4:
             y = lrelu(acc).to(bf)
             if s == 3:
-                sc1, sh1 = sft(4, _G)
+                sc1, sh1 = _sft_plain(cf, w, 4, _G)
                 y = (y.float() * (sc1 + 1.0) + sh1).to(bf)
             srcs.append(y)
-    out = acc * 0.2 + xf
+    return acc * 0.2 + xf
+
+
+def rdb_plain(x, cond, w: RdbWeights, xin=None):
+    """Plain PyTorch dense block with the kernel's rounding points:
+    bf16 storage, float32 sums, full-frame SAME zero padding."""
+    bf = torch.bfloat16
+    cf = cond.float()
+    out = _block_plain(x.float(), cf, w)
     if xin is None:
         return out.to(bf)
-    sc2, sh2 = sft(8, _F)
+    sc2, sh2 = _sft_plain(cf, w, 8, _F)
     out = ((out * (sc2 + 1.0) + sh2) * 0.2).to(bf)
     return (out.float() + xin.float()).to(bf)
 
@@ -164,24 +182,124 @@ rdb_apply.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
+class RrdbWeights:
+    """One RRDB's three dense-block packs stacked on a leading axis:
+    ``conv [3, n]`` bf16, ``bias [3, 5, 64]``, ``sftm [3, 12, 32, 64]``,
+    ``sftb [3, 12, 64]``. The third block's SFT rows 8..11 hold the RRDB's
+    trailing SFT."""
+
+    conv: torch.Tensor
+    bias: torch.Tensor
+    sftm: torch.Tensor
+    sftb: torch.Tensor
+
+    def block(self, r: int) -> RdbWeights:
+        return RdbWeights(self.conv[r], self.bias[r], self.sftm[r],
+                          self.sftb[r], r == 2)
+
+
+def _stack_packs(packs) -> RrdbWeights:
+    """Three dense-block packs (the third with the RRDB's SFT) stacked."""
+    return RrdbWeights(*(torch.stack([getattr(p, f) for p in packs])
+                         .contiguous()
+                         for f in ("conv", "bias", "sftm", "sftb")))
+
+
+def pack_rrdb_weights(body) -> RrdbWeights:
+    """Pack an ``RRDBSFT`` module for :func:`rrdb_apply`."""
+    return _stack_packs([pack_rdb_weights(body.rdb1),
+                         pack_rdb_weights(body.rdb2),
+                         pack_rdb_weights(body.rdb3, rrdb_sft=body.sft0)])
+
+
+def rrdb_plain(x, cond, w: RrdbWeights):
+    """Plain PyTorch RRDB with the kernel's rounding points: the features
+    stay float32 between the three blocks, the tail
+    ``SFT(x3) * 0.2 + x`` is rounded to bf16 once."""
+    cf = cond.float()
+    x0 = x.float()
+    xf = x0
+    for r in range(3):
+        xf = _block_plain(xf, cf, w.block(r))
+    sc, sh = _sft_plain(cf, w.block(2), 8, _F)
+    return ((xf * (sc + 1.0) + sh) * 0.2 + x0).to(torch.bfloat16)
+
+
+_RRDB_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def rrdb_apply(x, cond, w: RrdbWeights):
+    """One whole RRDB in one launch. Returns ``[H, W, 64]`` bf16."""
+    tensors = [x, cond, w.conv, w.bias, w.sftm, w.sftb]
+    if all(t.device.type == "cpu" for t in tensors):
+        return rrdb_plain(x, cond, w)
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("rrdb_apply: all tensors must be on one CUDA device "
+                         "(or all on the CPU for the plain version)")
+    if x.dim() != 3 or x.shape[2] != _F:
+        raise ValueError(f"rrdb_apply: x must be [H,W,64], got {tuple(x.shape)}")
+    H, W = x.shape[:2]
+    for name, t, shape in (("x", x, (H, W, _F)), ("cond", cond, (H, W, _G))):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"rrdb_apply: {name} must be contiguous bf16 "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    n_conv = sum(9 * ci * co for ci, co in zip(_CIN, _COUT))
+    if w.conv.dtype != torch.bfloat16 or tuple(w.conv.shape) != (3, n_conv) \
+            or not all(t.is_contiguous() for t in tensors[2:]):
+        raise ValueError("rrdb_apply: bad packed weights")
+    lib = _build.load("rrdb")
+    lib.rrdb_scratch_floats.restype = ctypes.c_longlong
+    lib.rrdb_regions.argtypes = [ctypes.c_int, ctypes.c_int]
+    # one persistent thread block per SM, each with its own scratch for
+    # the float32 features between the dense blocks
+    blocks = min(lib.rrdb_regions(H, W),
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    scratch = torch.empty(blocks * lib.rrdb_scratch_floats(),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    fn = lib.rrdb_launch
+    fn.argtypes, fn.restype = _RRDB_ARGTYPES, ctypes.c_int
+    err = fn(x.data_ptr(), cond.data_ptr(), out.data_ptr(),
+             w.conv.data_ptr(), w.bias.data_ptr(), w.sftm.data_ptr(),
+             w.sftb.data_ptr(), scratch.data_ptr(), H, W, n_conv, blocks,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "rrdb_error_string", err, "rrdb kernel")
+    rrdb_apply.launches += 1
+    return out
+
+
+rrdb_apply.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class PreparedSFTNet:
     """An SFTNet ready for the fused decode: a bf16 copy of the module,
-    the packed weights of its ``3 * num_block`` dense blocks, and
+    the packed weights of its ``3 * num_block`` dense blocks, the same
+    weights stacked per RRDB (``num_block`` packs, for ``fuse_rrdb``), and
     ``conv_last``'s float32 bias (the last conv adds it in float32)."""
 
     m16: SFTNet
     packs: tuple
+    rrdb_packs: tuple
     last_bias: torch.Tensor
 
 
-def prepare_sftnet(model: SFTNet) -> PreparedSFTNet:
+def prepare_sftnet(model) -> PreparedSFTNet:
+    """Pack an :class:`SFTNet` for the fused decode (a
+    :class:`PreparedSFTNet` is returned as it is)."""
+    if isinstance(model, PreparedSFTNet):
+        return model
     packs = []
     for i in range(model.num_block):
         body = getattr(model, f"body{i}")
         packs += [pack_rdb_weights(body.rdb1), pack_rdb_weights(body.rdb2),
                   pack_rdb_weights(body.rdb3, rrdb_sft=body.sft0)]
+    rrdb_packs = tuple(_stack_packs(packs[i:i + 3])
+                       for i in range(0, len(packs), 3))
     m16 = copy.deepcopy(model).to(torch.bfloat16).eval()
-    return PreparedSFTNet(m16, tuple(packs),
+    return PreparedSFTNet(m16, tuple(packs), rrdb_packs,
                           model.conv_last.bias.detach().float().clone())
 
 
@@ -197,14 +315,18 @@ def sftnet_head(prep: PreparedSFTNet, x, cond):
             c[0].permute(1, 2, 0).contiguous())
 
 
-def _sftnet_fused(prep: PreparedSFTNet, x, cond, rdb):
-    """The dilated-upchain fused decode with dense-block function ``rdb``;
-    ``x [1,H,W,Cin]``, ``cond [1,H,W,num_cond]`` -> float32
-    ``[1, 4H, 4W, 3]`` (or the model's scale)."""
+def _sftnet_fused(prep: PreparedSFTNet, x, cond, rdb, rrdb=None):
+    """The dilated-upchain fused decode with dense-block function ``rdb``
+    or, when given, whole-RRDB function ``rrdb``; ``x [1,H,W,Cin]``,
+    ``cond [1,H,W,num_cond]`` -> float32 ``[1, 4H, 4W, 3]`` (or the model's
+    scale)."""
     m = prep.m16
     feat, c, body, ch = sftnet_head(prep, x, cond)
     with torch.no_grad():
         for i in range(m.num_block):
+            if rrdb is not None:
+                body = rrdb(body, ch, prep.rrdb_packs[i])
+                continue
             xin = body
             cur = rdb(body, ch, prep.packs[3 * i])
             cur = rdb(cur, ch, prep.packs[3 * i + 1])
@@ -222,14 +344,17 @@ def _sftnet_fused(prep: PreparedSFTNet, x, cond, rdb):
     return out.permute(0, 2, 3, 1)
 
 
-def sftnet_apply_cuda(model, x, cond):
+def sftnet_apply_cuda(model, x, cond, *, fuse_rrdb: bool = False):
     """SFTNet decode with the 15 (``3 * num_block``) dense blocks on the
-    kernel. ``model``: an :class:`SFTNet` or a :class:`PreparedSFTNet`."""
-    prep = model if isinstance(model, PreparedSFTNet) else prepare_sftnet(model)
-    return _sftnet_fused(prep, x, cond, rdb_apply)
+    dense-block kernel or, with ``fuse_rrdb``, the ``num_block`` RRDBs on
+    the whole-RRDB kernel. ``model``: an :class:`SFTNet` or a
+    :class:`PreparedSFTNet`."""
+    return _sftnet_fused(prepare_sftnet(model), x, cond, rdb_apply,
+                         rrdb_apply if fuse_rrdb else None)
 
 
-def sftnet_apply_plain(model, x, cond):
-    """:func:`sftnet_apply_cuda` with :func:`rdb_plain` for every block."""
-    prep = model if isinstance(model, PreparedSFTNet) else prepare_sftnet(model)
-    return _sftnet_fused(prep, x, cond, rdb_plain)
+def sftnet_apply_plain(model, x, cond, *, fuse_rrdb: bool = False):
+    """:func:`sftnet_apply_cuda` with :func:`rdb_plain` for every block
+    (:func:`rrdb_plain` for every RRDB with ``fuse_rrdb``)."""
+    return _sftnet_fused(prepare_sftnet(model), x, cond, rdb_plain,
+                         rrdb_plain if fuse_rrdb else None)

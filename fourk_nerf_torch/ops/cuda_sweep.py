@@ -128,7 +128,9 @@ sweep.launches = 0
 
 def render_frame_cuda(cfg, params, buffers, H: int, W: int, K, c2w, *,
                       stepsize: float, bg: float, use_bf16: bool = True,
-                      device=None, packed: PackedGrid | None = None) -> dict:
+                      device=None, packed: PackedGrid | None = None,
+                      inverse_y: bool = False, flip_x: bool = False,
+                      flip_y: bool = False) -> dict:
     """Render one ``H x W`` frame through one sweep launch.
 
     Returns ``rgb_feature [H,W,3]``, ``rgb_marched`` (feature plus
@@ -143,7 +145,9 @@ def render_frame_cuda(cfg, params, buffers, H: int, W: int, K, c2w, *,
     dev = resolve_device(device)
     if packed is None:
         packed = pack_grids_kernel(params, buffers, use_bf16=use_bf16)
-    a, b, vde = plane_sweep.prepare_frame(cfg, H, W, K, c2w, device=dev)
+    a, b, vde = plane_sweep.prepare_frame(
+        cfg, H, W, K, c2w, device=dev, inverse_y=inverse_y, flip_x=flip_x,
+        flip_y=flip_y)
     X, Y, _ = cfg.world_size
     rgb, depth, ail = sweep(
         packed.packed, packed.act_shift, a, b, vde,

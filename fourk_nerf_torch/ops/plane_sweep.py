@@ -83,12 +83,14 @@ def affine_coeffs(rays_o, rays_d, xyz_min, xyz_max, sizes, n_samples: int):
     return a, b
 
 
-def prepare_frame(cfg, H: int, W: int, K, c2w, *, device):
+def prepare_frame(cfg, H: int, W: int, K, c2w, *, device,
+                  inverse_y: bool = False, flip_x: bool = False,
+                  flip_y: bool = False):
     """Per-ray sweep inputs for one camera, row-major over pixels:
     ``a, b [H*W, 2]`` and the viewdir embedding ``vde [H*W, E]``."""
     ro, rd, vd = ray_ops.get_rays_of_a_view(
-        H, W, K, c2w, ndc=True, inverse_y=False, flip_x=False, flip_y=False,
-        device=device)
+        H, W, K, c2w, ndc=True, inverse_y=inverse_y, flip_x=flip_x,
+        flip_y=flip_y, device=device)
     X, Y, Z = cfg.world_size
     sizes = torch.tensor([X, Y], dtype=torch.float32, device=device)
     a, b = affine_coeffs(ro, rd, as_tensor(cfg.xyz_min, device),
@@ -229,7 +231,9 @@ def _sweep_chunk(packed, act_shift, a, b, vde, mlp, rgb, depth, t, *, Xl,
 
 def render_frame(cfg, params, buffers, H: int, W: int, K, c2w, *,
                  stepsize: float, bg: float, use_bf16: bool = False,
-                 device=None, packed: PackedGrid | None = None) -> dict:
+                 device=None, packed: PackedGrid | None = None,
+                 inverse_y: bool = False, flip_x: bool = False,
+                 flip_y: bool = False) -> dict:
     """Full-frame render through :func:`sweep_plain` (any device)."""
     if not dmpigo.plane_aligned_ok(cfg, stepsize, ndc=True):
         raise ValueError("the plane sweep needs the plane-aligned NDC setup")
@@ -237,7 +241,9 @@ def render_frame(cfg, params, buffers, H: int, W: int, K, c2w, *,
     if packed is None:
         packed = pack_grids(params, buffers,
                             dtype=torch.bfloat16 if use_bf16 else torch.float32)
-    a, b, vde = prepare_frame(cfg, H, W, K, c2w, device=dev)
+    a, b, vde = prepare_frame(cfg, H, W, K, c2w, device=dev,
+                              inverse_y=inverse_y, flip_x=flip_x,
+                              flip_y=flip_y)
     X, Y, _ = cfg.world_size
     rgb, depth, ail = sweep_plain(
         packed.packed, packed.act_shift, a, b, vde,

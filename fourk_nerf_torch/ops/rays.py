@@ -9,14 +9,16 @@ from __future__ import annotations
 
 import torch
 
-from fourk_nerf_torch.device import as_tensor
+from fourk_nerf_torch.device import as_tensor, resolve_device
 
 
 def get_rays(H: int, W: int, K, c2w, inverse_y: bool, flip_x: bool,
-             flip_y: bool, mode: str = "center", *, device="cpu"):
-    """Per-pixel camera rays. Returns (rays_o, rays_d), both ``[H, W, 3]``.
+             flip_y: bool, mode: str = "center", *, device=None):
+    """Per-pixel camera rays on ``device`` (default ``cuda``). Returns
+    (rays_o, rays_d), both ``[H, W, 3]``.
     ``mode``: 'lefttop' | 'center' (the JAX package's 'random' jitter is a
     training feature, not ported yet)."""
+    device = resolve_device(device)
     K = as_tensor(K, device)
     c2w = as_tensor(c2w, device)
     j, i = torch.meshgrid(
@@ -63,9 +65,10 @@ def ndc_rays(H: int, W: int, focal, near: float, rays_o, rays_d):
 
 def get_rays_of_a_view(H: int, W: int, K, c2w, ndc: bool, inverse_y: bool,
                        flip_x: bool, flip_y: bool, mode: str = "center", *,
-                       device="cpu"):
-    """Rays + unit view directions for one pose: (rays_o, rays_d, viewdirs),
-    each ``[H, W, 3]``."""
+                       device=None):
+    """Rays + unit view directions for one pose on ``device`` (default
+    ``cuda``): (rays_o, rays_d, viewdirs), each ``[H, W, 3]``."""
+    device = resolve_device(device)
     rays_o, rays_d = get_rays(H, W, K, c2w, inverse_y, flip_x, flip_y, mode,
                               device=device)
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)

@@ -54,3 +54,37 @@ def sample_ndc_pts_on_rays(rays_o, rays_d, n_samples: int):
     dist = torch.arange(n_samples, dtype=rays_o.dtype,
                         device=rays_o.device) / (n_samples - 1)
     return rays_o[:, None, :] + rays_d[:, None, :] * dist[None, :, None]
+
+
+def ray_aabb(rays_o, rays_d, xyz_min, xyz_max, near, far):
+    """Ray / axis-aligned-box entry and exit distances, clamped to
+    ``[near, far]``; an axis-parallel direction component is replaced by
+    1e-6."""
+    vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+    rate_a = (xyz_max - rays_o) / vec
+    rate_b = (xyz_min - rays_o) / vec
+    t_min = torch.minimum(rate_a, rate_b).amax(-1).clamp(near, far)
+    t_max = torch.maximum(rate_a, rate_b).amin(-1).clamp(near, far)
+    return t_min, t_max
+
+
+def sample_pts_on_rays_fixed(rays_o, rays_d, xyz_min, xyz_max, near, far,
+                             stepdist, n_samples: int):
+    """Bounded-scene sampling as a fixed ``[N, K]`` lattice: ray r gets
+    ``ceil((t_max - t_min) * |d| / stepdist)`` samples from its own entry
+    point, ``stepdist`` apart along the unit direction; the rest, and the
+    points outside the box, are marked invalid (``far`` is overridden by
+    1e9, as the reference does). Returns (pts ``[N,K,3]``, valid ``[N,K]``,
+    t_min ``[N]``)."""
+    t_min, t_max = ray_aabb(rays_o, rays_d, xyz_min, xyz_max, near, 1e9)
+    rnorm = torch.linalg.norm(rays_d, dim=-1)
+    n_per_ray = torch.clamp_min(
+        torch.ceil((t_max - t_min) * rnorm / stepdist), 1.0)
+    rays_start = rays_o + rays_d * t_min[:, None]
+    rays_unit = rays_d / rnorm[:, None]
+    k = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)
+    pts = rays_start[:, None, :] \
+        + rays_unit[:, None, :] * (stepdist * k)[None, :, None]
+    in_count = k[None, :] < n_per_ray[:, None]
+    in_bbox = ((pts >= xyz_min) & (pts <= xyz_max)).all(-1)
+    return pts, in_count & in_bbox, t_min

@@ -1,50 +1,140 @@
-"""The 4K frame: a DirectMPIGO render through the sweep kernel, then the x4
-SFTNet decode through the dense-block kernel.
+"""Frames and videos: an encoder render through its sweep kernel, then the
+SFTNet decode through the dense-block or whole-RRDB kernel.
 
-The frame of the JAX package's ``bench.py`` (one 1008x756 encoder render,
-stepsize 1, background 1, then ``sftnet_apply_pallas`` with the dilated
-upchain), with none of its fallbacks: a kernel that fails raises.
+:class:`FramePipeline` is the frame of the JAX package's ``bench.py`` (one
+encoder render, then ``sftnet_apply_pallas`` with the dilated upchain) for a
+DirectMPIGO scene (plane sweep, stepsize 1) or a DirectVoxGO scene (box
+sweep). :func:`render_video` is the fly-through of its
+``run_sr.py --render_video``: every pose through
+``trainer.render_viewpoints``, then each frame's condition and decode. It
+returns the frames and writes no file. Neither has the JAX package's
+fallbacks: a kernel that fails raises.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.models import dmpigo
-from fourk_nerf_torch.ops import cuda_sr, cuda_sweep
+from fourk_nerf_torch.models import dmpigo, dvgo
+from fourk_nerf_torch.ops import cuda_box, cuda_sr, cuda_sweep, \
+    rays as ray_ops
+from fourk_nerf_torch.train import trainer
 
 
 class FramePipeline:
     """Encoder + decoder for one fixed scene and SR network.
 
-    The grid is packed and the SFTNet's dense-block weights are packed once,
-    at construction; each call renders one frame for a camera."""
+    The grid is packed and the SFTNet's weights are packed once, at
+    construction; each call renders one frame for a camera. A
+    ``dmpigo.Config`` renders through the plane sweep (stepsize 1), a
+    ``dvgo.Config`` through the box sweep with ``stepsize`` and ``near``.
+    ``fuse_rrdb`` decodes with one launch per RRDB instead of three."""
 
-    def __init__(self, cfg: dmpigo.Config, params: dict, buffers: dict,
-                 sr_model, *, use_bf16: bool = True, device=None):
+    def __init__(self, cfg, params: dict, buffers: dict, sr_model, *,
+                 use_bf16: bool = True, fuse_rrdb: bool = False,
+                 stepsize: float = 1.0, near: float = 0.0, bg: float = 1.0,
+                 device=None):
         self.device = resolve_device(device)
-        if not dmpigo.plane_aligned_ok(cfg, 1.0, ndc=True):
-            raise ValueError("the 4K frame needs the plane-aligned NDC setup")
         self.cfg, self.params = cfg, params
-        self.packed = cuda_sweep.pack_grids_kernel(params, buffers,
+        self.fuse_rrdb = fuse_rrdb
+        self.stepsize, self.near, self.bg = stepsize, near, bg
+        self.bounded = isinstance(cfg, dvgo.Config)
+        if self.bounded:
+            self.packed = cuda_box.pack_box_kernel(cfg, params, buffers,
                                                    use_bf16=use_bf16)
+        else:
+            if not dmpigo.plane_aligned_ok(cfg, stepsize, ndc=True):
+                raise ValueError("the 4K frame needs the plane-aligned NDC "
+                                 "setup")
+            self.packed = cuda_sweep.pack_grids_kernel(params, buffers,
+                                                       use_bf16=use_bf16)
         self.sr = cuda_sr.prepare_sftnet(sr_model)
 
     def encode(self, H: int, W: int, K, c2w) -> dict:
         """The encoder render: ``rgb_feature [H,W,3]``, ``depth [H,W]``,
         ``rgb_marched``, ``alphainv_last``."""
+        if self.bounded:
+            return cuda_box.render_frame_box_cuda(
+                self.cfg, self.params, None, H, W, K, c2w,
+                stepsize=self.stepsize, near=self.near, bg=self.bg,
+                device=self.device, packed=self.packed)
         return cuda_sweep.render_frame_cuda(
-            self.cfg, self.params, None, H, W, K, c2w, stepsize=1.0, bg=1.0,
-            device=self.device, packed=self.packed)
+            self.cfg, self.params, None, H, W, K, c2w, stepsize=self.stepsize,
+            bg=self.bg, device=self.device, packed=self.packed)
 
     def decode(self, enc: dict) -> torch.Tensor:
-        """The SR decode of an encoder output: ``[1, 4H, 4W, 3]`` float32,
-        conditioned on depth."""
+        """The SR decode of an encoder output: ``[1, sH, sW, 3]`` float32
+        at the network's scale, conditioned on depth."""
         return cuda_sr.sftnet_apply_cuda(
-            self.sr, enc["rgb_feature"][None], enc["depth"][None, ..., None])
+            self.sr, enc["rgb_feature"][None], enc["depth"][None, ..., None],
+            fuse_rrdb=self.fuse_rrdb)
 
     def __call__(self, H: int, W: int, K, c2w):
-        """One frame: returns (sr ``[1, 4H, 4W, 3]``, encoder outputs)."""
+        """One frame: returns (sr ``[1, sH, sW, 3]``, encoder outputs)."""
         enc = self.encode(H, W, K, c2w)
         return self.decode(enc), enc
+
+
+def sr_condition(num_cond: int, depth, K, c2w, data: trainer.DataFlags,
+                 device):
+    """The decoder's condition map ``[1, H, W, num_cond]`` of one frame:
+    depth (``num_cond`` 1), the viewdir embedding at 10 frequencies (63),
+    or both (64)."""
+    conds = []
+    if num_cond in (1, 64):
+        conds.append(depth[None, ..., None])
+    if num_cond in (63, 64):
+        H, W = depth.shape
+        _, _, vd = ray_ops.get_rays_of_a_view(
+            H, W, K, c2w, ndc=data.ndc, inverse_y=data.inverse_y,
+            flip_x=data.flip_x, flip_y=data.flip_y, device=device)
+        conds.append(ray_ops.positional_encoding(vd, 10)[None])
+    if not conds:
+        raise ValueError(f"num_cond must be 1, 63 or 64, got {num_cond}")
+    return torch.cat(conds, dim=-1)
+
+
+def render_video(model_mod, model_cfg, params, buffers, sr_model,
+                 render_poses, HW, Ks, *, data: trainer.DataFlags,
+                 render_kwargs: dict, num_cond: int = 1,
+                 fuse_rrdb: bool = False, render_factor: int = 0,
+                 render_video_flipy: bool = False,
+                 render_video_rot90: int = 0, device=None) -> dict:
+    """Render a fly-through: the encoder frames of every pose, then per
+    frame the condition and the SFTNet decode, clipped to [0, 1].
+
+    ``HW [2]`` and ``Ks [3,3]`` are one camera's, used for every pose.
+    ``sr_model`` is an ``SFTNet`` or a ``PreparedSFTNet``. Returns
+    ``frames [N, sH, sW, 3]`` (float32, on the device), ``sr_times``
+    (seconds per decode, host clock) and the encoder's result dict under
+    ``encoder``."""
+    dev = resolve_device(device)
+    n = len(render_poses)
+    HW = np.tile(np.asarray(HW)[None], (n, 1))
+    Ks = np.tile(np.asarray(Ks, dtype=np.float32)[None], (n, 1, 1))
+    res = trainer.render_viewpoints(
+        model_mod, model_cfg, params, buffers, render_poses, HW, Ks,
+        data=data, render_kwargs=render_kwargs, render_factor=render_factor,
+        render_video_flipy=render_video_flipy,
+        render_video_rot90=render_video_rot90, verbose=False, device=dev)
+    prep = cuda_sr.prepare_sftnet(sr_model)
+    K = Ks[0].copy()
+    if render_factor:
+        K[:2, :3] /= render_factor
+    frames, sr_times = [], []
+    for fi in range(n):
+        c2w = np.asarray(render_poses[fi], dtype=np.float32)[:3, :4]
+        cond = sr_condition(num_cond, res["depths"][fi], K, c2w, data, dev)
+        t0 = time.perf_counter()
+        sr = cuda_sr.sftnet_apply_cuda(prep, res["rgb_features"][fi][None],
+                                       cond, fuse_rrdb=fuse_rrdb)[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sr_times.append(time.perf_counter() - t0)
+        frames.append(sr.clamp(0.0, 1.0))
+    return {"frames": torch.stack(frames), "sr_times": sr_times,
+            "encoder": res}

@@ -23,9 +23,10 @@ ANCHOR_ASSET = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools", "assets", "med_sr_grids_f16.npz")
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, device=None):
     """Nested dict of arrays -> the same dict of tensors on ``device``
-    (bool stays bool, floats become float32)."""
+    (default ``cuda``; bool stays bool, floats become float32)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     arr = np.asarray(tree)
@@ -36,6 +37,14 @@ def to_torch(tree, device="cpu"):
 def dmpigo_from_numpy(params, buffers, device=None):
     """JAX-layout dmpigo ``params``/``buffers`` (numpy-convertible) ->
     tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return to_torch(params, dev), to_torch(buffers, dev)
+
+
+def dvgo_from_numpy(params, buffers, device=None):
+    """JAX-layout dvgo ``params`` (``density``, ``k0``, optional
+    ``rgbnet``) and ``buffers`` (``mask_cache``) -> tensors on ``device``
+    (default ``cuda``)."""
     dev = resolve_device(device)
     return to_torch(params, dev), to_torch(buffers, dev)
 
@@ -67,7 +76,7 @@ def sftnet_from_flax(tree: dict, device=None) -> sr_esrnet.SFTNet:
     return model.to(dev).eval()
 
 
-def sftnet_init(*, num_block: int = 5, seed: int = 0,
+def sftnet_init(*, num_block: int = 5, scale: int = 4, seed: int = 0,
                 device=None) -> sr_esrnet.SFTNet:
     """A randomly initialised SFTNet drawn from a seeded
     ``torch.Generator``: dense-block convs kaiming-normal (fan_in, relu
@@ -76,7 +85,7 @@ def sftnet_init(*, num_block: int = 5, seed: int = 0,
     biases uniform in +-0.1, so that a check of the kernels sees them."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
-    model = sr_esrnet.SFTNet(num_block=num_block)
+    model = sr_esrnet.SFTNet(num_block=num_block, scale=scale)
     with torch.no_grad():
         for path, mod in model.named_modules():
             if not isinstance(mod, sr_esrnet.Conv):

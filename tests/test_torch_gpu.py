@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from fourk_nerf_torch import weights
-from fourk_nerf_torch.models import dmpigo
-from fourk_nerf_torch.ops import cuda_sr, cuda_sweep, plane_sweep
+from fourk_nerf_torch.models import dmpigo, dvgo
+from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sr, cuda_sweep, \
+    plane_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -79,5 +80,118 @@ def test_rdb_kernel_matches_plain(cuda, tail, h, w):
                                    model.body0.sft0 if tail else None)
     got = cuda_sr.rdb_apply(x, c, wts, xin=xin if tail else None)
     ref = cuda_sr.rdb_plain(x, c, wts, xin=xin if tail else None)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= 0.05
+
+
+def _box_scene(cuda, *, rgbnet_dim, rgbnet_direct, width, act="relu",
+               world=(24, 20, 16)):
+    cfg = dvgo.make_config(
+        xyz_min=[-1.0, -0.8, -0.6], xyz_max=[1.0, 0.9, 0.7],
+        num_voxels=int(np.prod(world)), num_voxels_base=int(np.prod(world)),
+        alpha_init=1e-2, rgbnet_dim=rgbnet_dim, rgbnet_direct=rgbnet_direct,
+        rgbnet_width=width, rgbnet_depth=3, fast_color_thres=1e-4,
+        act_type=act)
+    params, buffers = dvgo.init(
+        cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    params["density"] = t(rng.normal(0, 2, params["density"].shape)
+                          .astype(np.float32))
+    params["k0"] = t(rng.normal(0, 1, params["k0"].shape).astype(np.float32))
+    buffers["mask_cache"] = t(rng.uniform(size=cfg.world_size) > 0.3)
+    return cfg, params, buffers
+
+
+def _look_at(h, w, angle, dist=2.8):
+    ax, ay = angle
+    Rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
+                   [0, np.sin(ax), np.cos(ax)]])
+    Ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
+                   [-np.sin(ay), 0, np.cos(ay)]])
+    R = (Ry @ Rx).astype(np.float32)
+    c2w = np.eye(4, dtype=np.float32)[:3, :4]
+    c2w[:3, :3] = R
+    c2w[:3, 3] = R @ np.array([0, 0, dist], dtype=np.float32)
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], dtype=np.float32)
+    return K, c2w
+
+
+#: a pose along each grid axis and sign (the sweep axis and its flip)
+BOX_POSES = [(0.0, 0.0), (0.0, np.pi), (0.0, 0.5 * np.pi),
+             (0.0, -0.5 * np.pi), (-0.5 * np.pi, 0.2), (0.5 * np.pi, 0.2)]
+
+
+def _check_box(cuda, cfg, params, buffers, h, w, angle, use_bf16):
+    K, c2w = _look_at(h, w, angle)
+    kw = dict(stepsize=0.5, near=0.2, bg=0.7, use_bf16=use_bf16, device=cuda)
+    n0 = cuda_box.sweep_box.launches
+    got = cuda_box.render_frame_box_cuda(cfg, params, buffers, h, w, K, c2w,
+                                         **kw)
+    assert cuda_box.sweep_box.launches == n0 + 1
+    ref = box_sweep.render_frame_box(cfg, params, buffers, h, w, K, c2w, **kw)
+    torch.cuda.synchronize()
+    assert float((ref["rgb_marched"] - 0.7).abs().max()) > 0.05
+    for k in ("rgb_marched", "depth", "alphainv_last"):
+        err = (got[k] - ref[k]).abs()
+        assert float((err > 2e-4).float().mean()) < 0.02, k
+        assert float(err.max()) < 0.05, k
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+@pytest.mark.parametrize("rgbnet_dim,rgbnet_direct,width", [
+    (0, False, 64),     # no MLP: sigmoid of the three k0 channels
+    (6, False, 64),     # residual form, padded 64-wide kernel
+    (12, False, 128),   # residual form at width 128
+    (12, True, 100),    # direct form, 128-wide kernel with padding
+])
+def test_box_kernel_matches_plain(cuda, use_bf16, rgbnet_dim, rgbnet_direct,
+                                  width):
+    cfg, params, buffers = _box_scene(cuda, rgbnet_dim=rgbnet_dim,
+                                      rgbnet_direct=rgbnet_direct, width=width)
+    _check_box(cuda, cfg, params, buffers, 20, 28, (0.4, 0.3), use_bf16)
+
+
+@pytest.mark.parametrize("angle", BOX_POSES)
+def test_box_kernel_every_axis_and_sign(cuda, angle):
+    cfg, params, buffers = _box_scene(cuda, rgbnet_dim=6, rgbnet_direct=False,
+                                      width=32, act="lkrelu")
+    _check_box(cuda, cfg, params, buffers, 16, 24, angle, False)
+    _check_box(cuda, cfg, params, buffers, 16, 24, angle, True)
+
+
+def test_box_kernel_frame_smaller_than_a_block(cuda):
+    """5x7 rays: one partly filled thread block."""
+    cfg, params, buffers = _box_scene(cuda, rgbnet_dim=6, rgbnet_direct=True,
+                                      width=64)
+    _check_box(cuda, cfg, params, buffers, 5, 7, (0.4, 0.3), True)
+
+
+def test_box_kernel_refuses_a_native_resolution_mask(cuda):
+    cfg, params, buffers = _box_scene(cuda, rgbnet_dim=6, rgbnet_direct=False,
+                                      width=64)
+    buffers["mask_cache"] = buffers["mask_cache"][::2, ::2, ::2].contiguous()
+    K, c2w = _look_at(8, 8, (0.4, 0.3))
+    with pytest.raises(ValueError):
+        cuda_box.render_frame_box_cuda(cfg, params, buffers, 8, 8, K, c2w,
+                                       stepsize=0.5, near=0.2, bg=0.0,
+                                       device=cuda)
+
+
+@pytest.mark.parametrize("h,w", [(37, 55), (5, 9), (36, 60), (75, 130)])
+def test_rrdb_kernel_matches_plain(cuda, h, w):
+    """Frames that divide no tile and no 36x60 region, one smaller than a
+    tile, one exact region, one of several regions."""
+    model = weights.sftnet_init(num_block=1, seed=2, device=cuda)
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device=cuda).to(torch.bfloat16)
+    x, c = t(h, w, 64), t(h, w, 32)
+    wts = cuda_sr.pack_rrdb_weights(model.body0)
+    n0 = cuda_sr.rrdb_apply.launches
+    got = cuda_sr.rrdb_apply(x, c, wts)
+    assert cuda_sr.rrdb_apply.launches == n0 + 1
+    ref = cuda_sr.rrdb_plain(x, c, wts)
     torch.cuda.synchronize()
     assert float((got.float() - ref.float()).abs().max()) <= 0.05

@@ -32,7 +32,8 @@ def test_get_rays_matches_jax(inverse_y, flip_x, flip_y, mode):
     H, W = 5, 7
     K, c2w = _cam(H, W, 9.0)
     jo, jd = jrays.get_rays(H, W, K, c2w, inverse_y, flip_x, flip_y, mode)
-    to, td = trays.get_rays(H, W, K, c2w, inverse_y, flip_x, flip_y, mode)
+    to, td = trays.get_rays(H, W, K, c2w, inverse_y, flip_x, flip_y, mode,
+                           device="cpu")
     assert to.shape == (H, W, 3) and td.shape == (H, W, 3)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=TOL)
@@ -45,7 +46,8 @@ def test_get_rays_of_a_view_matches_jax(ndc):
     c2w = np.eye(4, dtype=np.float32)[:3]
     c2w[2, 3] = 1.0
     jout = jrays.get_rays_of_a_view(H, W, K, c2w, ndc, False, False, False)
-    tout = trays.get_rays_of_a_view(H, W, K, c2w, ndc, False, False, False)
+    tout = trays.get_rays_of_a_view(H, W, K, c2w, ndc, False, False, False,
+                                   device="cpu")
     for j, t in zip(jout, tout):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL)
 
