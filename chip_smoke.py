@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the four CUDA kernels from ``fourk_nerf_torch/csrc`` (one nvcc
-     per source, in parallel) and print the build time and ptxas summary;
+  1. build the seven CUDA libraries from ``fourk_nerf_torch/csrc`` (one
+     nvcc per source, in parallel) and print the build time and ptxas
+     summary;
   2. sweep kernel vs its plain version on a small scene (viewdir PE 4,
      spatial PE 2, mask at grid resolution), float32 and bf16 paths;
   3. dense-block kernel vs its plain version, plain and tail mode, on a
@@ -28,7 +29,20 @@ Phases (any failure raises and the script exits non-zero):
      three 800x800 poses through ``pipeline.render_video`` with a scale-1
      SFTNet (64 feat, 5 RRDBs) and ``fuse_rrdb=True``: launch counts,
      finiteness, both kernels vs plain on the path's inputs, timings;
-  9. one JSON line with the kernels' summary, then the result line.
+  9. fused upsample tail (uptail) kernel vs its plain version at 45x70 (an
+     odd size) and 48x64;
+ 10. the 4K decode with the fused tail at full width: the trunk of the
+     synthetic frame (15 dense-block launches) -> one uptail launch ->
+     clamp; kernel vs plain on the real ``conv_up1`` output, the frame vs
+     the dilated decode, the launch beside the library tail it replaces
+     and its bound;
+ 11. ``upchain="materialized"`` vs ``"dilated"`` on the 4K frame, and a
+     ``tile_process`` decode of a 252x189 crop at tile size 96 against a
+     per-tile loop with the same padding and crop;
+ 12. the floor probes and the construct probes
+     (``fourk_nerf_torch/tools/probe_floor.py`` / ``probe_ops.py``), every
+     check enforced, their timings printed;
+ 13. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -57,6 +71,7 @@ RDB_TOL = 0.05             # max abs, as the JAX package's dense-block test
 BOX_HW = 800               # the bounded-scene frame (synthetic-NeRF size)
 BOX_FRAMES = 3
 SR_TOL = 0.1               # max abs of the full decode, kernel vs plain
+UPTAIL_TOL = 0.03          # max abs, as the JAX package's uptail test
 
 
 def log(*a):
@@ -328,7 +343,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
         f"plain {rdb_plain_ms:.1f} ms, bound {rdb_bound:.3f} ms "
         f"({mac_px} MAC/px at the bf16 peak; bytes {rdb_bytes:.4f} ms)")
 
-    sr_ref = cuda_sr.sftnet_apply_plain(prep, feat, depth)
+    sr_ref = cuda_sr.sftnet_apply_plain(prep, feat, depth, upchain="dilated")
     sync()
     d = (sr - sr_ref).abs()
     sr_err, sr_mean = float(d.max()), float(d.mean())
@@ -357,7 +372,8 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
            "fps": 1e3 / statistics.median(tot_t)}
     log(f"  {label}: " + json.dumps({k: round(v, 3) for k, v in out.items()}))
     profile_frame(pipe, H, W, K, c2w)
-    out.update(launches=launches, sweep_err=sweep_err, sweep_ms=sweep_ms,
+    out.update(rgb_feature=enc["rgb_feature"], depth=enc["depth"],
+               launches=launches, sweep_err=sweep_err, sweep_ms=sweep_ms,
                plain_sweep_ms=plain_sweep_ms, sweep_bound=sweep_bound,
                sweep_bound_by="bytes" if t_bytes >= t_ops else "operations",
                rdb_err=rdb_err, rdb_ms=rdb_ms, rdb_plain_ms=rdb_plain_ms,
@@ -637,7 +653,8 @@ def run_flythrough(dev):
         f"{rrdb_bytes:.4f} ms)")
 
     # the decode: kernel chain vs plain chain on frame 0
-    sr_ref = cuda_sr.sftnet_apply_plain(prep, feat, depth, fuse_rrdb=True)
+    sr_ref = cuda_sr.sftnet_apply_plain(prep, feat, depth, fuse_rrdb=True,
+                                        upchain="dilated")
     sync()
     d = (frames[0] - sr_ref[0].clamp(0, 1)).abs()
     sr_err, sr_mean = float(d.max()), float(d.mean())
@@ -676,6 +693,209 @@ def run_flythrough(dev):
                rrdb_bound_by="operations" if rrdb_ops >= rrdb_bytes
                else "bytes")
     return res
+
+
+def phase_uptail_small(dev, sr_model):
+    import torch
+    from fourk_nerf_torch.ops import cuda_sr
+    wts = cuda_sr.pack_uptail_weights(sr_model)
+    log("[9] uptail kernel vs plain (16x32 output tiles)")
+    worst = 0.0
+    for h2, w2 in ((45, 70), (48, 64)):
+        x = torch.as_tensor(np.random.default_rng(7).normal(
+            size=(1, h2, w2, 64)).astype(np.float32), device=dev)
+        got = cuda_sr.uptail_apply(x, wts)
+        ref = cuda_sr.uptail_plain(x, wts)
+        sync()
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        log(f"  {h2}x{w2} -> {tuple(got.shape)}: max abs {err:.3e} (|ref| max "
+            f"{float(ref.abs().max()):.2f})")
+        if not (err <= UPTAIL_TOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"uptail kernel disagrees at {h2}x{w2}")
+    return worst
+
+
+def run_fused_tail(dev, sr_model, syn):
+    """Phases 10-11: the 4K decode of the synthetic frame's encoder output
+    with the fused tail, counted, checked and timed; then the materialized
+    upchain and the tiled decode."""
+    import torch
+    from fourk_nerf_torch.models import sr_esrnet
+    from fourk_nerf_torch.ops import cuda_sr
+
+    feat = syn["rgb_feature"][None]
+    depth = syn["depth"][None, ..., None]
+    prep = cuda_sr.prepare_sftnet(sr_model)
+    wts = cuda_sr.pack_uptail_weights(sr_model)
+    sync()
+
+    # the slice's path, counted
+    cuda_sr.rdb_apply.launches = 0
+    cuda_sr.uptail_apply.launches = 0
+    up1 = cuda_sr.sftnet_trunk_cuda(prep, feat, depth, upchain="dilated")
+    rgb = cuda_sr.uptail_apply(up1, wts)
+    frame = rgb.clamp(0.0, 1.0)
+    sync()
+    launches = {"rdb": cuda_sr.rdb_apply.launches,
+                "uptail": cuda_sr.uptail_apply.launches}
+    log(f"  main-path launches: {launches}")
+    if launches != {"rdb": 3 * sr_model.num_block, "uptail": 1}:
+        raise AssertionError(f"unexpected launch counts {launches}")
+    H2, W2 = up1.shape[1:3]
+    if tuple(frame.shape) != (1, H * SCALE, W * SCALE, 3) \
+            or (H2, W2) != (2 * H, 2 * W) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"fused-tail frame {tuple(frame.shape)}")
+    log(f"  conv_up1 output {tuple(up1.shape)} {up1.dtype} -> frame "
+        f"{tuple(frame.shape)}, all finite, mean {float(frame.mean()):.4f}")
+
+    # (a) kernel vs plain on the real conv_up1 output
+    t0 = time.perf_counter()
+    ref = cuda_sr.uptail_plain(up1, wts)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((rgb - ref).abs().max())
+    log(f"  uptail kernel vs plain at {H2}x{W2}: max abs {err:.3e} (|ref| max "
+        f"{float(ref.abs().max()):.3f})")
+    if not err <= UPTAIL_TOL:
+        raise AssertionError("uptail kernel disagrees on the main path")
+    del ref
+    # (b) the frame vs the dilated decode of the same input
+    dil = cuda_sr.sftnet_tail(prep, up1, upchain="dilated")
+    sync()
+    d = (rgb - dil).abs()
+    fr_err, fr_mean = float(d.max()), float(d.mean())
+    log(f"  fused-tail decode vs dilated decode: max abs {fr_err:.3e}, mean "
+        f"{fr_mean:.3e} (the fused tail rounds its RGB to bf16)")
+    if not fr_err <= SR_TOL:
+        raise AssertionError("fused-tail frame disagrees with the dilated "
+                             "decode")
+    del d
+
+    # timings, in turns: library tail, kernel, kernel, library tail
+    lib1 = cuda_ms(lambda: cuda_sr.sftnet_tail(prep, up1, upchain="dilated"), 5)
+    ms1 = cuda_ms(lambda: cuda_sr.uptail_apply(up1, wts), 5)
+    ms2 = cuda_ms(lambda: cuda_sr.uptail_apply(up1, wts), 5)
+    lib2 = cuda_ms(lambda: cuda_sr.sftnet_tail(prep, up1, upchain="dilated"), 5)
+    ms, lib_ms = (ms1 + ms2) / 2, (lib1 + lib2) / 2
+    # bound from the shapes: per pixel of the 2x map, four phase outputs of a
+    # 2x2 conv 64->64, four output pixels of a 3x3 conv 64->64 and of a 3x3
+    # conv 64->3; x and the weights read once, the RGB written once
+    mac_px = 4 * 4 * 64 * 64 + 4 * 9 * 64 * 64 + 4 * 9 * 64 * 3
+    t_ops = 2 * mac_px * H2 * W2 / BF16_FLOPS * 1e3
+    n_in = up1.numel() * up1.element_size() + sum(
+        t.numel() * t.element_size()
+        for t in (wts.kup, wts.khr, wts.klast, wts.bias))
+    n_out = rgb.numel() * rgb.element_size()
+    t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  uptail kernel {ms:.3f} ms ({ms1:.3f}, {ms2:.3f}), library tail "
+        f"(transposed conv_up2 + conv_hr + float32 conv_last) {lib_ms:.3f} ms "
+        f"({lib1:.3f}, {lib2:.3f}), plain {plain_ms:.1f} ms, bound "
+        f"{bound:.3f} ms ({mac_px} MAC per 2x pixel x {H2 * W2} pixels = "
+        f"{2 * mac_px * H2 * W2 / 1e12:.3f} TFLOP at the bf16 peak; bytes "
+        f"{n_in / 1e6:.0f} MB in + {n_out / 1e6:.0f} MB out, {t_bytes:.3f} ms)")
+    # the decode end to end, host clock around a synchronise, median of 3
+    def decode_ms(fn):
+        fn()
+        sync()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    fused_ms = decode_ms(lambda: cuda_sr.uptail_apply(
+        cuda_sr.sftnet_trunk_cuda(prep, feat, depth, upchain="dilated"), wts))
+    dil_ms = decode_ms(lambda: cuda_sr.sftnet_apply_cuda(
+        prep, feat, depth, upchain="dilated"))
+    log(f"  decode with the fused tail {fused_ms:.3f} ms, dilated decode "
+        f"{dil_ms:.3f} ms")
+    res = dict(launches=launches, uptail_err=err, uptail_ms=ms,
+               uptail_plain_ms=plain_ms, uptail_bound=bound,
+               uptail_bound_by="operations" if t_ops >= t_bytes else "bytes",
+               uptail_library_ms=lib_ms, frame_err=fr_err)
+    del rgb, frame, up1
+    torch.cuda.empty_cache()
+
+    log("[11] materialized vs dilated upchain on the 4K frame; tiled decode")
+    mat = cuda_sr.sftnet_apply_cuda(prep, feat, depth, upchain="materialized")
+    d = (mat - dil).abs()
+    sync()
+    up_err, up_mean = float(d.max()), float(d.mean())
+    log(f"  upchain materialized vs dilated: max abs {up_err:.3e}, mean "
+        f"{up_mean:.3e}")
+    if not (up_err <= SR_TOL and bool(torch.isfinite(mat).all())):
+        raise AssertionError("the two upchains disagree")
+    del mat, dil, d
+    torch.cuda.empty_cache()
+
+    # tile_process on a crop vs a per-tile loop with the same pad and crop
+    ch, cw, ts, tp = 189, 252, 96, 10
+    img, cond = feat[:, :ch, :cw], depth[:, :ch, :cw]
+    with torch.no_grad():
+        tiled = sr_esrnet.tile_process(sr_model, img, cond, tile_size=ts,
+                                       tile_pad=tp, scale=SCALE)
+    ny, nx = -(-ch // ts), -(-cw // ts)
+    pad = (tp, nx * ts + tp - cw, tp, ny * ts + tp - ch)  # W then H
+    img_p, cond_p = (torch.nn.functional.pad(
+        a.permute(0, 3, 1, 2), pad, mode="replicate").permute(0, 2, 3, 1)
+        for a in (img, cond))
+    oracle = torch.zeros((ch * SCALE, cw * SCALE, 3), device=dev)
+    full = ts + 2 * tp
+    for y in range(ny):
+        for x in range(nx):
+            sy, sx = y * ts, x * ts
+            with torch.no_grad():
+                sr = sr_model(img_p[:, sy:sy + full, sx:sx + full],
+                              cond_p[:, sy:sy + full, sx:sx + full])[0]
+            core = sr[tp * SCALE:(tp + ts) * SCALE, tp * SCALE:(tp + ts) * SCALE]
+            oy, ox = sy * SCALE, sx * SCALE
+            h = min(ts * SCALE, ch * SCALE - oy)
+            w = min(ts * SCALE, cw * SCALE - ox)
+            oracle[oy:oy + h, ox:ox + w] = core[:h, :w]
+    sync()
+    t_err = float((tiled[0] - oracle).abs().max())
+    log(f"  tile_process {cw}x{ch} at tile {ts} ({ny * nx} tiles) -> "
+        f"{tuple(tiled.shape)}: max abs vs the per-tile loop {t_err:.3e}")
+    if not (tuple(tiled.shape) == (1, ch * SCALE, cw * SCALE, 3)
+            and t_err <= 1e-5):
+        raise AssertionError("tile_process disagrees with the per-tile loop")
+    return res
+
+
+def run_probes(dev):
+    """Phase 12: both probe suites as their users run them, counted."""
+    from fourk_nerf_torch.tools import probe_floor, probe_ops
+    out = {}
+    for name, mod in (("probe_floor", probe_floor), ("probe_ops", probe_ops)):
+        mod.run.launches = 0
+        res = mod.run(device=dev)
+        sync()
+        n = mod.run.launches
+        for line in mod.report(res):
+            log("  " + line)
+        if n != res["launches"]:
+            raise AssertionError(f"{name}: {n} launches counted, a run "
+                                 f"makes {res['launches']}")
+        t_bytes = res["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = res["bf16_flop"] / BF16_FLOPS * 1e3 \
+            + res.get("f32_flop", 0.0) / FP32_FLOPS * 1e3
+        out[name] = dict(
+            launches=n, ms=sum(p["ms"] for p in res["probes"].values()),
+            err=max(p["max_abs_err"] if "max_abs_err" in p else p["max_err"]
+                    for p in res["probes"].values()),
+            plain_ms=res["plain_ms"], library_ms=res["library_ms"],
+            bound=max(t_bytes, t_ops),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"  {name}: {n} launches, all probes {out[name]['ms']:.3f} ms, "
+            f"their torch expressions {res['plain_ms']:.1f} ms, library "
+            f"calls {res['library_ms']:.3f} ms, bound "
+            f"{out[name]['bound']:.4f} ms (bytes {t_bytes:.4f} ms, operations "
+            f"{t_ops:.4f} ms)")
+    return out
 
 
 def main() -> int:
@@ -727,6 +947,14 @@ def main() -> int:
     log(f"[8] bounded-scene fly-through, {BOX_FRAMES} frames of "
         f"{BOX_HW}x{BOX_HW}, fuse_rrdb")
     fly = run_flythrough(dev)
+    torch.cuda.empty_cache()
+
+    phase_uptail_small(dev, sr_model)
+    log("[10] 4K decode with the fused upsample tail, synthetic frame")
+    tail = run_fused_tail(dev, sr_model, syn)
+    torch.cuda.empty_cache()
+    log("[12] probes")
+    probes = run_probes(dev)
 
     kernels = [
         {"name": "sweep", "route": "cuda",
@@ -759,6 +987,39 @@ def main() -> int:
          "max_abs_err": fly["rrdb_err"], "ms": fly["rrdb_ms"],
          "plain_ms": fly["rrdb_plain_ms"], "bound_ms": fly["rrdb_bound"],
          "bound_by": fly["rrdb_bound_by"], "library_ms": None},
+        # library_ms: the three library convs the fused tail replaces
+        {"name": "uptail", "route": "cuda",
+         "source": "fourk_nerf_torch/csrc/uptail.cu",
+         "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:812",
+         "launches": tail["launches"]["uptail"],
+         "max_abs_err": tail["uptail_err"], "ms": tail["uptail_ms"],
+         "plain_ms": tail["uptail_plain_ms"], "bound_ms": tail["uptail_bound"],
+         "bound_by": tail["uptail_bound_by"],
+         "library_ms": tail["uptail_library_ms"]},
+        # the probes: ms is the sum over a suite's kernels, one launch each.
+        # library_ms: for the floor probes the window product through
+        # torch.mm (the loops and the copy ring have no library call), for
+        # the construct probes the sum of the six constructs as torch calls
+        {"name": "probe_floor", "route": "cuda",
+         "source": "fourk_nerf_torch/csrc/probe_floor.cu",
+         "replaces": "tools/perf/probe_floor.py:45",
+         "launches": probes["probe_floor"]["launches"],
+         "max_abs_err": probes["probe_floor"]["err"],
+         "ms": probes["probe_floor"]["ms"],
+         "plain_ms": probes["probe_floor"]["plain_ms"],
+         "bound_ms": probes["probe_floor"]["bound"],
+         "bound_by": probes["probe_floor"]["bound_by"],
+         "library_ms": probes["probe_floor"]["library_ms"]},
+        {"name": "probe_ops", "route": "cuda",
+         "source": "fourk_nerf_torch/csrc/probe_ops.cu",
+         "replaces": "tools/perf/probe_mosaic.py:18",
+         "launches": probes["probe_ops"]["launches"],
+         "max_abs_err": probes["probe_ops"]["err"],
+         "ms": probes["probe_ops"]["ms"],
+         "plain_ms": probes["probe_ops"]["plain_ms"],
+         "bound_ms": probes["probe_ops"]["bound"],
+         "bound_by": probes["probe_ops"]["bound_by"],
+         "library_ms": probes["probe_ops"]["library_ms"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

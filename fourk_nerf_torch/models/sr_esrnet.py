@@ -10,6 +10,10 @@ tree (``body{i}/rdb{j}/conv{k}``, ``sft0/scale0``, ...), so
 name. Inputs and outputs are NHWC, as in the JAX package; convolutions
 run in NCHW inside.
 
+The plain ESRGAN generator :class:`RRDBNetBPS` (dense blocks without SFT,
+pixel-shuffle upsampling), the memory-bounded tiled inference
+:func:`tile_process` and the standalone :func:`enhance` follow.
+
 Evaluation in float32 or, through :func:`apply_bf16`, in bfloat16 with the
 rounding points of the JAX module: a plain conv rounds its output to the
 working dtype before its bias is added; a dense-block conv accumulates in
@@ -19,6 +23,7 @@ float32 with its bias and rounds after the activation.
 from __future__ import annotations
 
 import copy
+import math
 
 import torch
 import torch.nn as nn
@@ -75,6 +80,23 @@ class SFTLayer(nn.Module):
         return x * (scale + 1.0) + shift
 
 
+def _dense_convs(block, src, dtype, modulate4=None):
+    """The five dense 3x3 convs ``conv1..conv5`` of ``block`` on NCHW
+    ``src``: each reads the concat of ``src`` and the earlier outputs, sums
+    in float32 with its bias, and (but for the last) is rounded to ``dtype``
+    after its lrelu; ``modulate4`` acts on the fourth output before conv5
+    reads it. Returns conv5's float32 output."""
+    srcs = [src]
+    for i in range(5):
+        conv = getattr(block, f"conv{i + 1}")
+        acc = F.conv2d(torch.cat(srcs, 1).float(), conv.weight.float(),
+                       padding=1) + conv.bias.float()[None, :, None, None]
+        if i < 4:
+            y = lrelu(acc).to(dtype)
+            srcs.append(modulate4(y) if i == 3 and modulate4 else y)
+    return acc
+
+
 class ResidualDenseBlockSFT(nn.Module):
     """Dense block: SFT at entry, five 3x3 dense convs (the fourth output
     SFT-modulated before conv5 sees it), residual ``x5 * 0.2 + x``."""
@@ -89,14 +111,8 @@ class ResidualDenseBlockSFT(nn.Module):
                     Conv(F_ + i * G, G if i < 4 else F_))
 
     def forward(self, x, cond):
-        srcs = [self.sft0(x, cond)]
-        for i in range(5):
-            conv = getattr(self, f"conv{i + 1}")
-            acc = F.conv2d(torch.cat(srcs, 1).float(), conv.weight.float(),
-                           padding=1) + conv.bias.float()[None, :, None, None]
-            if i < 4:
-                y = lrelu(acc).to(x.dtype)
-                srcs.append(self.sft1(y, cond) if i == 3 else y)
+        acc = _dense_convs(self, self.sft0(x, cond), x.dtype,
+                           lambda y: self.sft1(y, cond))
         return acc.to(x.dtype) * 0.2 + x
 
 
@@ -176,3 +192,132 @@ def apply_bf16(model: SFTNet, x, cond):
     with torch.no_grad():
         y = m16(x.to(torch.bfloat16), cond.to(torch.bfloat16))
     return y.float()
+
+
+class ResidualDenseBlock(nn.Module):
+    """The plain ESRGAN dense block: five 3x3 dense convs, residual
+    ``x5 * 0.2 + x``; float32 conv sums, one rounding per conv output."""
+
+    def __init__(self, num_feat: int = 64, num_grow_ch: int = 32):
+        super().__init__()
+        for i in range(5):
+            setattr(self, f"conv{i + 1}",
+                    Conv(num_feat + i * num_grow_ch,
+                         num_grow_ch if i < 4 else num_feat))
+
+    def forward(self, x):
+        return _dense_convs(self, x, x.dtype).to(x.dtype) * 0.2 + x
+
+
+class RRDB(nn.Module):
+    """Three plain dense blocks, residual ``out * 0.2 + x``."""
+
+    def __init__(self, num_feat: int = 64, num_grow_ch: int = 32):
+        super().__init__()
+        self.rdb1 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.rdb2 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.rdb3 = ResidualDenseBlock(num_feat, num_grow_ch)
+
+    def forward(self, x):
+        return self.rdb3(self.rdb2(self.rdb1(x))) * 0.2 + x
+
+
+class RRDBNetBPS(nn.Module):
+    """The plain RRDB super-resolver with pixel-shuffle upsampling
+    (``F.pixel_shuffle`` on NCHW is the JAX package's NHWC
+    ``_pixel_shuffle2``: torch's channel order); ``forward(x
+    [N,H,W,n_colors])`` returns ``[N, H*scale, W*scale, n_colors]``."""
+
+    def __init__(self, n_colors: int = 3, scale: int = 4, num_feat: int = 64,
+                 num_block: int = 5, num_grow_ch: int = 32):
+        super().__init__()
+        if scale not in (2, 4):
+            raise ValueError(f"scale must be 2 or 4, got {scale}")
+        self.scale, self.num_block = scale, num_block
+        self.conv_first = Conv(n_colors, num_feat)
+        for i in range(num_block):
+            setattr(self, f"body{i}", RRDB(num_feat, num_grow_ch))
+        self.conv_body = Conv(num_feat, num_feat)
+        self.ps_preconv1 = Conv(num_feat, 4 * num_feat)
+        self.conv_up1 = Conv(num_feat, num_feat)
+        if scale == 4:
+            self.ps_preconv2 = Conv(num_feat, 4 * num_feat)
+            self.conv_up2 = Conv(num_feat, num_feat)
+        self.conv_hr = Conv(num_feat, num_feat)
+        self.conv_last = Conv(num_feat, n_colors)
+
+    def forward(self, x):
+        feat = self.conv_first(x.permute(0, 3, 1, 2))
+        body = feat
+        for i in range(self.num_block):
+            body = getattr(self, f"body{i}")(body)
+        feat = feat + self.conv_body(body)
+        feat = lrelu(self.conv_up1(F.pixel_shuffle(self.ps_preconv1(feat), 2)))
+        if self.scale == 4:
+            feat = lrelu(self.conv_up2(
+                F.pixel_shuffle(self.ps_preconv2(feat), 2)))
+        out = self.conv_last(lrelu(self.conv_hr(feat)))
+        return out.permute(0, 2, 3, 1)
+
+
+def _pad_nhwc(x, pad, mode):
+    """Pad H by ``pad[0:2]`` and W by ``pad[2:4]`` (before, after)."""
+    t, b, l, r = pad
+    return F.pad(x.permute(0, 3, 1, 2), (l, r, t, b), mode=mode) \
+        .permute(0, 2, 3, 1)
+
+
+def tile_process(apply_fn, img, cond, tile_size: int, tile_pad: int = 10,
+                 scale: int = 4):
+    """Memory-bounded full-frame SR: edge-pad the frame, cut overlapping
+    tiles that all have the shape ``tile_size + 2 * tile_pad`` square (edge
+    tiles too), run each through ``apply_fn(x_tile, cond_tile) -> sr_tile``
+    (NHWC) and paste the unpadded cores into the frame on the device.
+
+    ``img [1,H,W,C]``, ``cond [1,H,W,Cc]`` -> ``[1, H*scale, W*scale, 3]``."""
+    _, H, W, _ = img.shape
+    ts, tp = tile_size, tile_pad
+    ny, nx = math.ceil(H / ts), math.ceil(W / ts)
+    pad = (tp, ny * ts + tp - H, tp, nx * ts + tp - W)
+    img_p = _pad_nhwc(img, pad, "replicate")
+    cond_p = _pad_nhwc(cond, pad, "replicate")
+    hs, full = ts * scale, ts + 2 * tp
+    out = None
+    for y in range(ny):
+        for x in range(nx):
+            sy, sx = y * ts, x * ts
+            sr = apply_fn(img_p[:, sy:sy + full, sx:sx + full],
+                          cond_p[:, sy:sy + full, sx:sx + full])[0]
+            if out is None:
+                out = sr.new_empty((ny * hs, nx * hs, sr.shape[-1]))
+            out[y * hs:(y + 1) * hs, x * hs:(x + 1) * hs] = \
+                sr[tp * scale:(tp + ts) * scale, tp * scale:(tp + ts) * scale]
+    return out[None, :H * scale, :W * scale]
+
+
+def enhance(apply_fn, img, cond=None, *, scale: int = 4, pre_pad: int = 10,
+            mod: int = 8, tile_size: int = 0, tile_pad: int = 10):
+    """Standalone SR inference with pre-padding and modulus padding:
+    reflect-pad by ``pre_pad``, pad to a multiple of ``mod``, run the
+    network (tiled when ``tile_size`` > 0), crop both pads from the
+    upscaled output.
+
+    ``apply_fn(x, cond) -> y`` NHWC, or ``apply_fn(x)`` when ``cond`` is
+    None; ``img [1,H,W,C]`` in [0, 1]."""
+    _, H, W, _ = img.shape
+    fn = apply_fn if cond is not None else (lambda x, c: apply_fn(x))
+    pp = (pre_pad,) * 4
+    x = _pad_nhwc(img, pp, "reflect")
+    c = _pad_nhwc(cond, pp, "reflect") if cond is not None else None
+    h, w = x.shape[1:3]
+    mp = (0, (-h) % mod, 0, (-w) % mod)
+    x = _pad_nhwc(x, mp, "reflect")
+    c = _pad_nhwc(c, mp, "reflect") if c is not None \
+        else torch.zeros_like(x[..., :1])
+    if tile_size > 0:
+        y = tile_process(fn, x, c, tile_size=tile_size, tile_pad=tile_pad,
+                         scale=scale)
+    else:
+        y = fn(x, c)
+    p = pre_pad * scale
+    return y[:, :h * scale, :w * scale][:, p:p + H * scale, p:p + W * scale]

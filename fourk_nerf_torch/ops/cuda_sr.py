@@ -1,6 +1,6 @@
 """The SFTNet decoder on the card: the fused SFT dense-block kernel
-(``csrc/rdb.cu``), the whole-RRDB kernel (``csrc/rrdb.cu``) and the SFTNet
-decode around them.
+(``csrc/rdb.cu``), the whole-RRDB kernel (``csrc/rrdb.cu``), the fused
+upsample tail (``csrc/uptail.cu``) and the SFTNet decode around them.
 
 :func:`rdb_apply` is the kernel's wrapper: one ResidualDenseBlock_SFT on
 NHWC bf16 ``x [H,W,64]`` and ``cond [H,W,32]``, in tail mode (``xin``
@@ -15,11 +15,21 @@ features carried in float32 between the blocks. Its plain version is
 :func:`rrdb_plain`, its count ``rrdb_apply.launches``.
 
 :func:`sftnet_apply_cuda` is the decode of the JAX package's
-``pallas_sr.sftnet_apply_pallas`` with ``upchain="dilated"``: bf16 head
-convs (cuDNN), the 15 dense blocks through :func:`rdb_apply` (or, with
-``fuse_rrdb=True``, the 5 RRDBs through :func:`rrdb_apply`), bf16 tail
-convs, a float32 ``conv_last``. :func:`sftnet_apply_plain` is the same
-chain with the plain versions in place of the kernels.
+``pallas_sr.sftnet_apply_pallas``: bf16 head convs (cuDNN), the 15 dense
+blocks through :func:`rdb_apply` (or, with ``fuse_rrdb=True``, the 5 RRDBs
+through :func:`rrdb_apply`), the two upsample convs in the form ``upchain``
+names, bf16 tail convs, a float32 ``conv_last``. :func:`sftnet_apply_plain`
+is the same chain with the plain versions in place of the kernels.
+:func:`sftnet_trunk_cuda` stops after ``conv_up1`` and :func:`sftnet_tail`
+is the rest.
+
+:func:`uptail_apply` wraps the fused x4 upsample tail (``csrc/uptail.cu``):
+``conv_up2`` on the nearest-upsampled trunk output, ``conv_hr`` and
+``conv_last`` in one launch, as the JAX package's ``uptail_apply_pallas``.
+Its plain version is :func:`uptail_plain`, its packer
+:func:`pack_uptail_weights`, its count ``uptail_apply.launches``. As in the
+JAX package no decode entry point chains it; a caller composes
+:func:`sftnet_trunk_cuda` and :func:`uptail_apply`.
 """
 
 from __future__ import annotations
@@ -31,13 +41,15 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from fourk_nerf_torch.models.sr_esrnet import SFTNet, conv_nchw, lrelu
+from fourk_nerf_torch.models.sr_esrnet import SFTNet, conv_nchw, lrelu, \
+    nearest_up2
 from fourk_nerf_torch.ops import _build, s2d
 
 _F, _G = 64, 32
 _CIN = tuple(_F + _G * s for s in range(5))
 _COUT = (_G, _G, _G, _G, _F)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+UPCHAINS = ("materialized", "dilated")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,11 +327,17 @@ def sftnet_head(prep: PreparedSFTNet, x, cond):
             c[0].permute(1, 2, 0).contiguous())
 
 
-def _sftnet_fused(prep: PreparedSFTNet, x, cond, rdb, rrdb=None):
-    """The dilated-upchain fused decode with dense-block function ``rdb``
-    or, when given, whole-RRDB function ``rrdb``; ``x [1,H,W,Cin]``,
-    ``cond [1,H,W,num_cond]`` -> float32 ``[1, 4H, 4W, 3]`` (or the model's
-    scale)."""
+def _check_upchain(upchain):
+    if upchain not in UPCHAINS:
+        raise ValueError(f"upchain must be one of {UPCHAINS}, got {upchain!r}")
+
+
+def _sftnet_trunk(prep: PreparedSFTNet, x, cond, rdb, rrdb, upchain):
+    """The decode up to the post-lrelu ``conv_up1`` output (the body itself
+    at scale 1) with dense-block function ``rdb`` or, when given, whole-RRDB
+    function ``rrdb``: ``x [1,H,W,Cin]``, ``cond [1,H,W,num_cond]`` -> NHWC
+    bf16 ``[1, 2H, 2W, 64]``."""
+    _check_upchain(upchain)
     m = prep.m16
     feat, c, body, ch = sftnet_head(prep, x, cond)
     with torch.no_grad():
@@ -334,27 +352,188 @@ def _sftnet_fused(prep: PreparedSFTNet, x, cond, rdb, rrdb=None):
         body = body.permute(2, 0, 1)[None]
         body = m.conv_body(m.sftbody(body, c)) + feat
         body = body.permute(0, 2, 3, 1)
-        for conv in (getattr(m, n) for n in ("conv_up1", "conv_up2")
-                     if hasattr(m, n)):
-            body = lrelu(s2d.conv_up_dilated(
-                body, conv.weight.permute(2, 3, 1, 0), conv.bias))
+        if hasattr(m, "conv_up1"):
+            body = _up_conv(m.conv_up1, body, upchain)
+    return body
+
+
+def _up_conv(conv, body, upchain):
+    """``lrelu(conv3x3(nearest_up2(body)))`` on NHWC bf16 ``body``, in the
+    dilated form (one transposed conv over the input, no upsampled tensor)
+    or with the upsampled tensor materialized."""
+    if upchain == "dilated":
+        return lrelu(s2d.conv_up_dilated(
+            body, conv.weight.permute(2, 3, 1, 0), conv.bias))
+    return lrelu(conv(nearest_up2(body.permute(0, 3, 1, 2)))) \
+        .permute(0, 2, 3, 1)
+
+
+def _sftnet_tail(prep: PreparedSFTNet, body, upchain):
+    """``conv_up2`` (scale 4), ``conv_hr`` and the float32 ``conv_last`` on
+    the trunk's output -> float32 ``[1, sH, sW, 3]``. These are the three
+    convs that :func:`uptail_apply` fuses."""
+    m = prep.m16
+    with torch.no_grad():
+        if hasattr(m, "conv_up2"):
+            body = _up_conv(m.conv_up2, body, upchain)
         out = lrelu(m.conv_hr(body.permute(0, 3, 1, 2)))
         out = conv_nchw(out, m.conv_last.weight, None, f32_out=True) \
             + prep.last_bias[None, :, None, None]
     return out.permute(0, 2, 3, 1)
 
 
-def sftnet_apply_cuda(model, x, cond, *, fuse_rrdb: bool = False):
+def sftnet_trunk_cuda(model, x, cond, *, fuse_rrdb: bool = False,
+                      upchain: str = "materialized"):
+    """The decode of :func:`sftnet_apply_cuda` up to the post-lrelu
+    ``conv_up1`` output, NHWC bf16 ``[1, 2H, 2W, 64]``: the input of
+    :func:`uptail_apply` (scale 4) or of the library tail."""
+    return _sftnet_trunk(prepare_sftnet(model), x, cond, rdb_apply,
+                         rrdb_apply if fuse_rrdb else None, upchain)
+
+
+def sftnet_tail(model, up1_out, *, upchain: str = "materialized"):
+    """The library tail of the decode on the trunk's output: ``conv_up2``
+    (scale 4), ``conv_hr``, float32 ``conv_last``."""
+    _check_upchain(upchain)
+    return _sftnet_tail(prepare_sftnet(model), up1_out, upchain)
+
+
+def sftnet_apply_cuda(model, x, cond, *, fuse_rrdb: bool = False,
+                      upchain: str = "materialized"):
     """SFTNet decode with the 15 (``3 * num_block``) dense blocks on the
     dense-block kernel or, with ``fuse_rrdb``, the ``num_block`` RRDBs on
     the whole-RRDB kernel. ``model``: an :class:`SFTNet` or a
-    :class:`PreparedSFTNet`."""
-    return _sftnet_fused(prepare_sftnet(model), x, cond, rdb_apply,
-                         rrdb_apply if fuse_rrdb else None)
+    :class:`PreparedSFTNet`. ``upchain`` picks the form of the two upsample
+    convs: ``"materialized"`` (nearest-up, then a 3x3 conv; the default of
+    the JAX function) or ``"dilated"`` (one transposed conv, what
+    ``FramePipeline`` and ``render_video`` pass). ``x [1,H,W,Cin]``,
+    ``cond [1,H,W,num_cond]`` -> float32 ``[1, sH, sW, 3]``."""
+    prep = prepare_sftnet(model)
+    body = _sftnet_trunk(prep, x, cond, rdb_apply,
+                         rrdb_apply if fuse_rrdb else None, upchain)
+    return _sftnet_tail(prep, body, upchain)
 
 
-def sftnet_apply_plain(model, x, cond, *, fuse_rrdb: bool = False):
+def sftnet_apply_plain(model, x, cond, *, fuse_rrdb: bool = False,
+                       upchain: str = "materialized"):
     """:func:`sftnet_apply_cuda` with :func:`rdb_plain` for every block
     (:func:`rrdb_plain` for every RRDB with ``fuse_rrdb``)."""
-    return _sftnet_fused(prepare_sftnet(model), x, cond, rdb_plain,
-                         rrdb_plain if fuse_rrdb else None)
+    prep = prepare_sftnet(model)
+    body = _sftnet_trunk(prep, x, cond, rdb_plain,
+                         rrdb_plain if fuse_rrdb else None, upchain)
+    return _sftnet_tail(prep, body, upchain)
+
+
+@dataclasses.dataclass(frozen=True)
+class UptailWeights:
+    """``conv_up2`` / ``conv_hr`` / ``conv_last`` in the uptail kernel's
+    layout. ``kup [4, 4, 64, 64]`` bf16: the 2x2 phase kernels of
+    ``conv3x3(nearest_up2(.))`` as ``[2*qy+qx, 2*dy+dx, cin, cout]``, their
+    taps summed in float32 and rounded to bf16 once. ``khr [9, 64, 64]`` and
+    ``klast [9, 64, 8]`` bf16: tap-major HWIO, ``conv_last``'s three output
+    channels zero-padded to 8. ``bias [3, 64]`` float32 (row 2: three
+    values)."""
+
+    kup: torch.Tensor
+    khr: torch.Tensor
+    klast: torch.Tensor
+    bias: torch.Tensor
+
+
+def pack_uptail_weights(model) -> UptailWeights:
+    """Pack the last three convs of a scale-4 :class:`SFTNet` (float32
+    weights) for :func:`uptail_apply`."""
+    if not hasattr(model, "conv_up2"):
+        raise ValueError("pack_uptail_weights: the fused tail needs a "
+                         "scale-4 SFTNet (conv_up2)")
+    bf = torch.bfloat16
+
+    def hwio(conv, cout):
+        w = conv.weight.detach()
+        if w.dtype != torch.float32:
+            raise ValueError("pack_uptail_weights: needs the float32 "
+                             "weights (the phase kernels are summed in "
+                             "float32 before their one rounding)")
+        if tuple(w.shape) != (cout, _F, 3, 3):
+            raise ValueError(f"expected a {(cout, _F, 3, 3)} conv, got "
+                             f"{tuple(w.shape)} (num_feat 64)")
+        return w.permute(2, 3, 1, 0)
+
+    kup = s2d.up_phase_kernels(hwio(model.conv_up2, _F)) \
+        .reshape(4, 4, _F, _F).to(bf).contiguous()
+    khr = hwio(model.conv_hr, _F).reshape(9, _F, _F).to(bf).contiguous()
+    klast = torch.zeros((9, _F, 8), dtype=bf, device=kup.device)
+    klast[:, :, :3] = hwio(model.conv_last, 3).reshape(9, _F, 3).to(bf)
+    bias = torch.zeros((3, _F), dtype=torch.float32, device=kup.device)
+    bias[0] = model.conv_up2.bias.detach().float()
+    bias[1] = model.conv_hr.bias.detach().float()
+    bias[2, :3] = model.conv_last.bias.detach().float()
+    return UptailWeights(kup, khr, klast, bias)
+
+
+def uptail_plain(up1_out, w: UptailWeights):
+    """Plain PyTorch fused tail with the kernel's rounding points: the
+    input, ``z = lrelu(conv_up2(nearest_up2 x))`` (as four phase convs),
+    ``h = lrelu(conv_hr z)`` and the RGB itself are rounded to bf16; sums
+    are float32; every conv sees SAME zero padding at the frame edge.
+    ``[1, H2, W2, 64]`` -> float32 ``[1, 2 H2, 2 W2, 3]``."""
+    bf = torch.bfloat16
+    x = up1_out.to(bf)
+    rows = []
+    for qy in range(2):
+        row = [s2d._conv_f32(x, w.kup[2 * qy + qx].reshape(2, 2, _F, _F),
+                             (1 - qy, qy, 1 - qx, qx)) for qx in range(2)]
+        rows.append(torch.stack(row, 3))
+    z = torch.stack(rows, 2)                       # [1, H2, 2, W2, 2, 64]
+    n, h2, _, w2, _, _ = z.shape
+    z = lrelu(z.reshape(n, 2 * h2, 2 * w2, _F) + w.bias[0]).to(bf)
+    same = (1, 1, 1, 1)
+    h = lrelu(s2d._conv_f32(z, w.khr.reshape(3, 3, _F, _F), same)
+              + w.bias[1]).to(bf)
+    rgb = s2d._conv_f32(h, w.klast.reshape(3, 3, _F, 8)[..., :3], same) \
+        + w.bias[2, :3]
+    return rgb.to(bf).float()
+
+
+def uptail_apply(up1_out, w: UptailWeights):
+    """The fused x4 upsample tail in one launch: the post-lrelu ``conv_up1``
+    output ``[1, H2, W2, 64]`` -> ``lrelu(conv_up2(nearest_up2 .))`` ->
+    ``lrelu(conv_hr)`` -> ``conv_last`` -> float32 ``[1, 2 H2, 2 W2, 3]``
+    (bf16-rounded values), with no tensor at the output resolution but the
+    RGB. CUDA tensors launch the kernel (and raise if the launch fails);
+    CPU tensors, and only they, take :func:`uptail_plain`."""
+    tensors = [up1_out, w.kup, w.khr, w.klast, w.bias]
+    if all(t.device.type == "cpu" for t in tensors):
+        return uptail_plain(up1_out, w)
+    dev = up1_out.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("uptail_apply: all tensors must be on one CUDA "
+                         "device (or all on the CPU for the plain version)")
+    if up1_out.dim() != 4 or up1_out.shape[0] != 1 or up1_out.shape[3] != _F:
+        raise ValueError("uptail_apply: input must be [1,H2,W2,64], got "
+                         f"{tuple(up1_out.shape)}")
+    for t, shape in ((w.kup, (4, 4, _F, _F)), (w.khr, (9, _F, _F)),
+                     (w.klast, (9, _F, 8))):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError("uptail_apply: bad packed weights")
+    if w.bias.dtype != torch.float32 or tuple(w.bias.shape) != (3, _F) \
+            or not w.bias.is_contiguous():
+        raise ValueError("uptail_apply: bad packed bias")
+    x = up1_out.to(torch.bfloat16).contiguous()
+    H2, W2 = x.shape[1:3]
+    out = torch.empty((1, 2 * H2, 2 * W2, 3), dtype=torch.float32, device=dev)
+    lib = _build.load("uptail")
+    fn = lib.uptail_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), out.data_ptr(), w.kup.data_ptr(),
+             w.khr.data_ptr(), w.klast.data_ptr(), w.bias.data_ptr(), H2, W2,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "uptail_error_string", err, "uptail kernel")
+    uptail_apply.launches += 1
+    return out
+
+
+uptail_apply.launches = 0

@@ -1,5 +1,6 @@
 """Frames and videos: an encoder render through its sweep kernel, then the
-SFTNet decode through the dense-block or whole-RRDB kernel.
+SFTNet decode through the dense-block or whole-RRDB kernel (or, for a
+video, in tiles through the float32 module).
 
 :class:`FramePipeline` is the frame of the JAX package's ``bench.py`` (one
 encoder render, then ``sftnet_apply_pallas`` with the dilated upchain) for a
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.models import dmpigo, dvgo
+from fourk_nerf_torch.models import dmpigo, dvgo, sr_esrnet
 from fourk_nerf_torch.ops import cuda_box, cuda_sr, cuda_sweep, \
     rays as ray_ops
 from fourk_nerf_torch.train import trainer
@@ -71,7 +72,7 @@ class FramePipeline:
         at the network's scale, conditioned on depth."""
         return cuda_sr.sftnet_apply_cuda(
             self.sr, enc["rgb_feature"][None], enc["depth"][None, ..., None],
-            fuse_rrdb=self.fuse_rrdb)
+            fuse_rrdb=self.fuse_rrdb, upchain="dilated")
 
     def __call__(self, H: int, W: int, K, c2w):
         """One frame: returns (sr ``[1, sH, sW, 3]``, encoder outputs)."""
@@ -101,14 +102,18 @@ def sr_condition(num_cond: int, depth, K, c2w, data: trainer.DataFlags,
 def render_video(model_mod, model_cfg, params, buffers, sr_model,
                  render_poses, HW, Ks, *, data: trainer.DataFlags,
                  render_kwargs: dict, num_cond: int = 1,
-                 fuse_rrdb: bool = False, render_factor: int = 0,
-                 render_video_flipy: bool = False,
+                 fuse_rrdb: bool = False, test_tile: int = 0,
+                 render_factor: int = 0, render_video_flipy: bool = False,
                  render_video_rot90: int = 0, device=None) -> dict:
     """Render a fly-through: the encoder frames of every pose, then per
     frame the condition and the SFTNet decode, clipped to [0, 1].
 
     ``HW [2]`` and ``Ks [3,3]`` are one camera's, used for every pose.
-    ``sr_model`` is an ``SFTNet`` or a ``PreparedSFTNet``. Returns
+    ``sr_model`` is an ``SFTNet`` or a ``PreparedSFTNet``. With
+    ``test_tile`` > 0 each frame is decoded in tiles of that size by
+    ``sr_esrnet.tile_process`` around the float32 ``SFTNet`` forward (the
+    memory-bounded decode of ``run_sr.py --test_tile``; it needs the
+    module, not a prepared pack); otherwise by the fused decode. Returns
     ``frames [N, sH, sW, 3]`` (float32, on the device), ``sr_times``
     (seconds per decode, host clock) and the encoder's result dict under
     ``encoder``."""
@@ -121,7 +126,24 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
         data=data, render_kwargs=render_kwargs, render_factor=render_factor,
         render_video_flipy=render_video_flipy,
         render_video_rot90=render_video_rot90, verbose=False, device=dev)
-    prep = cuda_sr.prepare_sftnet(sr_model)
+    if test_tile:
+        if not isinstance(sr_model, sr_esrnet.SFTNet):
+            raise ValueError("render_video: the tiled decode (test_tile) runs "
+                             "the float32 SFTNet module, got "
+                             f"{type(sr_model).__name__}")
+
+        def decode(feat, cond):
+            with torch.no_grad():
+                return sr_esrnet.tile_process(
+                    sr_model, feat, cond, tile_size=test_tile,
+                    scale=sr_model.scale)
+    else:
+        prep = cuda_sr.prepare_sftnet(sr_model)
+
+        def decode(feat, cond):
+            return cuda_sr.sftnet_apply_cuda(prep, feat, cond,
+                                             fuse_rrdb=fuse_rrdb,
+                                             upchain="dilated")
     K = Ks[0].copy()
     if render_factor:
         K[:2, :3] /= render_factor
@@ -130,8 +152,7 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
         c2w = np.asarray(render_poses[fi], dtype=np.float32)[:3, :4]
         cond = sr_condition(num_cond, res["depths"][fi], K, c2w, data, dev)
         t0 = time.perf_counter()
-        sr = cuda_sr.sftnet_apply_cuda(prep, res["rgb_features"][fi][None],
-                                       cond, fuse_rrdb=fuse_rrdb)[0]
+        sr = decode(res["rgb_features"][fi][None], cond)[0]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         sr_times.append(time.perf_counter() - t0)

@@ -1,5 +1,5 @@
 """Parameters into the port: numpy trees of the JAX package's layout, the
-SFTNet flax tree, and the trained-content anchor asset.
+SFTNet and RRDBNetBPS flax trees, and the trained-content anchor asset.
 
 The dmpigo ``params``/``buffers`` dicts keep their layout (grids
 ``[X,Y,Z,C]``, rgbnet ``{w0,b0,...}`` with ``w [Cin,W]``) and only become
@@ -49,6 +49,22 @@ def dvgo_from_numpy(params, buffers, device=None):
     return to_torch(params, dev), to_torch(buffers, dev)
 
 
+def _load_flax_convs(model, tree: dict):
+    """Copy a flax tree into ``model`` by name: every :class:`Conv` takes
+    ``kernel`` (HWIO -> OIHW) and ``bias`` of the node at its path."""
+    with torch.no_grad():
+        for path, mod in model.named_modules():
+            if not isinstance(mod, sr_esrnet.Conv):
+                continue
+            node = tree
+            for part in path.split("."):
+                node = node[part]
+            k = torch.tensor(np.asarray(node["kernel"], np.float32))
+            mod.weight.copy_(k.permute(3, 2, 0, 1))
+            mod.bias.copy_(torch.tensor(np.asarray(node["bias"], np.float32)))
+    return model
+
+
 def sftnet_from_flax(tree: dict, device=None) -> sr_esrnet.SFTNet:
     """Build an :class:`SFTNet` from a flax ``params`` tree, inferring its
     shape (input colours, condition channels, blocks, scale)."""
@@ -63,17 +79,22 @@ def sftnet_from_flax(tree: dict, device=None) -> sr_esrnet.SFTNet:
         num_grow_ch=int(np.shape(tree["body0"]["rdb1"]["conv1"]["kernel"])[3])
         if num_block else 32,
         num_cond=int(np.shape(tree["cond0"]["kernel"])[2]))
-    with torch.no_grad():
-        for path, mod in model.named_modules():
-            if not isinstance(mod, sr_esrnet.Conv):
-                continue
-            node = tree
-            for part in path.split("."):
-                node = node[part]
-            k = torch.tensor(np.asarray(node["kernel"], np.float32))
-            mod.weight.copy_(k.permute(3, 2, 0, 1))
-            mod.bias.copy_(torch.tensor(np.asarray(node["bias"], np.float32)))
-    return model.to(dev).eval()
+    return _load_flax_convs(model, tree).to(dev).eval()
+
+
+def rrdbnet_bps_from_flax(tree: dict, device=None) -> sr_esrnet.RRDBNetBPS:
+    """Build an :class:`RRDBNetBPS` from a flax ``params`` tree (numpy
+    arrays, kernels HWIO), inferring its shape (colours, blocks, scale)."""
+    dev = resolve_device(device)
+    num_block = sum(1 for k in tree if k.startswith("body"))
+    model = sr_esrnet.RRDBNetBPS(
+        n_colors=int(np.shape(tree["conv_first"]["kernel"])[2]),
+        scale=4 if "conv_up2" in tree else 2,
+        num_feat=int(np.shape(tree["conv_first"]["kernel"])[3]),
+        num_block=num_block,
+        num_grow_ch=int(np.shape(tree["body0"]["rdb1"]["conv1"]["kernel"])[3])
+        if num_block else 32)
+    return _load_flax_convs(model, tree).to(dev).eval()
 
 
 def sftnet_init(*, num_block: int = 5, scale: int = 4, seed: int = 0,

@@ -195,3 +195,63 @@ def test_rrdb_kernel_matches_plain(cuda, h, w):
     ref = cuda_sr.rrdb_plain(x, c, wts)
     torch.cuda.synchronize()
     assert float((got.float() - ref.float()).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("h2,w2", [(45, 70), (48, 64), (1, 1), (5, 9),
+                                   (8, 16), (17, 33)])
+def test_uptail_kernel_matches_plain(cuda, h2, w2):
+    """The odd size of the JAX suite's test, an even one, a single pixel,
+    sizes under, at and just over one 16x32 output tile: SAME zero padding
+    at every frame edge, for every stage."""
+    model = weights.sftnet_init(num_block=1, seed=2, device=cuda)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.normal(size=(1, h2, w2, 64)).astype(np.float32),
+                        device=cuda)
+    wts = cuda_sr.pack_uptail_weights(model)
+    n0 = cuda_sr.uptail_apply.launches
+    got = cuda_sr.uptail_apply(x, wts)
+    assert cuda_sr.uptail_apply.launches == n0 + 1
+    ref = cuda_sr.uptail_plain(x, wts)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (1, 2 * h2, 2 * w2, 3)
+    assert float((got - ref).abs().max()) <= 0.03
+    torch.testing.assert_close(got, got.to(torch.bfloat16).float(),
+                               rtol=0, atol=0)
+
+
+def test_uptail_apply_refuses_a_bad_input(cuda):
+    model = weights.sftnet_init(num_block=1, seed=2, device=cuda)
+    wts = cuda_sr.pack_uptail_weights(model)
+    with pytest.raises(ValueError):
+        cuda_sr.uptail_apply(torch.zeros((4, 4, 64), device=cuda), wts)
+    with pytest.raises(ValueError):
+        cuda_sr.uptail_apply(torch.zeros((1, 4, 4, 64)), wts)  # CPU input
+
+
+def test_probe_floor_checksums(cuda):
+    """Every floor probe reproduces its checksum (run raises otherwise) and
+    reports a positive time."""
+    from fourk_nerf_torch.tools import probe_floor
+    probe_floor.run.launches = 0
+    res = probe_floor.run(device=cuda, reps=1)
+    # a warm-up and one timed launch of each of the six probes
+    assert probe_floor.run.launches == res["launches"] == 12
+    assert res["library_ms"] > 0
+    assert set(res["probes"]) == {"empty", "empty_sync", "smem_read",
+                                  "dyn_window", "window_mma", "copy_ring"}
+    assert all(p["ms"] > 0 for p in res["probes"].values())
+
+
+def test_probe_ops_limits(cuda):
+    """Each of the six constructs is within its limit (run raises
+    otherwise); the four data movements are exact."""
+    from fourk_nerf_torch.tools import probe_ops
+    probe_ops.run.launches = 0
+    res = probe_ops.run(device=cuda)
+    assert len(res["probes"]) == 6
+    # one checked and ten timed launches of each
+    assert probe_ops.run.launches == res["launches"] == 66
+    assert all(p["library_ms"] > 0 for p in res["probes"].values())
+    for name in ("r3_bcast", "strided_row", "repeat_rows", "block_reduce"):
+        assert res["probes"][name]["max_err"] == 0.0

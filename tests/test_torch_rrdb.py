@@ -122,15 +122,18 @@ def test_sftnet_fuse_rrdb_decode_matches_pallas(num_block, scale):
         p, jnp.asarray(x), jnp.asarray(c)))
     tm = weights.sftnet_from_flax(p, device="cpu")
     got = cuda_sr.sftnet_apply_plain(tm, torch.as_tensor(x),
-                                     torch.as_tensor(c), fuse_rrdb=True)
+                                     torch.as_tensor(c), fuse_rrdb=True,
+                                     upchain="dilated")
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert float(np.abs(got.numpy() - ref).max()) < BF16_TOL
     # sftnet_apply_cuda on the CPU takes the same plain RRDBs
     fused = cuda_sr.sftnet_apply_cuda(tm, torch.as_tensor(x),
-                                      torch.as_tensor(c), fuse_rrdb=True)
+                                      torch.as_tensor(c), fuse_rrdb=True,
+                                      upchain="dilated")
     torch.testing.assert_close(fused, got, rtol=0, atol=0)
     # and fusing changes the rounding, not the function
     unfused = cuda_sr.sftnet_apply_plain(tm, torch.as_tensor(x),
-                                         torch.as_tensor(c))
+                                         torch.as_tensor(c),
+                                         upchain="dilated")
     d = (unfused - got).abs()
     assert 0 < float(d.max()) < BF16_TOL

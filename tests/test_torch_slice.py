@@ -120,5 +120,11 @@ def test_kernel_sources_are_present():
         path = os.path.join(_build.CSRC, f"{name}.cu")
         with open(path) as f:
             text = f.read()
-        assert f'extern "C" int {name}_launch' in text
+        # one launch function per kernel; a probe suite has one per probe
+        entries = {"probe_floor": ("loop", "mma", "ring"),
+                   "probe_ops": ("dot_tt", "dot_tt_bf16", "move",
+                                 "block_reduce")}.get(name, ("launch",))
+        for entry in entries:
+            assert f'extern "C" int {name}_{entry}(' in text
+        assert f'extern "C" const char* {name}_error_string' in text
         assert "sm_90a" in " ".join(_build.FLAGS)

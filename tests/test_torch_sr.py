@@ -207,11 +207,13 @@ def test_sftnet_fused_decode_matches_pallas():
     package's sftnet_apply_pallas (interpret, dilated upchain)."""
     model, p, x, c, tm = _sftnet(H=24, W=32, seed=3)
     ref = np.asarray(sftnet_pallas(p, jnp.asarray(x), jnp.asarray(c)))
-    got = cuda_sr.sftnet_apply_cuda(tm, torch.as_tensor(x), torch.as_tensor(c))
+    got = cuda_sr.sftnet_apply_cuda(tm, torch.as_tensor(x), torch.as_tensor(c),
+                                    upchain="dilated")
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert float(np.abs(got.numpy() - ref).max()) < BF16_TOL
     plain = cuda_sr.sftnet_apply_plain(cuda_sr.prepare_sftnet(tm),
-                                       torch.as_tensor(x), torch.as_tensor(c))
+                                       torch.as_tensor(x), torch.as_tensor(c),
+                                       upchain="dilated")
     torch.testing.assert_close(plain, got, rtol=0, atol=0)
 
 

@@ -286,7 +286,7 @@ def test_frame_pipeline_dvgo_fuse_rrdb():
     torch.testing.assert_close(enc["rgb_feature"], ref_enc["rgb_feature"])
     ref = cuda_sr.sftnet_apply_plain(tsr_model, enc["rgb_feature"][None],
                                      enc["depth"][None, ..., None],
-                                     fuse_rrdb=True)
+                                     fuse_rrdb=True, upchain="dilated")
     torch.testing.assert_close(sr, ref, rtol=0, atol=0)
 
 
