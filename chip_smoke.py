@@ -17,7 +17,8 @@ Phases (any failure raises and the script exits non-zero):
      the JAX package's bench: 363x405x256 grid, 9-ch k0, rgbnet 3x64,
      density N(-2,2), 50% random mask, numpy seed 0) -> 1008x756 render ->
      SFTNet (64 feat, 5 RRDBs, grow 32, seeded) -> 4032x3024: launch counts,
-     finiteness, kernel vs plain on the main path's inputs, timings;
+     finiteness, kernel vs plain on the main path's inputs, timings (the
+     dense block beside its five convs as cuDNN calls, ``conv_chain_ms``);
   5. the same frame on the trained-content anchor
      ``tools/assets/med_sr_grids_f16.npz`` upsampled onto that geometry;
   6. box kernel vs its plain version on a small bounded scene, float32
@@ -128,6 +129,31 @@ def rdb_macs_per_px() -> int:
     from fourk_nerf_torch.ops import cuda_sr
     return (9 * sum(ci * co for ci, co in zip(cuda_sr._CIN, cuda_sr._COUT))
             + 2 * (32 * 32 + 32 * 64) + 2 * (32 * 32 + 32 * 32))
+
+
+def conv_chain_ms(body, w) -> float:
+    """The dense block's five 3x3 convs alone as cuDNN bf16 ``F.conv2d``
+    calls (channels_last, bias fused, no SFT, no concat) on the block's
+    input ``body [H,W,64]``: ms per chain by CUDA events. A yardstick for
+    the conv share of the dense-block kernel, not one call of its
+    function."""
+    import torch
+    import torch.nn.functional as F
+    from fourk_nerf_torch.ops import cuda_sr
+    bf, cl = torch.bfloat16, torch.channels_last
+    ks = [cuda_sr._unpack_conv(w, s).to(bf).contiguous(memory_format=cl)
+          for s in range(5)]
+    bs = [w.bias[s, :cuda_sr._COUT[s]].to(bf) for s in range(5)]
+    srcs = [body.permute(2, 0, 1)[None].contiguous(memory_format=cl)]
+    for s in range(4):  # the inputs each conv reads, built untimed
+        y = F.leaky_relu(F.conv2d(srcs[-1], ks[s], bs[s], padding=1), 0.2)
+        srcs.append(torch.cat([srcs[-1], y], 1).contiguous(memory_format=cl))
+
+    def chain():
+        for s in range(5):
+            F.conv2d(srcs[s], ks[s], bs[s], padding=1)
+
+    return cuda_ms(chain, 5)
 
 
 def phase_build():
@@ -334,6 +360,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     rdb_tail_ms = cuda_ms(
         lambda: cuda_sr.rdb_apply(body, ch, prep.packs[2], xin=body), 5)
     rdb_plain_ms = cuda_ms(lambda: cuda_sr.rdb_plain(body, ch, prep.packs[0]), 2)
+    chain_ms = conv_chain_ms(body, prep.packs[0])
     mac_px = rdb_macs_per_px()
     rdb_ops = 2 * mac_px * H * W / BF16_FLOPS * 1e3
     rdb_bytes = (H * W * (64 + 32 + 64) * 2
@@ -341,7 +368,8 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     rdb_bound = max(rdb_ops, rdb_bytes)
     log(f"  dense block kernel {rdb_ms:.3f} ms (tail {rdb_tail_ms:.3f} ms), "
         f"plain {rdb_plain_ms:.1f} ms, bound {rdb_bound:.3f} ms "
-        f"({mac_px} MAC/px at the bf16 peak; bytes {rdb_bytes:.4f} ms)")
+        f"({mac_px} MAC/px at the bf16 peak; bytes {rdb_bytes:.4f} ms); "
+        f"its five convs as cuDNN bf16 calls {chain_ms:.3f} ms")
 
     sr_ref = cuda_sr.sftnet_apply_plain(prep, feat, depth, upchain="dilated")
     sync()
@@ -377,7 +405,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
                plain_sweep_ms=plain_sweep_ms, sweep_bound=sweep_bound,
                sweep_bound_by="bytes" if t_bytes >= t_ops else "operations",
                rdb_err=rdb_err, rdb_ms=rdb_ms, rdb_plain_ms=rdb_plain_ms,
-               rdb_bound=rdb_bound,
+               rdb_bound=rdb_bound, conv_chain_ms=chain_ms,
                rdb_bound_by="operations" if rdb_ops >= rdb_bytes else "bytes")
     return out
 
@@ -644,7 +672,8 @@ def run_flythrough(dev):
     mac_px = 3 * rdb_macs_per_px() + 2 * (32 * 32 + 32 * 64)
     rrdb_ops = 2 * mac_px * hw * hw / BF16_FLOPS * 1e3
     rrdb_bytes = (hw * hw * (64 + 32 + 64) * 2 + w0.conv.numel() * 2
-                  + (w0.bias.numel() + w0.sftm.numel() + w0.sftb.numel()) * 4
+                  + (w0.bias.numel() + w0.sftb.numel()) * 4
+                  + w0.sftk.numel() * 2
                   ) / HBM_BYTES_PER_S * 1e3
     rrdb_bound = max(rrdb_ops, rrdb_bytes)
     log(f"  rrdb kernel {rrdb_ms:.3f} ms, three dense-block launches "
@@ -970,9 +999,11 @@ def main() -> int:
          "launches": syn["launches"]["rdb"],
          "max_abs_err": syn["rdb_err"], "ms": syn["rdb_ms"],
          "plain_ms": syn["rdb_plain_ms"], "bound_ms": syn["rdb_bound"],
-         "bound_by": syn["rdb_bound_by"], "library_ms": None},
-        # library_ms is null for both: no single PyTorch call renders a
-        # volume sweep or a whole RRDB
+         "bound_by": syn["rdb_bound_by"], "library_ms": None,
+         "conv_chain_ms": syn["conv_chain_ms"]},
+        # library_ms is null for the sweep, the dense block, the box sweep
+        # and the RRDB: no single PyTorch call computes any of them
+        # (conv_chain_ms: the block's five convs alone as cuDNN calls)
         {"name": "box", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/box.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_box.py:533",

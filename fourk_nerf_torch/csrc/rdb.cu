@@ -23,9 +23,11 @@
 // three blocks deep).
 //
 // What bounds it on the H100: the convs' bf16 tensor-core work, ~250k MAC
-// per output pixel (plus ~60% halo recompute at this tile size). This
-// first version is simple: one block per SM (shared memory), weights from
-// L2 rather than staged, no wgmma/TMA pipeline; those are later work.
+// per output pixel (plus ~110% halo recompute at this tile size). The
+// tile code issues mma.sync on ldmatrix operands from XOR-swizzled rows,
+// reads the weights in mma fragment order through L1 and runs the SFT
+// layers on the tensor cores too; one thread block per SM (shared memory),
+// no wgmma/TMA pipeline yet.
 #include "rdb_block.cuh"
 
 namespace {
@@ -53,11 +55,13 @@ __global__ void __launch_bounds__(kThreads, 1) rdb_kernel(const RdbArgs p) {
 
 extern "C" int rdb_launch(const void* x, const void* cond, const void* xin,
                           void* out, const void* wconv, const float* bias,
-                          const float* sftm, const float* sftb, int H, int W,
+                          const void* sftk, const float* sftb, int H, int W,
                           int tail, void* stream) {
   RdbArgs args{static_cast<const bf16*>(x), static_cast<const bf16*>(cond),
                static_cast<const bf16*>(xin), static_cast<bf16*>(out),
-               {static_cast<const bf16*>(wconv), bias, sftm, sftb}, H, W, tail};
+               {static_cast<const bf16*>(wconv), bias,
+                static_cast<const bf16*>(sftk), sftb},
+               H, W, tail};
   if (H == 0 || W == 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(
       rdb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);

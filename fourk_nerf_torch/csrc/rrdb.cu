@@ -30,8 +30,8 @@
 //
 // What bounds it on the H100: the three blocks' convs at the bf16
 // tensor-core peak (~750k MAC per pixel). It recomputes ~1.7x of that and
-// inherits rdb.cu's costs (wmma, weights from L2, one thread block per SM),
-// so it is expected to be slower than three launches of rdb.cu.
+// runs rdb.cu's tile code (one thread block per SM), so it is slower than
+// three launches of rdb.cu.
 #include "rdb_block.cuh"
 
 namespace {
@@ -55,7 +55,7 @@ struct RrdbArgs {
   bf16* out;          // [H, W, 64]
   const bf16* wconv;  // [3][conv floats of one block]
   const float* bias;  // [3][5][64]
-  const float* sftm;  // [3][12][32][64]; block 3 rows 8..11: the RRDB's SFT
+  const bf16* sftk;   // [3][12 x 2048]; block 3 matrices 8..11: the RRDB's SFT
   const float* sftb;  // [3][12][64]
   float* scratch;     // [gridDim.x][kScratchA + kScratchB]
   int H, W, nry, nrx;
@@ -65,7 +65,7 @@ struct RrdbArgs {
 __device__ __forceinline__ BlockWeights block_weights(const RrdbArgs& p,
                                                       int r) {
   return BlockWeights{p.wconv + (size_t)r * p.conv_elems, p.bias + r * 5 * 64,
-                      p.sftm + r * 12 * 2048, p.sftb + r * 12 * 64};
+                      p.sftk + r * 12 * 2048, p.sftb + r * 12 * 64};
 }
 
 // all sub-tiles of one stage: an nty x ntx grid of 8x16 tiles from (y0, x0)
@@ -122,14 +122,15 @@ extern "C" int rrdb_regions(int H, int W) {
 
 extern "C" int rrdb_launch(const void* x, const void* cond, void* out,
                            const void* wconv, const float* bias,
-                           const float* sftm, const float* sftb,
+                           const void* sftk, const float* sftb,
                            float* scratch, int H, int W, int conv_elems,
                            int blocks, void* stream) {
   if (H == 0 || W == 0) return 0;
   const int nry = tiles(H, CH), nrx = tiles(W, CW);
   RrdbArgs args{static_cast<const bf16*>(x), static_cast<const bf16*>(cond),
                 static_cast<bf16*>(out), static_cast<const bf16*>(wconv),
-                bias, sftm, sftb, scratch, H, W, nry, nrx, conv_elems};
+                bias, static_cast<const bf16*>(sftk), sftb, scratch, H, W, nry,
+                nrx, conv_elems};
   if (blocks < 1 || blocks > nry * nrx) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       rrdb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);

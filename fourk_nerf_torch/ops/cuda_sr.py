@@ -56,17 +56,46 @@ UPCHAINS = ("materialized", "dilated")
 class RdbWeights:
     """One dense block's weights in the kernel's layout.
 
-    ``conv``: the five 3x3 kernels back to back, each ``[9, Cin, Cout]``
-    (tap-major HWIO), bf16. ``bias [5, 64]`` float32. ``sftm [12, 32, 64]``
+    ``conv``: the five 3x3 kernels back to back, bf16, each in the
+    kernel's fragment order (:func:`_to_fragments`: per tap and 16-channel
+    input chunk, per 16 output channels, 32 lanes x 8 values that are one
+    lane's B operands of ``mma.sync`` m16n8k16 for two 8-channel tiles).
+    ``bias [5, 64]`` float32. ``sftm [12, 32, 64]``
     float32 holding bf16-rounded 1x1 weights ``[in, out]``, zero-padded:
     rows 0..3 sft0, 4..7 sft1, 8..11 the RRDB's trailing SFT (tail mode),
-    each as (scale0, scale1, shift0, shift1). ``sftb [12, 64]`` float32."""
+    each as (scale0, scale1, shift0, shift1). ``sftb [12, 64]`` float32.
+    ``sftk [12 * 2048]`` bf16: the same twelve ``[32, 64]`` matrices in
+    fragment order, as the kernel reads them (``sftm`` serves the plain
+    version)."""
 
     conv: torch.Tensor
     bias: torch.Tensor
     sftm: torch.Tensor
     sftb: torch.Tensor
+    sftk: torch.Tensor
     tail: bool
+
+
+# a B operand [K, N] as K / 16 steps of 16 rows k = 8 khi + 2 t + klo, with
+# column n = 16 p + 8 half + g, in the order (step, p, g, t, half, khi, klo):
+# lane 4 g + t holds B[k][n] for k in (2t, 2t+1, 2t+8, 2t+9) and n = 16 p + g,
+# then the same for n = 16 p + 8 + g
+_FRAG = (0, 4, 6, 2, 5, 1, 3)
+_UNFRAG = tuple(_FRAG.index(d) for d in range(7))
+
+
+def _to_fragments(k):
+    """A B operand ``[..., K, N]`` (a conv as tap-major HWIO ``[3, 3, Cin,
+    Cout]``: K runs over taps and input channels) -> the kernel's flat
+    fragment order."""
+    n = k.shape[-1]
+    return k.reshape(-1, 2, 4, 2, n // 16, 2, 8).permute(_FRAG).reshape(-1)
+
+
+def _from_fragments(flat, cin: int, cout: int):
+    """The inverse of :func:`_to_fragments`."""
+    return flat.reshape(9 * cin // 16, cout // 16, 8, 4, 2, 2, 2) \
+        .permute(_UNFRAG).reshape(3, 3, cin, cout)
 
 
 def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
@@ -81,7 +110,7 @@ def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
         if tuple(w.shape) != (_COUT[s], _CIN[s], 3, 3):
             raise ValueError(f"conv{s + 1}: expected {(_COUT[s], _CIN[s], 3, 3)}"
                              f", got {tuple(w.shape)} (num_feat 64, grow 32)")
-        convs.append(w.permute(2, 3, 1, 0).reshape(-1))
+        convs.append(_to_fragments(w.permute(2, 3, 1, 0)))
         bias[s, :_COUT[s]] = conv.bias.detach().float()
     sftm = torch.zeros((12, 32, 64), dtype=torch.float32, device=dev)
     sftb = torch.zeros((12, 64), dtype=torch.float32, device=dev)
@@ -93,15 +122,17 @@ def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
             sftm[4 * si + wi, :k.shape[0], :k.shape[1]] = \
                 k.to(torch.bfloat16).float()
             sftb[4 * si + wi, :k.shape[1]] = m.bias.detach().float()
-    return RdbWeights(torch.cat(convs).to(torch.bfloat16).contiguous(), bias,
-                      sftm, sftb, rrdb_sft is not None)
+    bf = torch.bfloat16
+    return RdbWeights(torch.cat(convs).to(bf).contiguous(), bias, sftm, sftb,
+                      _to_fragments(sftm).to(bf).contiguous(),
+                      rrdb_sft is not None)
 
 
 def _unpack_conv(w: RdbWeights, s: int):
     """Conv s as an OIHW float32 tensor (bf16 values)."""
     off = sum(9 * _CIN[t] * _COUT[t] for t in range(s))
     k = w.conv[off:off + 9 * _CIN[s] * _COUT[s]].float()
-    return k.reshape(3, 3, _CIN[s], _COUT[s]).permute(3, 2, 0, 1)
+    return _from_fragments(k, _CIN[s], _COUT[s]).permute(3, 2, 0, 1)
 
 
 def _sft_plain(cf, w: RdbWeights, base: int, n: int):
@@ -155,7 +186,7 @@ def rdb_apply(x, cond, w: RdbWeights, xin=None):
     if (xin is not None) != w.tail:
         raise ValueError("rdb_apply: xin must be given exactly for weights "
                          "packed with the RRDB's trailing SFT")
-    tensors = [x, cond, w.conv, w.bias, w.sftm, w.sftb] + (
+    tensors = [x, cond, w.conv, w.bias, w.sftm, w.sftb, w.sftk] + (
         [xin] if xin is not None else [])
     if all(t.device.type == "cpu" for t in tensors):
         return rdb_plain(x, cond, w, xin)
@@ -182,7 +213,7 @@ def rdb_apply(x, cond, w: RdbWeights, xin=None):
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(x.data_ptr(), cond.data_ptr(),
              xin.data_ptr() if xin is not None else None, out.data_ptr(),
-             w.conv.data_ptr(), w.bias.data_ptr(), w.sftm.data_ptr(),
+             w.conv.data_ptr(), w.bias.data_ptr(), w.sftk.data_ptr(),
              w.sftb.data_ptr(), H, W, int(xin is not None),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "rdb_error_string", err, "rdb kernel")
@@ -197,24 +228,25 @@ rdb_apply.launches = 0
 class RrdbWeights:
     """One RRDB's three dense-block packs stacked on a leading axis:
     ``conv [3, n]`` bf16, ``bias [3, 5, 64]``, ``sftm [3, 12, 32, 64]``,
-    ``sftb [3, 12, 64]``. The third block's SFT rows 8..11 hold the RRDB's
-    trailing SFT."""
+    ``sftb [3, 12, 64]``, ``sftk [3, 12 * 2048]``. The third block's SFT
+    rows 8..11 hold the RRDB's trailing SFT."""
 
     conv: torch.Tensor
     bias: torch.Tensor
     sftm: torch.Tensor
     sftb: torch.Tensor
+    sftk: torch.Tensor
 
     def block(self, r: int) -> RdbWeights:
         return RdbWeights(self.conv[r], self.bias[r], self.sftm[r],
-                          self.sftb[r], r == 2)
+                          self.sftb[r], self.sftk[r], r == 2)
 
 
 def _stack_packs(packs) -> RrdbWeights:
     """Three dense-block packs (the third with the RRDB's SFT) stacked."""
     return RrdbWeights(*(torch.stack([getattr(p, f) for p in packs])
                          .contiguous()
-                         for f in ("conv", "bias", "sftm", "sftb")))
+                         for f in ("conv", "bias", "sftm", "sftb", "sftk")))
 
 
 def pack_rrdb_weights(body) -> RrdbWeights:
@@ -242,7 +274,7 @@ _RRDB_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 def rrdb_apply(x, cond, w: RrdbWeights):
     """One whole RRDB in one launch. Returns ``[H, W, 64]`` bf16."""
-    tensors = [x, cond, w.conv, w.bias, w.sftm, w.sftb]
+    tensors = [x, cond, w.conv, w.bias, w.sftm, w.sftb, w.sftk]
     if all(t.device.type == "cpu" for t in tensors):
         return rrdb_plain(x, cond, w)
     dev = x.device
@@ -274,7 +306,7 @@ def rrdb_apply(x, cond, w: RrdbWeights):
     fn = lib.rrdb_launch
     fn.argtypes, fn.restype = _RRDB_ARGTYPES, ctypes.c_int
     err = fn(x.data_ptr(), cond.data_ptr(), out.data_ptr(),
-             w.conv.data_ptr(), w.bias.data_ptr(), w.sftm.data_ptr(),
+             w.conv.data_ptr(), w.bias.data_ptr(), w.sftk.data_ptr(),
              w.sftb.data_ptr(), scratch.data_ptr(), H, W, n_conv, blocks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "rrdb_error_string", err, "rrdb kernel")
@@ -296,6 +328,16 @@ class PreparedSFTNet:
     packs: tuple
     rrdb_packs: tuple
     last_bias: torch.Tensor
+
+
+def fits_kernels(model) -> bool:
+    """Whether the dense-block and whole-RRDB kernels take ``model``: a
+    :class:`PreparedSFTNet`, or an :class:`SFTNet` of 64 features and
+    growth 32 (the JAX video loop's test for its fused decode)."""
+    if isinstance(model, PreparedSFTNet):
+        return True
+    return (model.conv_first.weight.shape[0] == _F
+            and model.sftbody.scale0.weight.shape[0] == _G)
 
 
 def prepare_sftnet(model) -> PreparedSFTNet:

@@ -33,7 +33,10 @@ class FramePipeline:
     construction; each call renders one frame for a camera. A
     ``dmpigo.Config`` renders through the plane sweep (stepsize 1), a
     ``dvgo.Config`` through the box sweep with ``stepsize`` and ``near``.
-    ``fuse_rrdb`` decodes with one launch per RRDB instead of three."""
+    ``fuse_rrdb`` decodes with one launch per RRDB instead of three. An
+    SFTNet of another geometry than the kernels' (64 feat, grow 32)
+    decodes through its float32 forward, as the JAX package's video loop
+    does; that is decided here, from the geometry."""
 
     def __init__(self, cfg, params: dict, buffers: dict, sr_model, *,
                  use_bf16: bool = True, fuse_rrdb: bool = False,
@@ -53,7 +56,8 @@ class FramePipeline:
                                  "setup")
             self.packed = cuda_sweep.pack_grids_kernel(params, buffers,
                                                        use_bf16=use_bf16)
-        self.sr = cuda_sr.prepare_sftnet(sr_model)
+        self.sr = cuda_sr.prepare_sftnet(sr_model) \
+            if cuda_sr.fits_kernels(sr_model) else sr_model
 
     def encode(self, H: int, W: int, K, c2w) -> dict:
         """The encoder render: ``rgb_feature [H,W,3]``, ``depth [H,W]``,
@@ -70,9 +74,13 @@ class FramePipeline:
     def decode(self, enc: dict) -> torch.Tensor:
         """The SR decode of an encoder output: ``[1, sH, sW, 3]`` float32
         at the network's scale, conditioned on depth."""
-        return cuda_sr.sftnet_apply_cuda(
-            self.sr, enc["rgb_feature"][None], enc["depth"][None, ..., None],
-            fuse_rrdb=self.fuse_rrdb, upchain="dilated")
+        feat, cond = enc["rgb_feature"][None], enc["depth"][None, ..., None]
+        if not isinstance(self.sr, cuda_sr.PreparedSFTNet):
+            with torch.no_grad():
+                return self.sr(feat, cond)
+        return cuda_sr.sftnet_apply_cuda(self.sr, feat, cond,
+                                         fuse_rrdb=self.fuse_rrdb,
+                                         upchain="dilated")
 
     def __call__(self, H: int, W: int, K, c2w):
         """One frame: returns (sr ``[1, sH, sW, 3]``, encoder outputs)."""
@@ -113,7 +121,12 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
     ``test_tile`` > 0 each frame is decoded in tiles of that size by
     ``sr_esrnet.tile_process`` around the float32 ``SFTNet`` forward (the
     memory-bounded decode of ``run_sr.py --test_tile``; it needs the
-    module, not a prepared pack); otherwise by the fused decode. Returns
+    module, not a prepared pack); otherwise by the fused decode, or, for
+    an SFTNet of another geometry than the kernels', by its float32 forward
+    (decided up front, as the JAX package's loop decides). The viewdir
+    condition (``num_cond`` 63 or 64) is built, as in that loop, from the
+    unscaled ``Ks`` with the frame's own (``render_factor``-reduced) size.
+    Returns
     ``frames [N, sH, sW, 3]`` (float32, on the device), ``sr_times``
     (seconds per decode, host clock) and the encoder's result dict under
     ``encoder``."""
@@ -137,6 +150,10 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
                 return sr_esrnet.tile_process(
                     sr_model, feat, cond, tile_size=test_tile,
                     scale=sr_model.scale)
+    elif not cuda_sr.fits_kernels(sr_model):
+        def decode(feat, cond):
+            with torch.no_grad():
+                return sr_model(feat, cond)
     else:
         prep = cuda_sr.prepare_sftnet(sr_model)
 
@@ -144,9 +161,7 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
             return cuda_sr.sftnet_apply_cuda(prep, feat, cond,
                                              fuse_rrdb=fuse_rrdb,
                                              upchain="dilated")
-    K = Ks[0].copy()
-    if render_factor:
-        K[:2, :3] /= render_factor
+    K = Ks[0]
     frames, sr_times = [], []
     for fi in range(n):
         c2w = np.asarray(render_poses[fi], dtype=np.float32)[:3, :4]

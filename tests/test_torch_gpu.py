@@ -67,10 +67,13 @@ def test_sweep_kernel_matches_plain(cuda, use_bf16, width, depth, act):
 
 
 @pytest.mark.parametrize("tail", [False, True])
-@pytest.mark.parametrize("h,w", [(37, 55), (5, 9), (8, 16)])
+@pytest.mark.parametrize("h,w", [(37, 55), (5, 9), (8, 16), (40, 64),
+                                 (9, 17)])
 def test_rdb_kernel_matches_plain(cuda, tail, h, w):
-    """Frames that do not divide the 8x16 tile, smaller than it, and one
-    exact tile: SAME zero padding at every frame edge."""
+    """Frames that do not divide the 8x16 tile, smaller than it, one exact
+    tile, one of several whole tiles with interior ones, and one a pixel
+    over a tile boundary each way: SAME zero padding at every frame edge,
+    the swizzled slabs and the staged weights across tiles."""
     model = weights.sftnet_init(num_block=1, seed=2, device=cuda)
     rng = np.random.default_rng(1)
     t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),

@@ -24,7 +24,7 @@ from fourk_nerf_tpu.ops import pallas_box, pallas_sr, pallas_sweep
 from fourk_nerf_tpu.train import trainer as jtrainer
 from fourk_nerf_torch import pipeline, weights
 from fourk_nerf_torch.models import common as tcommon, dmpigo as tdm, \
-    dvgo as tdv
+    dvgo as tdv, sr_esrnet as tsr
 from fourk_nerf_torch.ops import cuda_box, cuda_sr, rays as trays
 from fourk_nerf_torch.train import trainer as ttrainer
 from test_box_sweep import _camera, _scene as box_scene
@@ -267,6 +267,75 @@ def test_sr_condition_channels():
                                torch.ones(1, 6, 8))  # unit view directions
     with pytest.raises(ValueError):
         pipeline.sr_condition(2, depth, K, c2w, data, "cpu")
+
+
+def test_render_video_viewdir_condition_under_render_factor(monkeypatch):
+    """num_cond 64 with render_factor 2: the decode gets the JAX video
+    loop's condition (run_sr.py): the depth, then the viewdir embedding of
+    the unscaled K at the halved frame size."""
+    from fourk_nerf_tpu.ops import rays as jrays
+    h, w = 16, 24
+    cfg, params, buffers = box_scene(np.random.default_rng(3))
+    tcfg, tp, tb = port_box_scene(cfg, params, buffers)
+    K, _ = _camera(h, w)
+    poses = [_camera(h, w, angle=a)[1] for a in ((0.4, 0.3), (0.1, 2.0))]
+    seen = []
+
+    def decode(prep, feat, cond, **kw):
+        seen.append(cond)
+        return torch.zeros(feat.shape[:3] + (3,))
+
+    monkeypatch.setattr(cuda_sr, "sftnet_apply_cuda", decode)
+    model = tsr.SFTNet(scale=1, num_block=1, num_cond=64)
+    out = pipeline.render_video(
+        tdv, tcfg, tp, tb, model, poses, (h, w), K,
+        data=ttrainer.DataFlags(),
+        render_kwargs=dict(stepsize=0.5, near=0.2, far=1e9, bg=1.0),
+        num_cond=64, render_factor=2, device="cpu")
+    assert len(seen) == 2
+    for fi, c2w in enumerate(poses):
+        depth = out["encoder"]["depths"][fi].numpy()
+        assert depth.shape == (h // 2, w // 2)
+        _, _, vd = jrays.get_rays_of_a_view(h // 2, w // 2, K, c2w[:3, :4],
+                                            ndc=False, inverse_y=False,
+                                            flip_x=False, flip_y=False)
+        want = np.concatenate(
+            [depth[..., None], np.asarray(jrays.positional_encoding(vd, 10))],
+            -1)
+        assert tuple(seen[fi].shape) == (1, h // 2, w // 2, 64)
+        np.testing.assert_allclose(seen[fi][0].numpy(), want, atol=1e-5)
+
+
+def test_sr_geometry_outside_the_kernels_decodes_in_float32():
+    """A 32-feature SFTNet (growth 16) is no geometry of the dense-block
+    kernels: render_video and FramePipeline decode it with its float32
+    forward, chosen up front as the JAX video loop chooses, instead of
+    raising in the weight packer."""
+    cfg, params, buffers = box_scene(np.random.default_rng(3))
+    tcfg, tp, tb = port_box_scene(cfg, params, buffers)
+    torch.manual_seed(0)
+    model = tsr.SFTNet(scale=2, num_feat=32, num_block=1, num_grow_ch=16)
+    K, c2w = _camera(16, 24)
+    rk = dict(stepsize=0.5, near=0.2, far=1e9, bg=1.0)
+    out = pipeline.render_video(
+        tdv, tcfg, tp, tb, model, [c2w], (16, 24), K,
+        data=ttrainer.DataFlags(), render_kwargs=rk, fuse_rrdb=True,
+        device="cpu")
+    enc = out["encoder"]
+    with torch.no_grad():
+        want = model(enc["rgb_features"][:1], enc["depths"][:1, ..., None])
+    assert tuple(out["frames"].shape) == (1, 32, 48, 3)
+    torch.testing.assert_close(out["frames"][0], want[0].clamp(0.0, 1.0),
+                               rtol=0, atol=0)
+    pipe = pipeline.FramePipeline(tcfg, tp, tb, model, stepsize=0.5,
+                                  near=0.2, bg=1.0, device="cpu")
+    sr, penc = pipe(16, 24, K, c2w)
+    with torch.no_grad():
+        want = model(penc["rgb_feature"][None],
+                     penc["depth"][None, ..., None])
+    torch.testing.assert_close(sr, want, rtol=0, atol=0)
+    assert not cuda_sr.fits_kernels(model)
+    assert cuda_sr.fits_kernels(_sr(3)[1])
 
 
 def test_frame_pipeline_dvgo_fuse_rrdb():
