@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure raises and the script exits non-zero):
   1. build the seven CUDA libraries from ``fourk_nerf_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time and ptxas
-     summary;
+     summary, with the sweep kernel's registers by instantiation;
   2. sweep kernel vs its plain version on a small scene (viewdir PE 4,
      spatial PE 2, mask at grid resolution), float32 and bf16 paths;
   3. dense-block kernel vs its plain version, plain and tail mode, on a
@@ -29,7 +29,9 @@ Phases (any failure raises and the script exits non-zero):
      (12-ch k0, rgbnet 3x128 on 39 inputs, blob fill 0.15, numpy seed 0),
      three 800x800 poses through ``pipeline.render_video`` with a scale-1
      SFTNet (64 feat, 5 RRDBs) and ``fuse_rrdb=True``: launch counts,
-     finiteness, both kernels vs plain on the path's inputs, timings;
+     finiteness, both kernels vs plain on the path's inputs, timings; the
+     frames also timed with ``fuse_rrdb=False`` (``render_video``'s
+     default: 15 dense-block launches a frame, counted);
   9. fused upsample tail (uptail) kernel vs its plain version at 45x70 (an
      odd size) and 48x64;
  10. the 4K decode with the fused tail at full width: the trunk of the
@@ -156,7 +158,29 @@ def conv_chain_ms(body, w) -> float:
     return cuda_ms(chain, 5)
 
 
-def phase_build():
+def ptxas_registers(text: str, kernel: str) -> dict:
+    """{instantiation: registers} of ``kernel`` from nvcc's ptxas log, the
+    template arguments read off the mangled name (``bf16,16,64``)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = line.split("'")[1] if "'" in line else ""
+            name = None
+            if f"{kernel}I" in m:
+                args = m.split(f"{kernel}I", 1)[1].split("EEv", 1)[0]
+                for code, typ in (("13__nv_bfloat16", "bf16"), ("f", "float")):
+                    if args.startswith(code):
+                        args = typ + "," + args[len(code):]
+                name = args.replace("Li", "").replace("E", ",").strip(",")
+        elif name and "registers" in line:
+            out[name] = int(line.split("Used")[1].split()[0])
+            name = None
+    return out
+
+
+def phase_build() -> dict:
+    """Build every library; returns the sweep kernel's registers by
+    instantiation."""
     from fourk_nerf_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -166,6 +190,10 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"    {line.strip()}")
+    regs = ptxas_registers(logs["sweep"][1], "sweep_kernel")
+    log(f"  sweep_kernel registers by <grid type, channels a tap, MLP "
+        f"width>: {regs}")
+    return regs
 
 
 def small_scene(dev, seed=5):
@@ -267,9 +295,10 @@ def fern_synthetic(dev):
     return cfg, params, buffers
 
 
-def run_frame(label, cfg, params, buffers, sr_model, dev):
+def run_frame(label, cfg, params, buffers, sr_model, dev, sweep_regs):
     """Phases 4/5: one frame through the pipeline with the launch counts,
-    checks against the plain versions, then timings. Returns a dict of
+    checks against the plain versions, then timings. ``sweep_regs``: the
+    sweep kernel's registers by instantiation (phase 1). Returns a dict of
     the measured numbers."""
     import torch
     from fourk_nerf_torch.ops import cuda_sr, cuda_sweep, plane_sweep
@@ -301,10 +330,10 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
         f"{float(enc['rgb_feature'].mean()):.4f}, alphainv_last mean "
         f"{float(enc['alphainv_last'].mean()):.4f}")
 
-    # encoder: kernel vs plain on the main path's inputs (the plain sweep
-    # runs in ray chunks of 2^18)
+    # encoder: kernel vs plain on the main path's inputs, the rays in the
+    # driver's tile order (the plain sweep runs in ray chunks of 2^18)
     X, Y, _ = cfg.world_size
-    a, b, vde = plane_sweep.prepare_frame(cfg, H, W, K, c2w, device=dev)
+    a, b, vde, inv = cuda_sweep.prepare_frame(cfg, H, W, K, c2w, device=dev)
     mlp = plane_sweep.mlp_layers(params["rgbnet"])
     kw = dict(Xl=X, Yl=Y, mask_ch=pipe.packed.mask_ch, k0_dim=cfg.k0_dim,
               interval=float(cfg.voxel_size_ratio),
@@ -317,7 +346,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
                                   stats=stats, **kw)
     sync()
     plain_sweep_ms = (time.perf_counter() - t0) * 1e3
-    ref = plane_sweep.assemble(*ref, H, W, 1.0)
+    ref = plane_sweep.assemble(*(t[inv] for t in ref), H, W, 1.0)
     sweep_err = check_sweep("encoder kernel vs plain (bf16 path)", enc, ref)
     log(f"  samples in bounds and live {stats['samples']}, with non-zero "
         f"weight (MLP evaluated) {stats['mlp_samples']}")
@@ -339,9 +368,13 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
     t_ops = stats["mlp_samples"] * mlp_flop \
         / (BF16_FLOPS if bf16 else FP32_FLOPS) * 1e3
     sweep_bound = max(t_bytes, t_ops)
+    cl = 8 if max(g.mask_ch, cfg.k0_dim) < 8 else 16  # channels read a tap
+    regs = sweep_regs.get(f"{'bf16' if bf16 else 'float'},{cl},"
+                          f"{64 if width <= 64 else 128}")
     log(f"  sweep kernel {sweep_ms:.3f} ms, plain {plain_sweep_ms:.1f} ms, "
         f"bound {sweep_bound:.3f} ms (bytes {t_bytes:.4f} ms, "
-        f"{'bf16' if bf16 else 'fp32'} MLP ops {t_ops:.4f} ms)")
+        f"{'bf16' if bf16 else 'fp32'} MLP ops {t_ops:.4f} ms); "
+        f"sweep_kernel {regs} registers")
 
     # decoder: kernel vs plain at the main path's dense-block input
     prep = pipe.sr
@@ -404,6 +437,7 @@ def run_frame(label, cfg, params, buffers, sr_model, dev):
                launches=launches, sweep_err=sweep_err, sweep_ms=sweep_ms,
                plain_sweep_ms=plain_sweep_ms, sweep_bound=sweep_bound,
                sweep_bound_by="bytes" if t_bytes >= t_ops else "operations",
+               sweep_registers=regs,
                rdb_err=rdb_err, rdb_ms=rdb_ms, rdb_plain_ms=rdb_plain_ms,
                rdb_bound=rdb_bound, conv_chain_ms=chain_ms,
                rdb_bound_by="operations" if rdb_ops >= rdb_bytes else "bytes")
@@ -693,28 +727,47 @@ def run_flythrough(dev):
         raise AssertionError("fused SR output disagrees with the plain chain")
     del sr_ref, d
 
-    # timings: one warm-up frame, then the poses in turn, five frames
-    pipe(hw, hw, K, poses[0])
+    # timings: one warm-up frame, then the poses in turn, five frames; with
+    # fuse_rrdb and with three dense-block launches an RRDB (render_video's
+    # default), whose path is counted first
+    def frames_timed(p):
+        p(hw, hw, K, poses[0])
+        sync()
+        enc_t, sr_t, tot_t = [], [], []
+        for i in range(5):
+            t0 = time.perf_counter()
+            e = p.encode(hw, hw, K, poses[i % BOX_FRAMES])
+            sync()
+            t1 = time.perf_counter()
+            p.decode(e)
+            sync()
+            t2 = time.perf_counter()
+            enc_t.append((t1 - t0) * 1e3)
+            sr_t.append((t2 - t1) * 1e3)
+            tot_t.append((t2 - t0) * 1e3)
+        return {"enc_ms": statistics.median(enc_t),
+                "sr_ms": statistics.median(sr_t),
+                "fps": 1e3 / statistics.median(tot_t)}
+
+    res = frames_timed(pipe)
+    log("  fly-through, fuse_rrdb: " + json.dumps(
+        {k: round(v, 3) for k, v in res.items()}))
+    pipe3 = FramePipeline(cfg, params, buffers, prep, fuse_rrdb=False,
+                          device=dev, **{k: BOX_RENDER[k]
+                                         for k in ("stepsize", "near", "bg")})
+    for fn in counters.values():
+        fn.launches = 0
+    pipe3(hw, hw, K, poses[0])
     sync()
-    enc_t, sr_t, tot_t = [], [], []
-    for i in range(5):
-        t0 = time.perf_counter()
-        e = pipe.encode(hw, hw, K, poses[i % BOX_FRAMES])
-        sync()
-        t1 = time.perf_counter()
-        pipe.decode(e)
-        sync()
-        t2 = time.perf_counter()
-        enc_t.append((t1 - t0) * 1e3)
-        sr_t.append((t2 - t1) * 1e3)
-        tot_t.append((t2 - t0) * 1e3)
-    res = {"enc_ms": statistics.median(enc_t),
-           "sr_ms": statistics.median(sr_t),
-           "fps": 1e3 / statistics.median(tot_t)}
-    log("  fly-through: " + json.dumps({k: round(v, 3)
-                                        for k, v in res.items()}))
+    n3 = {k: fn.launches for k, fn in counters.items()}
+    if n3 != {"box": 1, "rrdb": 0, "rdb": 3 * sr_model.num_block, "sweep": 0}:
+        raise AssertionError(f"unexpected launch counts {n3} (fuse_rrdb off)")
+    res3 = frames_timed(pipe3)
+    log(f"  fly-through, fuse_rrdb=False (launches a frame {n3}): "
+        + json.dumps({k: round(v, 3) for k, v in res3.items()}))
+    del pipe3
     profile_frame(pipe, hw, hw, K, poses[0])
-    res.update(launches=launches, box_err=box_err, box_ms=box_ms,
+    res.update(unfused=res3, launches=launches, box_err=box_err, box_ms=box_ms,
                box_plain_ms=box_plain_ms, box_bound=box_bound,
                box_bound_by="bytes" if t_bytes >= t_ops else "operations",
                rrdb_err=rrdb_err, rrdb_ms=rrdb_ms, rrdb_plain_ms=rrdb_plain_ms,
@@ -954,18 +1007,19 @@ def main() -> int:
 
     from fourk_nerf_torch import weights
 
-    phase_build()
+    regs = phase_build()
     phase_sweep_small(dev)
     sr_model = weights.sftnet_init(num_block=5, seed=1, device=dev)
     phase_rdb_small(dev, sr_model)
 
     log("[4] 4K frame, synthetic fern-scale scene")
-    syn = run_frame("synthetic", *fern_synthetic(dev), sr_model, dev)
+    syn = run_frame("synthetic", *fern_synthetic(dev), sr_model, dev, regs)
     torch.cuda.empty_cache()
 
     log(f"[5] 4K frame, trained anchor "
         f"{os.path.relpath(weights.ANCHOR_ASSET, HERE)}")
-    anc = run_frame("anchor", *weights.load_anchor(device=dev), sr_model, dev)
+    anc = run_frame("anchor", *weights.load_anchor(device=dev), sr_model, dev,
+                    regs)
     log(f"  anchor asset: {os.path.basename(weights.ANCHOR_ASSET)}, sweep "
         f"{anc['sweep_ms']:.3f} ms, bound {anc['sweep_bound']:.3f} ms")
     del anc
@@ -992,7 +1046,8 @@ def main() -> int:
          "launches": syn["launches"]["sweep"],
          "max_abs_err": syn["sweep_err"], "ms": syn["sweep_ms"],
          "plain_ms": syn["plain_sweep_ms"], "bound_ms": syn["sweep_bound"],
-         "bound_by": syn["sweep_bound_by"], "library_ms": None},
+         "bound_by": syn["sweep_bound_by"], "library_ms": None,
+         "registers": syn["sweep_registers"]},
         {"name": "rdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:481",

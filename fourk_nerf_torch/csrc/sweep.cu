@@ -1,5 +1,5 @@
 // Fused NDC plane sweep for Hopper (sm_90a): the DirectMPIGO encoder of the
-// 4K frame, one thread per ray.
+// 4K frame, a warp-synchronous march with per-warp sample compaction.
 //
 // Replaces the TPU kernel _sweep_kernel of the JAX reference package's
 // ops/pallas_sweep.py (pallas_call at pallas_sweep.py:614). It computes the
@@ -14,192 +14,270 @@
 // 1e-3 or it leaves the grid; the stop is exact because the reference
 // zeroes alpha for such rays.
 //
-// Design. The TPU kernel walks tile groups in sequence and streams one grid
-// stripe per plane into VMEM; on Hopper 132 SMs run blocks in parallel, so
-// the natural unit is the ray. Each thread owns one ray and keeps its state
-// (transmittance, colour, depth) in registers; neighbouring threads are
-// neighbouring pixels, so a warp's taps fall on the same few 32-byte grid
-// rows and hit L1/L2. The MLP weights (any depth, width <= 128, padded to
-// the template width WP) live in shared memory and are read as float4
-// broadcasts; one hidden vector stays in registers while a layer's inputs
-// pass through the thread's column of shared scratch (two register vectors
-// spilled at width 128). The MLP runs only for samples with a non-zero
-// composite weight, which is exact.
+// What bounds it on the H100: the MLP of the samples with a non-zero weight
+// (2 x ~5k FLOP each at width 64) at the bf16 tensor-core peak, the type of
+// the reference kernel's MLP on the main path, ~0.6-1.0 ms at fern scale;
+// reading the grid's live channels once takes ~0.26 ms. The MLP is the
+// cost: run per ray inside `if (w > 0)` it would hold a whole warp
+// whenever one lane is weighted (about a third of the lanes are, on the
+// fern-scale scenes) and keep its accumulators live through the march.
+//
+// Design. One thread marches one ray and one warp 32 neighbouring pixels
+// (the frame driver orders the rays in 16x8-pixel tiles, so a warp is 16x2
+// pixels whose taps share cache lines), in step: the warp walks the union
+// of its lanes' plane ranges and stops when every lane has left the grid or
+// saturated. The march keeps only the ray's state (transmittance, depth,
+// colour) in registers and reads each tap's voxel as 16-byte loads (a bf16
+// voxel of 16 channels is two), so the mask, density and k0 of a tap come
+// from one request. A lane whose sample has w > 0 appends a record (weight,
+// position, k0 bilerp) to its warp's queue in shared memory
+// (sweep_queue.cuh); once 32 records wait, the warp runs the MLP over them
+// with every lane busy, on the tensor cores for a bf16 grid (mma.sync
+// m16n8k16, bf16 x bf16 -> float32, as the reference's bf16 matmuls) and as
+// float32 FMAs for a float32 grid, and each lane adds w * sigmoid(logit) of
+// its own records in plane order. Depth needs no MLP and stays in the
+// march. Warps share nothing and never wait for each other: the kernel has
+// no block-wide barrier, and the MLP weights come from device memory
+// through L1. The MLP code is kept small: one call site of the flush, the
+// activation chosen once per layer, one copy of sinf / cosf. With two
+// inlined flushes and a per-element activation switch the kernel took 80 ms
+// at 4K instead of 12 (PERF.md).
+// What is left at 4K: the march and appends take ~3 ms; the rest is the
+// flushes (row staging, 16-row mma.sync tiles with weights through L1, the
+// per-lane gather), far from the tensor-core peak.
 //
 // Precision. With a bf16 grid (the main path, use_bf16) the kernel rounds
 // where the TPU kernel does: the two bilinear x weights (the TPU kernel
 // interpolates along x with a bf16 matmul), and the MLP's inputs, weights
 // and hidden activations; products accumulate in float32 and the y weights,
-// biases and composite stay float32. With a float32 grid nothing is rounded.
-//
-// What bounds it on the H100: the MLP on the samples with a non-zero weight
-// (~5k MAC each at width 64), at the bf16 tensor-core peak, the type of the
-// reference kernel's MLP on the main path; reading the grid's 11 live
-// channels once at fern scale takes ~0.25 ms. This first version does the
-// bf16-rounded products as float32 FMAs on the FP32 pipes, one thread per
-// ray, so it stays far above that bound; warp divergence between live and
-// dead lanes adds to it. A tensor-core MLP over compacted samples is the
-// known next step.
+// biases and composite stay float32. With a float32 grid nothing is
+// rounded. Positions are computed without FMA contraction, so in-bounds and
+// nearest-mask decisions fall as in the plain version.
+#include <type_traits>
+
 #include "sweep_common.cuh"
+#include "sweep_queue.cuh"
 
 namespace {
 
-using sweepc::act_fn;
 using sweepc::axis_interval;
-using sweepc::feed;
 using sweepc::kThreads;
-using sweepc::ld;
 using sweepc::rnd;
+using sweepq::kFull;
+using sweepq::kFlush;
+using sweepq::kSlots;
+typedef __nv_bfloat16 bf16;
 
 constexpr float kEarlyTerm = 1e-3f;
+constexpr int kWarps = kThreads / 32;
 
 struct SweepArgs {
-  const void* grid;        // [Z, X, Y, Cp], float or bf16
-  const float* act_shift;  // [Z]
-  const float* a;          // [R, 2] grid-space xy at plane 0
-  const float* b;          // [R, 2] xy step per plane
-  const float* vde;        // [R, E] viewdir embedding
-  const float* mlp;        // packed weights, layout of sweep_common.cuh
-  float* rgb;              // [R, 3] rgb_feature (no background)
-  float* depth;            // [R]
-  float* ail;              // [R] alphainv_last
+  const void* grid;         // [Z, X, Y, Cp], float or bf16
+  const float* act_shift;   // [Z]
+  const float* a;           // [R, 2] grid-space xy at plane 0
+  const float* b;           // [R, 2] xy step per plane
+  const float* vde;         // [R, E] viewdir embedding
+  const uint4* mlp;         // packed weights (sweep_queue.cuh / sweep_common.cuh)
+  float* rgb;               // [R, 3] rgb_feature (no background)
+  float* depth;             // [R]
+  float* ail;               // [R] alphainv_last
   int R, Z, X, Y, Cp, Xl, Yl, mask_ch, k0_dim, E, spatial_pe, act;
-  int n_layers, cin0, mlp_floats;
+  int n_layers, cin0, cinp;
+  size_t warp_bytes;        // one warp's queue
   float interval, fast_thres;
 };
 
-// Shared memory: the MLP and its scratch, in the layout of sweep_common.cuh.
-template <typename Tg, int WP>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepArgs p) {
-  extern __shared__ __align__(16) float sm[];
-  for (int i = threadIdx.x; i < p.mlp_floats; i += blockDim.x)
-    sm[i] = p.mlp[i];
-  __syncthreads();
-  // per-thread hidden-activation scratch after the weights, [WP][kThreads]
-  float* hs = sm + (p.mlp_floats + 3) / 4 * 4 + threadIdx.x;
+// The first CL channels of one voxel as up to four 16-byte words, held in
+// named registers: a channel index known only at run time (the mask's)
+// becomes selects, never an indexed array in local memory.
+template <typename Tg, int CL>
+struct Voxel {
+  static constexpr int kWords = CL * (int)sizeof(Tg) / 16;
+  static_assert(kWords >= 1 && kWords <= 4, "one to four words a voxel");
+  uint4 w0, w1, w2, w3;
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= p.R) return;
-  const Tg* grid = static_cast<const Tg*>(p.grid);
-  const float ax = p.a[2 * r], ay = p.a[2 * r + 1];
-  const float bx = p.b[2 * r], by = p.b[2 * r + 1];
-  const float xhi = (float)(p.Xl - 1), yhi = (float)(p.Yl - 1);
-
-  float lox, hix, loy, hiy;
-  axis_interval(ax, bx, xhi, lox, hix);
-  axis_interval(ay, by, yhi, loy, hiy);
-  const float k_in = fmaxf(lox, loy), k_out = fminf(hix, hiy);
-
-  float trans = 1.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, dep = 0.f;
-  if (k_in <= k_out) {
-    // one plane of slack on each side: the per-plane in-bounds test below
-    // is what decides, the interval only bounds the loop
-    const int k_first =
-        max(0, (int)floorf(fminf(fmaxf(k_in, -2.f), (float)p.Z)) - 1);
-    const int k_last =
-        min(p.Z - 1, (int)floorf(fminf(fmaxf(k_out, -2.f), (float)p.Z)) + 1);
-    const float* W0 = sm;
-    const float* B0 = sm + p.cin0 * WP;
-    const float zden = (float)max(p.Z - 1, 1);
-
-    for (int k = k_first; k <= k_last; ++k) {
-      if (trans < kEarlyTerm) break;
-      const float kf = (float)k;
-      // unfused multiply-add, the rounding of the plain version
-      const float px = __fadd_rn(ax, __fmul_rn(bx, kf));
-      const float py = __fadd_rn(ay, __fmul_rn(by, kf));
-      if (!(px >= 0.f && px <= xhi && py >= 0.f && py <= yhi)) continue;
-      const float x0f = floorf(px), y0f = floorf(py);
-      const float fx = __fsub_rn(px, x0f), fy = __fsub_rn(py, y0f);
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      const int x1 = min(x0 + 1, p.X - 1), y1 = min(y0 + 1, p.Y - 1);
-      const size_t pl = (size_t)k * p.X;
-      const size_t o00 = ((pl + x0) * p.Y + y0) * p.Cp;
-      const size_t o10 = ((pl + x1) * p.Y + y0) * p.Cp;
-      const size_t o01 = ((pl + x0) * p.Y + y1) * p.Cp;
-      const size_t o11 = ((pl + x1) * p.Y + y1) * p.Cp;
-      const float wx0 = rnd(__fsub_rn(1.f, fx), grid), wx1 = rnd(fx, grid);
-      const float wy0 = __fsub_rn(1.f, fy), wy1 = fy;
-      // channel c interpolated along x at the two y taps
-      auto rows = [&](int c, float& r0, float& r1) {
-        r0 = __fadd_rn(__fmul_rn(wx0, ld(grid, o00 + c)),
-                       __fmul_rn(wx1, ld(grid, o10 + c)));
-        r1 = __fadd_rn(__fmul_rn(wx0, ld(grid, o01 + c)),
-                       __fmul_rn(wx1, ld(grid, o11 + c)));
-      };
-      auto sample = [&](int c) {
-        float r0, r1;
-        rows(c, r0, r1);
-        return __fadd_rn(__fmul_rn(wy0, r0), __fmul_rn(wy1, r1));
-      };
-
-      // exact nearest mask: y taps within half a voxel select x-bilerps of
-      // the 0/1 mask; floor(. + 0.5) of their sum is the nearest x tap
-      float m0, m1;
-      rows(p.mask_ch, m0, m1);
-      const float ms = __fadd_rn(__fmul_rn(floorf(__fadd_rn(wy0, 0.5f)), m0),
-                                 __fmul_rn(floorf(__fadd_rn(wy1, 0.5f)), m1));
-      if (!(floorf(__fadd_rn(ms, 0.5f)) > 0.5f)) continue;
-
-      const float x = sample(0) + p.act_shift[k];
-      const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-      float alpha = 1.f - expf(-sp * p.interval);
-      if (p.fast_thres > 0.f && !(alpha > p.fast_thres)) alpha = 0.f;
-      if (alpha == 0.f) continue;  // no weight, transmittance unchanged
-      float w = trans * alpha;
-      if (p.fast_thres > 0.f && !(w > p.fast_thres)) w = 0.f;
-
-      if (w > 0.f) {
-        float acc[WP];
-#pragma unroll
-        for (int j = 0; j < WP; ++j) acc[j] = B0[j];
-        int i = 0;
-        for (int c = 0; c < p.k0_dim; ++c)
-          feed<WP>(acc, W0 + (i++) * WP, rnd(sample(1 + c), grid));
-        const float sv[3] = {2.f * kf / zden - 1.f, py / yhi * 2.f - 1.f,
-                             px / xhi * 2.f - 1.f};
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          feed<WP>(acc, W0 + (i++) * WP, rnd(sv[c], grid));
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          for (int f = 0; f < p.spatial_pe; ++f)
-            feed<WP>(acc, W0 + (i++) * WP,
-                     rnd(sinf(sv[c] * (float)(1 << f)), grid));
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          for (int f = 0; f < p.spatial_pe; ++f)
-            feed<WP>(acc, W0 + (i++) * WP,
-                     rnd(cosf(sv[c] * (float)(1 << f)), grid));
-        const float* vr = p.vde + (size_t)r * p.E;
-        for (int e = 0; e < p.E; ++e)
-          feed<WP>(acc, W0 + (i++) * WP, rnd(__ldg(vr + e), grid));
-
-        // hidden and output layers (one register vector stays live)
-        float o0, o1, o2;
-        sweepc::rest<Tg, WP>(acc, B0 + WP, p.n_layers, p.act, hs, grid, o0, o1,
-                          o2);
-        c0 += w * (1.f / (1.f + expf(-o0)));
-        c1 += w * (1.f / (1.f + expf(-o1)));
-        c2 += w * (1.f / (1.f + expf(-o2)));
-        dep += w * ((kf + 0.5f) / (float)p.Z);
-      }
-      trans = trans * (1.f - alpha);
+  __device__ __forceinline__ void load(const Tg* p) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    w0 = __ldg(q);
+    if constexpr (kWords > 1) w1 = __ldg(q + 1);
+    if constexpr (kWords > 2) w2 = __ldg(q + 2);
+    if constexpr (kWords > 3) w3 = __ldg(q + 3);
+  }
+  // 32-bit word i (0 .. 4 kWords - 1)
+  __device__ __forceinline__ uint32_t word(int i) const {
+    uint4 v = w0;
+    if constexpr (kWords > 1) v = (i >> 2) == 1 ? w1 : v;
+    if constexpr (kWords > 2) v = (i >> 2) == 2 ? w2 : v;
+    if constexpr (kWords > 3) v = (i >> 2) == 3 ? w3 : v;
+    const uint32_t lo = (i & 1) ? v.y : v.x, hi = (i & 1) ? v.w : v.z;
+    return (i & 2) ? hi : lo;
+  }
+  __device__ __forceinline__ float at(int c) const {
+    if constexpr (sizeof(Tg) == 4) {
+      return __uint_as_float(word(c));
+    } else {
+      const uint32_t u = word(c >> 1);
+      return __uint_as_float((c & 1) ? (u & 0xffff0000u) : (u << 16));
     }
   }
-  p.rgb[3 * r] = c0;
-  p.rgb[3 * r + 1] = c1;
-  p.rgb[3 * r + 2] = c2;
-  p.depth[r] = dep;
-  p.ail[r] = trans;
+};
+
+template <typename Tg>
+__device__ __forceinline__ void store(Tg* dst, float v);
+template <>
+__device__ __forceinline__ void store<float>(float* dst, float v) { *dst = v; }
+template <>
+__device__ __forceinline__ void store<bf16>(bf16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);  // v is a bf16 value already
 }
 
-template <typename Tg, int WP>
-int launch(const SweepArgs& args, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)(args.mlp_floats + 3) / 4 * 4 + (size_t)WP * kThreads) *
-      sizeof(float);
-  auto kern = sweep_kernel<Tg, WP>;
+// Shared memory: kWarps queues (then, on the float32 path, the per-thread
+// hidden-activation scratch of sweep_common.cuh). The MLP weights are read
+// from device memory through L1, where the blocks of an SM share one copy.
+// CL: grid channels read a tap (>= mask_ch + 1); WP: hidden width padded.
+// On a bf16 grid four blocks (16 warps) an SM: 128 registers a thread.
+template <typename Tg, int CL, int WP>
+__global__ void __launch_bounds__(kThreads, std::is_same<Tg, bf16>::value ? 4 : 1)
+    sweep_kernel(const SweepArgs p) {
+  constexpr bool kMma = std::is_same<Tg, bf16>::value;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned char* qbase = sm;
+  const sweepq::Queue<Tg, CL> q(qbase + warp * p.warp_bytes, p.cinp);
+  float* hs = reinterpret_cast<float*>(qbase + kWarps * p.warp_bytes) + threadIdx.x;
+
+  const int ray0 = blockIdx.x * blockDim.x + warp * 32;
+  const int r = ray0 + lane;
+  const Tg* grid = static_cast<const Tg*>(p.grid);
+  const float xhi = (float)(p.Xl - 1), yhi = (float)(p.Yl - 1);
+  const sweepq::MlpArgs m{p.mlp, p.vde, ray0, p.k0_dim, p.E, p.spatial_pe,
+                          p.n_layers, p.act, p.cin0, p.cinp,
+                          (float)max(p.Z - 1, 1), xhi, yhi};
+
+  float ax = 0.f, ay = 0.f, bx = 0.f, by = 0.f;
+  int k_first = p.Z, k_last = -1;
+  if (r < p.R) {
+    ax = p.a[2 * r];
+    ay = p.a[2 * r + 1];
+    bx = p.b[2 * r];
+    by = p.b[2 * r + 1];
+    float lox, hix, loy, hiy;
+    axis_interval(ax, bx, xhi, lox, hix);
+    axis_interval(ay, by, yhi, loy, hiy);
+    const float k_in = fmaxf(lox, loy), k_out = fminf(hix, hiy);
+    if (k_in <= k_out) {
+      // one plane of slack on each side: the per-plane in-bounds test below
+      // is what decides, the interval only bounds the loop
+      k_first = max(0, (int)floorf(fminf(fmaxf(k_in, -2.f), (float)p.Z)) - 1);
+      k_last = min(p.Z - 1, (int)floorf(fminf(fmaxf(k_out, -2.f), (float)p.Z)) + 1);
+    }
+  }
+  const int kbeg = __reduce_min_sync(kFull, k_first);
+  const int kend = __reduce_max_sync(kFull, k_last);
+
+  float trans = 1.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, dep = 0.f;
+  bool live = k_first <= k_last;
+  int n = 0, s = 0;  // records waiting, oldest slot
+  // one call site of the flush, for the full queue and for the rest at the
+  // end, keeps one copy of the MLP code in the loop
+  for (int k = kbeg;; ++k) {
+    live = live && k <= k_last && !(trans < kEarlyTerm);
+    const bool more = __any_sync(kFull, live);
+    const float kf = (float)k;
+    bool app = false;
+    float px = 0.f, py = 0.f, wx0 = 0.f, wx1 = 0.f, wy0 = 0.f, wy1 = 0.f;
+    float w = 0.f;
+    Voxel<Tg, CL> t00, t10, t01, t11;
+    if (live && k >= k_first) {
+      // unfused multiply-add, the rounding of the plain version
+      px = __fadd_rn(ax, __fmul_rn(bx, kf));
+      py = __fadd_rn(ay, __fmul_rn(by, kf));
+      if (px >= 0.f && px <= xhi && py >= 0.f && py <= yhi) {
+        const float x0f = floorf(px), y0f = floorf(py);
+        const float fx = __fsub_rn(px, x0f), fy = __fsub_rn(py, y0f);
+        const int x0 = (int)x0f, y0 = (int)y0f;
+        const int x1 = min(x0 + 1, p.X - 1), y1 = min(y0 + 1, p.Y - 1);
+        const size_t pl = (size_t)k * p.X;
+        t00.load(grid + ((pl + x0) * p.Y + y0) * p.Cp);
+        t10.load(grid + ((pl + x1) * p.Y + y0) * p.Cp);
+        t01.load(grid + ((pl + x0) * p.Y + y1) * p.Cp);
+        t11.load(grid + ((pl + x1) * p.Y + y1) * p.Cp);
+        wx0 = rnd(__fsub_rn(1.f, fx), grid);
+        wx1 = rnd(fx, grid);
+        wy0 = __fsub_rn(1.f, fy);
+        wy1 = fy;
+        // exact nearest mask: y taps within half a voxel select x-bilerps
+        // of the 0/1 mask; floor(. + 0.5) of their sum is the nearest x tap
+        const int mc = p.mask_ch;
+        const float m0 = __fadd_rn(__fmul_rn(wx0, t00.at(mc)), __fmul_rn(wx1, t10.at(mc)));
+        const float m1 = __fadd_rn(__fmul_rn(wx0, t01.at(mc)), __fmul_rn(wx1, t11.at(mc)));
+        const float ms = __fadd_rn(__fmul_rn(floorf(__fadd_rn(wy0, 0.5f)), m0),
+                                   __fmul_rn(floorf(__fadd_rn(wy1, 0.5f)), m1));
+        if (floorf(__fadd_rn(ms, 0.5f)) > 0.5f) {
+          const float d0 = __fadd_rn(__fmul_rn(wx0, t00.at(0)), __fmul_rn(wx1, t10.at(0)));
+          const float d1 = __fadd_rn(__fmul_rn(wx0, t01.at(0)), __fmul_rn(wx1, t11.at(0)));
+          const float x = __fadd_rn(__fmul_rn(wy0, d0), __fmul_rn(wy1, d1)) + p.act_shift[k];
+          const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+          float alpha = 1.f - expf(-sp * p.interval);
+          if (p.fast_thres > 0.f && !(alpha > p.fast_thres)) alpha = 0.f;
+          if (alpha != 0.f) {  // else no weight, transmittance unchanged
+            w = trans * alpha;
+            if (p.fast_thres > 0.f && !(w > p.fast_thres)) w = 0.f;
+            if (w > 0.f) {
+              app = true;
+              dep += w * ((kf + 0.5f) / (float)p.Z);
+            }
+            trans = trans * (1.f - alpha);
+          }
+        }
+      }
+    }
+    const unsigned bal = __ballot_sync(kFull, app);
+    if (app) {
+      const int slot = q.slot(s, n + __popc(bal & ((1u << lane) - 1u)));
+      q.w[slot] = w;
+      q.px[slot] = px;
+      q.py[slot] = py;
+      q.kf[slot] = kf;
+      q.lane[slot] = lane;
+#pragma unroll
+      for (int c = 1; c < CL; ++c) {
+        if (c > p.k0_dim) break;
+        const float r0 = __fadd_rn(__fmul_rn(wx0, t00.at(c)), __fmul_rn(wx1, t10.at(c)));
+        const float r1 = __fadd_rn(__fmul_rn(wx0, t01.at(c)), __fmul_rn(wx1, t11.at(c)));
+        store(q.k0 + (c - 1) * kSlots + slot,
+              rnd(__fadd_rn(__fmul_rn(wy0, r0), __fmul_rn(wy1, r1)), grid));
+      }
+    }
+    n += __popc(bal);
+    if (n >= kFlush || (!more && n > 0)) {
+      const int nf = min(n, kFlush);
+      __syncwarp();
+      if constexpr (kMma)
+        sweepq::mma_flush<CL, WP>(q, m, s, nf, c0, c1, c2);
+      else
+        sweepq::fma_flush<Tg, CL, WP>(q, m, hs, s, nf, c0, c1, c2);
+      s = q.slot(s, nf);
+      n -= nf;
+    }
+    if (!more) break;
+  }
+  if (r < p.R) {
+    p.rgb[3 * r] = c0;
+    p.rgb[3 * r + 1] = c1;
+    p.rgb[3 * r + 2] = c2;
+    p.depth[r] = dep;
+    p.ail[r] = trans;
+  }
+}
+
+template <typename Tg, int CL, int WP>
+int launch(SweepArgs args, cudaStream_t stream) {
+  constexpr bool kMma = std::is_same<Tg, bf16>::value;
+  args.warp_bytes = sweepq::Queue<Tg, CL>::bytes(args.cinp, kMma);
+  const size_t smem = kWarps * args.warp_bytes +
+                      (kMma ? 0 : (size_t)WP * kThreads * sizeof(float));
+  auto kern = sweep_kernel<Tg, CL, WP>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -208,27 +286,40 @@ int launch(const SweepArgs& args, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename Tg, int CL>
+int launch_wp(const SweepArgs& args, int wp, cudaStream_t s) {
+  if (wp == 64) return launch<Tg, CL, 64>(args, s);
+  if (wp == 128) return launch<Tg, CL, 128>(args, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// cl: channels read a tap, 8 or 16 (>= mask_ch + 1, <= Cp). mlp: the
+// weights, 16-byte aligned, in the fragment layout of sweep_queue.cuh on a
+// bf16 grid and the float layout of sweep_common.cuh on a float32 grid.
+// cinp: the first layer's input width, padded to 16 on a bf16 grid.
 extern "C" int sweep_launch(const void* grid, int grid_bf16,
                             const float* act_shift, const float* a,
-                            const float* b, const float* vde, const float* mlp,
+                            const float* b, const float* vde, const void* mlp,
                             float* rgb, float* depth, float* ail, int R, int Z,
                             int X, int Y, int Cp, int Xl, int Yl, int mask_ch,
                             int k0_dim, int E, int spatial_pe, int act,
-                            int n_layers, int cin0, int wp, int mlp_floats,
+                            int n_layers, int cin0, int cinp, int wp, int cl,
                             float interval, float fast_thres, void* stream) {
-  SweepArgs args{grid, act_shift, a, b, vde, mlp, rgb, depth, ail,
-                 R, Z, X, Y, Cp, Xl, Yl, mask_ch, k0_dim, E, spatial_pe, act,
-                 n_layers, cin0, mlp_floats, interval, fast_thres};
+  SweepArgs args{grid, act_shift, a, b, vde, static_cast<const uint4*>(mlp),
+                 rgb, depth, ail, R, Z, X, Y, Cp, Xl, Yl, mask_ch, k0_dim, E,
+                 spatial_pe, act, n_layers, cin0, cinp, 0, interval,
+                 fast_thres};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R == 0) return 0;
+  if (mask_ch >= cl || cl > Cp) return (int)cudaErrorInvalidValue;
   if (grid_bf16) {
-    if (wp == 64) return launch<__nv_bfloat16, 64>(args, s);
-    if (wp == 128) return launch<__nv_bfloat16, 128>(args, s);
+    if (cl == 8) return launch_wp<bf16, 8>(args, wp, s);
+    if (cl == 16) return launch_wp<bf16, 16>(args, wp, s);
   } else {
-    if (wp == 64) return launch<float, 64>(args, s);
-    if (wp == 128) return launch<float, 128>(args, s);
+    if (cl == 8) return launch_wp<float, 8>(args, wp, s);
+    if (cl == 16) return launch_wp<float, 16>(args, wp, s);
   }
   return (int)cudaErrorInvalidValue;
 }

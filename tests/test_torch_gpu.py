@@ -28,37 +28,69 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("use_bf16,width,depth,act", [
-    (False, 32, 3, "lkrelu"),   # padded to the 64-wide kernel
-    (True, 32, 3, "lkrelu"),
-    (False, 100, 4, "gauss"),   # the 128-wide kernel, two hidden layers
-    (True, 100, 4, "gauss"),    # the same with the bf16 MLP
-    (False, 64, 2, "relu"),     # no hidden layer
-])
-def test_sweep_kernel_matches_plain(cuda, use_bf16, width, depth, act):
-    """A mask at another resolution than the grid, viewdir and spatial PE."""
+def sweep_scene(dev, width, depth, act, scene):
+    """A 32x32x16 NDC scene with viewdir and spatial PE. ``sparse``: density
+    N(-1, 2), a mask at another resolution than the grid (70% set),
+    fast_color_thres 1/80. ``dense``: density N(-3, 1), every voxel in the
+    mask, fast_color_thres 0, so every live sample is weighted and each
+    warp's queue flushes on almost every plane. ``opaque``: density N(6, 1),
+    every voxel in the mask, so every ray saturates within a few planes."""
     cfg = dmpigo.make_config(
         xyz_min=[-1.3, -1.2, -1.0], xyz_max=[1.3, 1.2, 1.0],
-        num_voxels=32 * 32 * 16, mpi_depth=16, fast_color_thres=1.0 / 80,
+        num_voxels=32 * 32 * 16, mpi_depth=16,
+        fast_color_thres=0.0 if scene == "dense" else 1.0 / 80,
         rgbnet_dim=6, rgbnet_width=width, rgbnet_depth=depth, viewbase_pe=4,
         spatial_pe=2, act_type=act)
     params, buffers = dmpigo.init(
-        cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+        cfg, generator=torch.Generator().manual_seed(0), device=dev)
     rng = np.random.default_rng(0)
+    mean, std = {"sparse": (-1, 2), "dense": (-3, 1), "opaque": (6, 1)}[scene]
     params["density"] = torch.as_tensor(
-        rng.normal(-1, 2, params["density"].shape).astype(np.float32), device=cuda)
+        rng.normal(mean, std, params["density"].shape).astype(np.float32),
+        device=dev)
     params["k0"] = torch.as_tensor(
-        rng.normal(0, 1, params["k0"].shape).astype(np.float32), device=cuda)
-    buffers["mask_cache"] = torch.as_tensor(rng.uniform(size=(9, 11, 8)) < 0.7,
-                                            device=cuda)
-    K = np.array([[40.0, 0, 20], [0, 40.0, 16], [0, 0, 1]], np.float32)
+        rng.normal(0, 1, params["k0"].shape).astype(np.float32), device=dev)
+    mask = rng.uniform(size=(9, 11, 8)) < 0.7
+    buffers["mask_cache"] = torch.as_tensor(
+        mask if scene == "sparse" else np.ones_like(mask), device=dev)
+    return cfg, params, buffers
+
+
+def sweep_camera(h, w):
+    K = np.array([[40.0, 0, w / 2], [0, 40.0, h / 2], [0, 0, 1]], np.float32)
     c2w = np.eye(4, dtype=np.float32)[:3]
     c2w[2, 3] = 1.0
+    return K, c2w
+
+
+@pytest.mark.parametrize("use_bf16,width,depth,act,hw,scene", [
+    (False, 32, 3, "lkrelu", (32, 40), "sparse"),  # padded to the 64-wide MLP
+    (True, 32, 3, "lkrelu", (32, 40), "sparse"),
+    (False, 100, 4, "gauss", (32, 40), "sparse"),  # 128 wide, two hidden layers
+    (True, 100, 4, "gauss", (32, 40), "sparse"),   # the same with the bf16 MLP
+    (False, 64, 2, "relu", (32, 40), "sparse"),    # no hidden layer
+    (True, 64, 3, "relu", (5, 9), "sparse"),       # 45 rays: a partial warp
+    (False, 64, 3, "relu", (5, 9), "sparse"),
+    (True, 64, 3, "relu", (1, 1), "sparse"),       # one ray
+    (True, 64, 3, "lkrelu", (32, 40), "dense"),    # a flush on most planes
+    (False, 64, 3, "lkrelu", (32, 40), "dense"),
+    (True, 64, 3, "relu", (32, 40), "opaque"),     # every ray stops early
+    (True, 128, 3, "relu", (32, 40), "sparse"),    # the width-128 bf16 MLP
+    (True, 128, 2, "gauss", (32, 40), "dense"),
+])
+def test_sweep_kernel_matches_plain(cuda, use_bf16, width, depth, act, hw,
+                                    scene):
+    """Viewdir and spatial PE; the frame sizes, scenes and MLP widths that
+    exercise the kernel's per-warp sample queue (partial warps, a flush on
+    most planes, warps that stop early, both MLP widths)."""
+    cfg, params, buffers = sweep_scene(cuda, width, depth, act, scene)
+    h, w = hw
+    K, c2w = sweep_camera(h, w)
     kw = dict(stepsize=1.0, bg=0.5, use_bf16=use_bf16, device=cuda)
     n0 = cuda_sweep.sweep.launches
-    got = cuda_sweep.render_frame_cuda(cfg, params, buffers, 32, 40, K, c2w, **kw)
+    got = cuda_sweep.render_frame_cuda(cfg, params, buffers, h, w, K, c2w, **kw)
     assert cuda_sweep.sweep.launches == n0 + 1
-    ref = plane_sweep.render_frame(cfg, params, buffers, 32, 40, K, c2w, **kw)
+    ref = plane_sweep.render_frame(cfg, params, buffers, h, w, K, c2w, **kw)
     torch.cuda.synchronize()
     for k in ("rgb_marched", "depth", "alphainv_last"):
         err = (got[k] - ref[k]).abs()

@@ -222,3 +222,71 @@ def test_sweep_wrapper_refuses_mixed_devices():
         cuda_sweep.sweep(t(2, 3, 3, 8), t(2), meta, t(4, 2), t(4, 3), mlp,
                          Xl=3, Yl=3, mask_ch=7, k0_dim=4, interval=1.0,
                          fast_thres=0.0, spatial_pe=0, act_type="relu")
+
+
+def _float_layout_mlp(flat, cin0, wp, n):
+    """The layers of a pack_mlp buffer: [(w [K, N], b [N]), ...]."""
+    out, o = [], 0
+    for li in range(n):
+        rows, cols = (cin0 if li == 0 else wp), (4 if li == n - 1 else wp)
+        out.append((flat[o:o + rows * cols].reshape(rows, cols),
+                    flat[o + rows * cols:o + rows * cols + cols]))
+        o += rows * cols + cols
+    return out
+
+
+@pytest.mark.parametrize("width", [32, 64, 100])
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_pack_mlp_fragments_roundtrip(width, depth):
+    """The tensor-core MLP's weights (bf16 in mma.sync fragment order, then
+    float32 biases): unpacked, they are pack_mlp(..., bf16=True)'s weights
+    exactly, zero-padded; the MLP evaluated through either gives the same
+    numbers; and packing the unpacked weights gives the same bytes."""
+    rng = np.random.default_rng(width + depth)
+    cin0 = 9 + 15 + 27
+    dims = [cin0] + [width] * (depth - 1) + [3]
+    mlp = [(torch.as_tensor(rng.normal(size=(dims[i], dims[i + 1])) * 0.3,
+                            dtype=torch.float32),
+            torch.as_tensor(rng.normal(size=dims[i + 1]) * 0.1,
+                            dtype=torch.float32)) for i in range(depth)]
+    buf, wp, cinp, n = cuda_sweep.pack_mlp_fragments(mlp, cin0)
+    assert buf.dtype == torch.uint8 and buf.numel() % 16 == 0
+    assert (wp, cinp, n) == (64 if width <= 64 else 128, 64, depth)
+    frag = cuda_sweep.unpack_mlp_fragments(buf, cinp, wp, n)
+    flat, wp2, _ = cuda_sweep.pack_mlp(mlp, cin0, bf16=True)
+    ref = _float_layout_mlp(flat, cin0, wp2, n)
+    for (w, b), (wr, br) in zip(frag, ref):
+        k, m = wr.shape
+        assert torch.equal(w[:k, :m], wr) and torch.equal(b[:m], br)
+        assert not w[k:].any() and not w[:, m:].any() and not b[m:].any()
+    act = tcommon.activation("relu")
+    x = torch.as_tensor(rng.normal(size=(7, cin0)), dtype=torch.float32)
+    hf = torch.cat([x, torch.zeros(7, cinp - cin0)], 1)
+    hr = x
+    for li in range(n):
+        w, b = frag[li]
+        hf = hf @ w[:, :b.numel()] + b
+        hr = hr @ ref[li][0] + ref[li][1]
+        if li < n - 1:
+            hf, hr = act(hf), act(hr)
+    assert torch.equal(hf[:, :3], hr[:, :3])
+    again = [(w[:mlp[i][0].shape[0], :mlp[i][0].shape[1]],
+              b[:mlp[i][1].shape[0]]) for i, (w, b) in enumerate(frag)]
+    assert torch.equal(cuda_sweep.pack_mlp_fragments(again, cin0)[0], buf)
+
+
+@pytest.mark.parametrize("h,w", [(5, 35), (16, 32), (1, 1)])
+def test_ray_order_is_tiles_and_inverts(h, w):
+    """The frame driver's ray order: a permutation whose inverse restores
+    row-major pixels, each warp of 32 rays 16 x 2 pixels of one 16 x 8
+    tile (fewer at a frame edge the tile does not divide)."""
+    order, inv = cuda_sweep.ray_order(h, w, torch.device("cpu"))
+    assert torch.equal(torch.sort(order).values, torch.arange(h * w))
+    assert torch.equal(order[inv], torch.arange(h * w))
+    y, x = order // w, order % w
+    if h >= 2 and w >= 16:
+        assert torch.equal(y[:32], torch.arange(2).repeat_interleave(16))
+        assert torch.equal(x[:32], torch.arange(16).repeat(2))
+    tile = (y // cuda_sweep.TILE_H) * -(-w // cuda_sweep.TILE_W) \
+        + x // cuda_sweep.TILE_W
+    assert bool((tile[1:] >= tile[:-1]).all())
