@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure raises and the script exits non-zero):
   1. build the seven CUDA libraries from ``fourk_nerf_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time and ptxas
-     summary, with the sweep kernel's registers by instantiation;
+     summary, with the sweep and box kernels' registers by instantiation;
   2. sweep kernel vs its plain version on a small scene (viewdir PE 4,
      spatial PE 2, mask at grid resolution), float32 and bf16 paths;
   3. dense-block kernel vs its plain version, plain and tail mode, on a
@@ -29,9 +29,11 @@ Phases (any failure raises and the script exits non-zero):
      (12-ch k0, rgbnet 3x128 on 39 inputs, blob fill 0.15, numpy seed 0),
      three 800x800 poses through ``pipeline.render_video`` with a scale-1
      SFTNet (64 feat, 5 RRDBs) and ``fuse_rrdb=True``: launch counts,
-     finiteness, both kernels vs plain on the path's inputs, timings; the
-     frames also timed with ``fuse_rrdb=False`` (``render_video``'s
-     default: 15 dense-block launches a frame, counted);
+     finiteness, both kernels vs plain on the path's inputs, the samples
+     in range, in occupied blocks (what the box kernel's empty-space
+     skipping leaves) and with a non-zero weight, timings; the frames also
+     timed with ``fuse_rrdb=False`` (``render_video``'s default: 15
+     dense-block launches a frame, counted);
   9. fused upsample tail (uptail) kernel vs its plain version at 45x70 (an
      odd size) and 48x64;
  10. the 4K decode with the fused tail at full width: the trunk of the
@@ -179,8 +181,8 @@ def ptxas_registers(text: str, kernel: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Build every library; returns the sweep kernel's registers by
-    instantiation."""
+    """Build every library; returns the sweep and box kernels' registers
+    by instantiation, ``{"sweep": {...}, "box": {...}}``."""
     from fourk_nerf_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -190,9 +192,11 @@ def phase_build() -> dict:
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"    {line.strip()}")
-    regs = ptxas_registers(logs["sweep"][1], "sweep_kernel")
-    log(f"  sweep_kernel registers by <grid type, channels a tap, MLP "
-        f"width>: {regs}")
+    regs = {k: ptxas_registers(logs[k][1], f"{k}_kernel")
+            for k in ("sweep", "box")}
+    for k, r in regs.items():
+        log(f"  {k}_kernel registers by <grid type, channels a tap, MLP "
+            f"width>: {r}")
     return regs
 
 
@@ -588,9 +592,38 @@ def phase_rrdb_small(dev, sr_model):
     return err
 
 
-def run_flythrough(dev):
+def occupied_samples(consts, occ, dims, block: int = 16):
+    """(samples in range, samples whose floor cell lies in a block that
+    ``occ``, a ``cuda_box.block_occupancy`` map at edge ``block``, marks)
+    over every ``k <= kmax`` of the rays ``consts [R, 8]``, without early
+    termination: what the box kernel's march tests and what it reads
+    voxels for. Positions round as in the plain version."""
+    import torch
+    Z, U, V = dims
+    u0, du, v0, dv, z0, dz, kmax = consts[:, :7].unbind(1)
+    n_in = torch.zeros((), dtype=torch.long, device=consts.device)
+    n_occ = torch.zeros_like(n_in)
+    BU, BV = occ.shape[1], occ.shape[2]
+    flat = occ.reshape(-1).bool()
+    for k in range(int(kmax.max()) + 1 if kmax.numel() else 0):
+        idx = (kmax >= k).nonzero().squeeze(1)
+        u = u0[idx] + du[idx] * float(k)
+        v = v0[idx] + dv[idx] * float(k)
+        z = z0[idx] + dz[idx] * float(k)
+        ok = ((u >= 0) & (u <= U - 1) & (v >= 0) & (v <= V - 1)
+              & (z >= 0) & (z <= Z - 1))
+        j = torch.floor(z).clamp(0, Z - 2).long() // block
+        iu = torch.floor(u).clamp(0, U - 1).long() // block
+        iv = torch.floor(v).clamp(0, V - 1).long() // block
+        n_in += ok.sum()
+        n_occ += (ok & flat[(j * BU + iu) * BV + iv]).sum()
+    return int(n_in), int(n_occ)
+
+
+def run_flythrough(dev, box_regs):
     """Phase 8: the bounded-scene fly-through through ``render_video`` with
-    the launch counts, checks against the plain versions, then timings."""
+    the launch counts, checks against the plain versions, then timings.
+    ``box_regs``: the box kernel's registers by instantiation (phase 1)."""
     import torch
     from fourk_nerf_torch import weights
     from fourk_nerf_torch.models import dvgo
@@ -663,10 +696,19 @@ def run_flythrough(dev):
     got = {"rgb_marched": enc["rgbs"][0], "depth": enc["depths"][0],
            "alphainv_last": enc["bgmaps"][0]}
     box_err = check_sweep("box kernel vs plain (bf16 path, frame 0)", got, ref)
+    # the kernel's inputs as the driver hands them: rays in tile order, the
+    # scene's block map of this sweep direction
+    occ = cuda_box.box_occupancy(pipe.packed, kw["dims"], kw["strides"])
+    n_in, n_occ = occupied_samples(frame.consts, occ, kw["dims"],
+                                   cuda_box.OCC_BLOCK)
     log(f"  sweep axis {frame.axis}, flip {frame.flip}; samples in range "
-        f"{stats['samples']}, with non-zero weight (MLP evaluated) "
-        f"{stats['mlp_samples']}")
-    box_ms = cuda_ms(lambda: cuda_box.sweep_box(vox, frame.consts, frame.vde,
+        f"{stats['samples']} ({n_in} up to kmax without early termination, "
+        f"{n_occ} of them in occupied {cuda_box.OCC_BLOCK}^3 blocks, "
+        f"{float(occ.float().mean()):.3f} of the blocks), with non-zero "
+        f"weight (MLP evaluated) {stats['mlp_samples']}")
+    order, _ = cuda_sweep.ray_order(hw, hw, dev)
+    consts, vde = frame.consts[order], frame.vde[order].contiguous()
+    box_ms = cuda_ms(lambda: cuda_box.sweep_box(pipe.packed, consts, vde,
                                                 mlp, **kw), 5)
     width = mlp[0][0].shape[1]
     mlp_flop = 2 * (cfg.dim0 * width + (len(mlp) - 2) * width * width
@@ -677,9 +719,41 @@ def run_flythrough(dev):
     t_bytes = box_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = stats["mlp_samples"] * mlp_flop / BF16_FLOPS * 1e3
     box_bound = max(t_bytes, t_ops)
+    regs = box_regs.get(f"bf16,16,{64 if width <= 64 else 128}")
     log(f"  box kernel {box_ms:.3f} ms, plain {box_plain_ms:.1f} ms, bound "
         f"{box_bound:.4f} ms (bytes {t_bytes:.4f} ms, bf16 MLP ops "
-        f"{t_ops:.4f} ms)")
+        f"{t_ops:.4f} ms); box_kernel {regs} registers")
+
+    # the encoder's steps at frame 0, each on the host clock and synced:
+    # the frame's rays, their gather into tile order, the launch, the
+    # gather back into row order with assembly; beside them the rgbnet's
+    # packing, which the scene's cache makes once
+    def host_ms(fn, reps=5):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    rgb, dep, ail = cuda_box.sweep_box(pipe.packed, consts, vde, mlp, **kw)
+    inverse = cuda_sweep.ray_order(hw, hw, dev)[1]
+    enc_split = {
+        "frame": host_ms(lambda: pipe.encode(hw, hw, K, c2w)),
+        "prepare": host_ms(lambda: box_sweep.prepare_frame_box(
+            cfg, hw, hw, K, c2w, stepsize=0.5, near=0.2, device=dev)),
+        "tile_gather": host_ms(lambda: (frame.consts[order], frame.vde[
+            order].contiguous(), cuda_sweep.ray_order(hw, hw, dev))),
+        "launch": host_ms(lambda: cuda_box.sweep_box(pipe.packed, consts,
+                                                     vde, mlp, **kw)),
+        "restore": host_ms(lambda: box_sweep.assemble(
+            rgb[inverse], dep[inverse], ail[inverse], hw, hw,
+            BOX_RENDER["bg"])),
+        "rgbnet_pack_once": host_ms(
+            lambda: cuda_sweep.pack_mlp_fragments(mlp, cfg.dim0))}
+    log("  encoder steps at frame 0, ms (host clock): " + json.dumps(
+        {k: round(v, 3) for k, v in enc_split.items()}))
 
     # rrdb kernel vs plain at the path's first RRDB input
     feat = enc["rgb_features"][0][None]
@@ -768,8 +842,12 @@ def run_flythrough(dev):
     del pipe3
     profile_frame(pipe, hw, hw, K, poses[0])
     res.update(unfused=res3, launches=launches, box_err=box_err, box_ms=box_ms,
+               encoder_steps=enc_split,
                box_plain_ms=box_plain_ms, box_bound=box_bound,
                box_bound_by="bytes" if t_bytes >= t_ops else "operations",
+               box_registers=box_regs, box_samples=dict(
+                   in_range=stats["samples"], in_range_to_kmax=n_in,
+                   in_occupied_blocks=n_occ, mlp=stats["mlp_samples"]),
                rrdb_err=rrdb_err, rrdb_ms=rrdb_ms, rrdb_plain_ms=rrdb_plain_ms,
                rrdb_bound=rrdb_bound, three_rdb_ms=three_ms,
                rrdb_bound_by="operations" if rrdb_ops >= rrdb_bytes
@@ -1013,13 +1091,14 @@ def main() -> int:
     phase_rdb_small(dev, sr_model)
 
     log("[4] 4K frame, synthetic fern-scale scene")
-    syn = run_frame("synthetic", *fern_synthetic(dev), sr_model, dev, regs)
+    syn = run_frame("synthetic", *fern_synthetic(dev), sr_model, dev,
+                    regs["sweep"])
     torch.cuda.empty_cache()
 
     log(f"[5] 4K frame, trained anchor "
         f"{os.path.relpath(weights.ANCHOR_ASSET, HERE)}")
     anc = run_frame("anchor", *weights.load_anchor(device=dev), sr_model, dev,
-                    regs)
+                    regs["sweep"])
     log(f"  anchor asset: {os.path.basename(weights.ANCHOR_ASSET)}, sweep "
         f"{anc['sweep_ms']:.3f} ms, bound {anc['sweep_bound']:.3f} ms")
     del anc
@@ -1029,7 +1108,7 @@ def main() -> int:
     phase_rrdb_small(dev, sr_model)
     log(f"[8] bounded-scene fly-through, {BOX_FRAMES} frames of "
         f"{BOX_HW}x{BOX_HW}, fuse_rrdb")
-    fly = run_flythrough(dev)
+    fly = run_flythrough(dev, regs["box"])
     torch.cuda.empty_cache()
 
     phase_uptail_small(dev, sr_model)
@@ -1065,7 +1144,8 @@ def main() -> int:
          "launches": fly["launches"]["box"],
          "max_abs_err": fly["box_err"], "ms": fly["box_ms"],
          "plain_ms": fly["box_plain_ms"], "bound_ms": fly["box_bound"],
-         "bound_by": fly["box_bound_by"], "library_ms": None},
+         "bound_by": fly["box_bound_by"], "library_ms": None,
+         "registers": fly["box_registers"], "samples": fly["box_samples"]},
         {"name": "rrdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rrdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:428",

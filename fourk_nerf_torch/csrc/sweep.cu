@@ -63,6 +63,8 @@ namespace {
 using sweepc::axis_interval;
 using sweepc::kThreads;
 using sweepc::rnd;
+using sweepc::store;
+using sweepc::Voxel;
 using sweepq::kFull;
 using sweepq::kFlush;
 using sweepq::kSlots;
@@ -86,50 +88,6 @@ struct SweepArgs {
   size_t warp_bytes;        // one warp's queue
   float interval, fast_thres;
 };
-
-// The first CL channels of one voxel as up to four 16-byte words, held in
-// named registers: a channel index known only at run time (the mask's)
-// becomes selects, never an indexed array in local memory.
-template <typename Tg, int CL>
-struct Voxel {
-  static constexpr int kWords = CL * (int)sizeof(Tg) / 16;
-  static_assert(kWords >= 1 && kWords <= 4, "one to four words a voxel");
-  uint4 w0, w1, w2, w3;
-
-  __device__ __forceinline__ void load(const Tg* p) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-    w0 = __ldg(q);
-    if constexpr (kWords > 1) w1 = __ldg(q + 1);
-    if constexpr (kWords > 2) w2 = __ldg(q + 2);
-    if constexpr (kWords > 3) w3 = __ldg(q + 3);
-  }
-  // 32-bit word i (0 .. 4 kWords - 1)
-  __device__ __forceinline__ uint32_t word(int i) const {
-    uint4 v = w0;
-    if constexpr (kWords > 1) v = (i >> 2) == 1 ? w1 : v;
-    if constexpr (kWords > 2) v = (i >> 2) == 2 ? w2 : v;
-    if constexpr (kWords > 3) v = (i >> 2) == 3 ? w3 : v;
-    const uint32_t lo = (i & 1) ? v.y : v.x, hi = (i & 1) ? v.w : v.z;
-    return (i & 2) ? hi : lo;
-  }
-  __device__ __forceinline__ float at(int c) const {
-    if constexpr (sizeof(Tg) == 4) {
-      return __uint_as_float(word(c));
-    } else {
-      const uint32_t u = word(c >> 1);
-      return __uint_as_float((c & 1) ? (u & 0xffff0000u) : (u << 16));
-    }
-  }
-};
-
-template <typename Tg>
-__device__ __forceinline__ void store(Tg* dst, float v);
-template <>
-__device__ __forceinline__ void store<float>(float* dst, float v) { *dst = v; }
-template <>
-__device__ __forceinline__ void store<bf16>(bf16* dst, float v) {
-  *dst = __float2bfloat16_rn(v);  // v is a bf16 value already
-}
 
 // Shared memory: kWarps queues (then, on the float32 path, the per-thread
 // hidden-activation scratch of sweep_common.cuh). The MLP weights are read

@@ -1,12 +1,13 @@
-// Device code shared by the two per-ray sweep kernels (sweep.cu, box.cu):
-// typed grid loads, the in-range sample interval of an axis, and the rgbnet
-// MLP with its weights in shared memory, one thread per ray, float32
-// accumulate.
+// Device code shared by the two sweep kernels (sweep.cu, box.cu): the
+// 16-byte voxel loads, bf16 rounding, the in-range sample interval of an
+// axis, and the rgbnet MLP one sample a thread in float32 (the float32
+// path of sweep_queue.cuh's flush).
 //
-// Shared-memory layout (floats): W0 [cin0][WP], b0 [WP]; then for each
-// hidden layer W [WP][WP], b [WP]; then the output layer W [WP][4], b [4];
-// then WP x kThreads floats of hidden-activation scratch. WP is the hidden
-// width padded to 64 or 128; zero padding is exact.
+// Weight layout of the float32 MLP (floats): W0 [cin0][WP], b0 [WP]; then
+// for each hidden layer W [WP][WP], b [WP]; then the output layer W [WP][4],
+// b [4]. WP is the hidden width padded to 64 or 128; zero padding is exact.
+// The caller gives WP x kThreads floats of hidden-activation scratch in
+// shared memory.
 //
 // Precision follows the grid's type (the tag pointer): with a bf16 grid the
 // MLP's inputs and hidden activations are rounded to bf16 values (the
@@ -21,11 +22,49 @@ namespace sweepc {
 
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ float ld(const float* p, size_t i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(__ldg(p + i));
+// The first CL channels of one voxel as up to four 16-byte words, held in
+// named registers: a channel index known only at run time (the mask's)
+// becomes selects, never an indexed array in local memory.
+template <typename Tg, int CL>
+struct Voxel {
+  static constexpr int kWords = CL * (int)sizeof(Tg) / 16;
+  static_assert(kWords >= 1 && kWords <= 4, "one to four words a voxel");
+  uint4 w0, w1, w2, w3;
+
+  __device__ __forceinline__ void load(const Tg* p) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    w0 = __ldg(q);
+    if constexpr (kWords > 1) w1 = __ldg(q + 1);
+    if constexpr (kWords > 2) w2 = __ldg(q + 2);
+    if constexpr (kWords > 3) w3 = __ldg(q + 3);
+  }
+  // 32-bit word i (0 .. 4 kWords - 1)
+  __device__ __forceinline__ uint32_t word(int i) const {
+    uint4 v = w0;
+    if constexpr (kWords > 1) v = (i >> 2) == 1 ? w1 : v;
+    if constexpr (kWords > 2) v = (i >> 2) == 2 ? w2 : v;
+    if constexpr (kWords > 3) v = (i >> 2) == 3 ? w3 : v;
+    const uint32_t lo = (i & 1) ? v.y : v.x, hi = (i & 1) ? v.w : v.z;
+    return (i & 2) ? hi : lo;
+  }
+  __device__ __forceinline__ float at(int c) const {
+    if constexpr (sizeof(Tg) == 4) {
+      return __uint_as_float(word(c));
+    } else {
+      const uint32_t u = word(c >> 1);
+      return __uint_as_float((c & 1) ? (u & 0xffff0000u) : (u << 16));
+    }
+  }
+};
+
+template <typename Tg>
+__device__ __forceinline__ void store(Tg* dst, float v);
+template <>
+__device__ __forceinline__ void store<float>(float* dst, float v) { *dst = v; }
+template <>
+__device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                     float v) {
+  *dst = __float2bfloat16_rn(v);  // v is a bf16 value already
 }
 
 __device__ __forceinline__ float rnd(float v, const float*) { return v; }

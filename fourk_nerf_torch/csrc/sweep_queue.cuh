@@ -32,8 +32,13 @@
 // layer is one n8 tile (3 logits used).
 //
 // fma_flush, the float32 path: lane i evaluates record i's MLP as float32
-// FMAs with the weights of sweep_common.cuh (the feed / rest that the box
-// kernel runs per ray), so nothing is rounded.
+// FMAs with the weights of sweep_common.cuh, so nothing is rounded.
+//
+// The box sweep (box.cu) shares the queue and both flushes through two
+// template arguments whose defaults are the plane sweep's: Row, which
+// writes a record's input row (SweepRow: input_row below), and kOffset,
+// which adds the record's three float fields (px, py, kf; the box keeps its
+// float32 k0[:3] there) to the logits before the sigmoid.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,6 +127,15 @@ __device__ __forceinline__ void input_row(const Q& q, const MlpArgs& m,
   for (int e = 0; e < m.E; ++e) put(__ldg(vr + e));
 }
 
+// The plane sweep's input row.
+struct SweepRow {
+  template <typename Q, typename Put>
+  __device__ __forceinline__ void operator()(const Q& q, const MlpArgs& m,
+                                             int slot, Put&& put) const {
+    input_row(q, m, slot, put);
+  }
+};
+
 // Each lane adds the results of its own records among the nf flushed from
 // slot s, in slot order: one ballot a lane finds that lane's records, then
 // each lane walks its own in order.
@@ -148,11 +162,12 @@ __device__ __forceinline__ void gather(const Q& q, int s, int nf, float& c0,
 
 // ---------------------------------------------------------------- float32
 
-template <typename Tg, int kCh, int WP>
+template <typename Tg, int kCh, int WP, bool kOffset = false,
+          typename Row = SweepRow>
 __device__ __forceinline__ void fma_flush(const Queue<Tg, kCh>& q,
                                           const MlpArgs& m, float* hs, int s,
                                           int nf, float& c0, float& c1,
-                                          float& c2) {
+                                          float& c2, Row row = Row()) {
   using sweepc::feed;
   using sweepc::rnd;
   const Tg* tag = nullptr;
@@ -165,10 +180,15 @@ __device__ __forceinline__ void fma_flush(const Queue<Tg, kCh>& q,
 #pragma unroll
     for (int j = 0; j < WP; ++j) acc[j] = B0[j];
     int c = 0;
-    input_row(q, m, slot,
-              [&](float v) { feed<WP>(acc, W0 + (c++) * WP, rnd(v, tag)); });
+    row(q, m, slot,
+        [&](float v) { feed<WP>(acc, W0 + (c++) * WP, rnd(v, tag)); });
     float o0, o1, o2;
     sweepc::rest<Tg, WP>(acc, B0 + WP, m.n_layers, m.act, hs, tag, o0, o1, o2);
+    if constexpr (kOffset) {
+      o0 += q.px[slot];
+      o1 += q.py[slot];
+      o2 += q.kf[slot];
+    }
     const float w = q.w[slot];
     *reinterpret_cast<float4*>(q.res + 4 * i) =
         make_float4(w * sigmoid(o0), w * sigmoid(o1), w * sigmoid(o2), 0.f);
@@ -262,10 +282,11 @@ __device__ __forceinline__ void to_a(const float (&acc)[WP / 8][4], int act,
 }
 
 // The MLP of the 16 staged rows [16 mt, 16 mt + 16). res[4 i + 3] holds
-// the weight of row i on entry; res[4 i + c] receives w * sigmoid(logit c),
-// c < 3. (Two M tiles at once, sharing the B loads, measured slower: more
-// registers, fewer warps.)
-template <int WP>
+// the weight of row i on entry (and with kOffset res[4 i + c] the offset of
+// logit c); res[4 i + c] receives w * sigmoid(logit c), c < 3. (Two M tiles
+// at once, sharing the B loads, measured slower: more registers, fewer
+// warps.)
+template <int WP, bool kOffset>
 __device__ __forceinline__ void mma_tile(const bf16* stg, int row,
                                          const MlpArgs& m, float* res, int nf,
                                          int mt) {
@@ -324,17 +345,23 @@ __device__ __forceinline__ void mma_tile(const bf16* stg, int row,
       const int i = mt * 16 + g + 8 * h;
       if (i < nf) {
         const float w = res[4 * i + 3];
-        res[4 * i + 2 * tq] = w * sigmoid(o[2 * h]);
-        if (tq == 0) res[4 * i + 1] = w * sigmoid(o[2 * h + 1]);
+        float a0 = o[2 * h], a1 = o[2 * h + 1];
+        if constexpr (kOffset) {
+          a0 += res[4 * i + 2 * tq];
+          a1 += res[4 * i + 1];
+        }
+        res[4 * i + 2 * tq] = w * sigmoid(a0);
+        if (tq == 0) res[4 * i + 1] = w * sigmoid(a1);
       }
     }
   }
 }
 
-template <int kCh, int WP>
+template <int kCh, int WP, bool kOffset = false, typename Row = SweepRow>
 __device__ __forceinline__ void mma_flush(const Queue<bf16, kCh>& q,
                                           const MlpArgs& m, int s, int nf,
-                                          float& c0, float& c1, float& c2) {
+                                          float& c0, float& c1, float& c2,
+                                          Row row = Row()) {
   // lane i stages record i's input row and weight (zeros past nf and past
   // cin0)
   const int i = threadIdx.x & 31;
@@ -343,13 +370,19 @@ __device__ __forceinline__ void mma_flush(const Queue<bf16, kCh>& q,
   if (i < nf) {
     const int slot = q.slot(s, i);
     w = q.w[slot];
-    input_row(q, m, slot, [&](float v) { rw.put(v); });
+    row(q, m, slot, [&](float v) { rw.put(v); });
+    if constexpr (kOffset) {
+      q.res[4 * i] = q.px[slot];
+      q.res[4 * i + 1] = q.py[slot];
+      q.res[4 * i + 2] = q.kf[slot];
+    }
   }
   while (rw.j < m.cinp) rw.put_bits(0u);
   q.res[4 * i + 3] = w;  // the weight rides in the unused fourth column
   __syncwarp();
 #pragma unroll 1
-  for (int mt = 0; 16 * mt < nf; ++mt) mma_tile<WP>(q.stg, q.row, m, q.res, nf, mt);
+  for (int mt = 0; 16 * mt < nf; ++mt)
+    mma_tile<WP, kOffset>(q.stg, q.row, m, q.res, nf, mt);
   __syncwarp();
   gather(q, s, nf, c0, c1, c2);
   __syncwarp();

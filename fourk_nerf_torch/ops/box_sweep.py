@@ -50,11 +50,15 @@ class PackedBox:
     """``voxels [X*Y*Z, Cp]``: channel 0 density, ``1..k0_dim`` k0, then
     the 0/1 mask at ``mask_ch`` (``-1`` when the mask has another
     resolution and rides in ``mask [mX,mY,mZ]`` instead), zero padding to
-    a multiple of 8 channels."""
+    a multiple of 8 channels. ``cache`` keeps the box kernel's inputs that
+    are fixed for a scene: its block maps of the mask, one per sweep
+    direction, and its packed rgbnet (``cuda_box``)."""
 
     voxels: torch.Tensor
     mask_ch: int
     mask: torch.Tensor | None
+    cache: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
 
 
 @dataclasses.dataclass(frozen=True)

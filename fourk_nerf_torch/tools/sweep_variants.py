@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time builds of the plane-sweep kernel against each other on the 4K frame.
+"""Time builds of the plane-sweep kernel against each other on the 4K frame,
+or, with ``--box``, builds of the box-sweep kernel on the fly-through frame.
 
 Each argument names one build, ``LABEL=SOURCE.cu`` or
 ``LABEL=SOURCE.cu@WRAPPER.py``: the source is compiled with the port's
@@ -12,13 +13,24 @@ on the synthetic and the trained-anchor 4K frames of ``chip_smoke.py``
 (1008x756 rays, the fern geometry, in the frame driver's tile order, or
 row-major with ``--row-major``; the bf16 grid of the main path, or the
 float32 grid with ``--f32``), then timed in turns, A B ... B A, by
-CUDA events (mean of 3 launches after a warm-up), so that every build gets
+CUDA events (mean of 3 launches after a warm-up; of 20 with ``--box``,
+whose kernel takes about a millisecond), so that every build gets
 two readings in one process on one card. The ptxas register and spill lines
-of each build are printed. Run on a machine with the card, from the
-repository root, for example:
+of each build are printed.
+
+``--box`` does the same for ``csrc/box.cu`` (wrapper ``ops/cuda_box.py``),
+held against ``box_sweep.sweep_box_plain`` on frame 0 of
+``chip_smoke.py``'s fly-through (the 160^3 bounded scene, pose
+``box_pose(0.1)``, 800x800 rays in tile order or row-major with
+``--row-major``; bf16 grid, or float32 with ``--f32``), called as
+``sweep_box(packed, consts, vde, mlp, **kwargs)`` with the scene's
+``PackedBox``. Run on a machine with the card, from the repository root,
+for example:
 
     python3 -m fourk_nerf_torch.tools.sweep_variants tree \\
         slow=build/variants/slow.cu
+    python3 -m fourk_nerf_torch.tools.sweep_variants --box tree \\
+        parent=build/variants/parent/box.cu@build/variants/parent/cuda_box.py
 
 The last line is a JSON object {scene: {label: [ms, ms]}}.
 """
@@ -36,14 +48,15 @@ import time
 import torch
 
 from fourk_nerf_torch import weights
-from fourk_nerf_torch.ops import _build, cuda_sweep, plane_sweep
+from fourk_nerf_torch.ops import _build, box_sweep, cuda_box, cuda_sweep, \
+    plane_sweep
 
 ROOT = os.path.dirname(os.path.dirname(_build.CSRC))
 
 
-def _wrapper(path: str | None):
+def _wrapper(path: str | None, default):
     if path is None:
-        return cuda_sweep
+        return default
     spec = importlib.util.spec_from_file_location(
         f"sweep_wrapper_{abs(hash(path))}", path)
     mod = importlib.util.module_from_spec(spec)
@@ -51,13 +64,13 @@ def _wrapper(path: str | None):
     return mod
 
 
-def build(specs, out_dir: str) -> dict:
+def build(specs, out_dir: str, name: str) -> dict:
     """{label: CDLL}, one nvcc per source, all started together."""
     os.makedirs(out_dir, exist_ok=True)
     nvcc, procs, libs = _build.nvcc_path(), {}, {}
     t0 = time.perf_counter()
     for label, src, _ in specs:
-        out = os.path.join(out_dir, f"libsweep_{label}.so")
+        out = os.path.join(out_dir, f"lib{name}_{label}.so")
         cmd = [nvcc, *_build.FLAGS, "-I", _build.CSRC, "-o", out, src]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
@@ -75,28 +88,11 @@ def build(specs, out_dir: str) -> dict:
     return libs
 
 
-def main(argv) -> int:
+def sweep_scenes(dev, f32: bool, row_major: bool):
+    """(scene, call(wrapper), reference maps, maps of an output) of the 4K
+    frames."""
     import chip_smoke as cs
-    flags = {a for a in argv if a.startswith("--")}
-    row_major, f32 = "--row-major" in flags, "--f32" in flags
-    specs = []
-    for arg in (a for a in argv if a not in flags):
-        label, _, rest = arg.partition("=")
-        src, _, wrap = (rest or os.path.join(_build.CSRC, "sweep.cu")) \
-            .partition("@")
-        specs.append((label, os.path.abspath(src),
-                      _wrapper(os.path.abspath(wrap) if wrap else None)))
-    if not specs or not torch.cuda.is_available():
-        print("usage: [--row-major] [--f32] LABEL[=SOURCE.cu[@WRAPPER.py]] "
-              "..., on a machine with a CUDA device", file=sys.stderr)
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    libs = build(specs, os.path.join(ROOT, "build", "sweep_variants"))
-    dev = torch.device("cuda")
     H, W = cs.H, cs.W
-    results: dict = {}
     for scene, make in (("synthetic", lambda: cs.fern_synthetic(dev)),
                         ("anchor", lambda: weights.load_anchor(device=dev))):
         cfg, params, buffers = make()
@@ -114,27 +110,82 @@ def main(argv) -> int:
                   fast_thres=float(cfg.fast_color_thres),
                   spatial_pe=cfg.spatial_pe, act_type=cfg.act_type)
         del params, buffers
+        maps = lambda out: plane_sweep.assemble(*out, H, W, 1.0)
+        ref = maps(plane_sweep.sweep_plain(g.packed, g.act_shift, a, b, vde,
+                                           mlp, **kw))
+        yield (scene, lambda wrap: wrap.sweep(g.packed, g.act_shift, a, b,
+                                              vde, mlp, **kw), ref, maps)
 
+
+def box_scenes(dev, f32: bool, row_major: bool):
+    """The same for frame 0 of the bounded-scene fly-through."""
+    import chip_smoke as cs
+    hw = cs.BOX_HW
+    cfg, params, buffers = cs.box_synthetic(dev)
+    K, c2w = cs.box_camera(hw), cs.box_pose(0.1)
+    packed = cuda_box.pack_box_kernel(cfg, params, buffers, use_bf16=not f32)
+    frame = box_sweep.prepare_frame_box(cfg, hw, hw, K, c2w, stepsize=0.5,
+                                        near=0.2, device=dev)
+    kw = box_sweep.sweep_kwargs(cfg, frame, packed, 0.5)
+    consts, vde = frame.consts, frame.vde
+    if not row_major:
+        order, _ = cuda_sweep.ray_order(hw, hw, dev)
+        consts, vde = consts[order], vde[order].contiguous()
+    mlp = plane_sweep.mlp_layers(params["rgbnet"])
+    maps = lambda out: box_sweep.assemble(*out, hw, hw, 1.0)
+    ref = maps(box_sweep.sweep_box_plain(packed.voxels, consts, vde, mlp,
+                                         **kw))
+    scene = f"fly-through frame 0 (axis {frame.axis}, flip {frame.flip})"
+    yield (scene, lambda wrap: wrap.sweep_box(packed, consts, vde, mlp, **kw),
+           ref, maps)
+
+
+def main(argv) -> int:
+    import chip_smoke as cs
+    flags = {a for a in argv if a.startswith("--")}
+    row_major, f32, box = ("--row-major" in flags, "--f32" in flags,
+                           "--box" in flags)
+    name = "box" if box else "sweep"
+    default = cuda_box if box else cuda_sweep
+    specs = []
+    for arg in (a for a in argv if a not in flags):
+        label, _, rest = arg.partition("=")
+        src, _, wrap = (rest or os.path.join(_build.CSRC, f"{name}.cu")) \
+            .partition("@")
+        specs.append((label, os.path.abspath(src),
+                      _wrapper(os.path.abspath(wrap) if wrap else None,
+                               default)))
+    if not specs or not torch.cuda.is_available():
+        print("usage: [--box] [--row-major] [--f32] "
+              "LABEL[=SOURCE.cu[@WRAPPER.py]] ..., on a machine with a CUDA "
+              "device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    libs = build(specs, os.path.join(ROOT, "build", "sweep_variants"), name)
+    dev = torch.device("cuda")
+    scenes = box_scenes(dev, f32, row_major) if box \
+        else sweep_scenes(dev, f32, row_major)
+    results: dict = {}
+    for scene, call_with, ref, maps in scenes:
         def call(label, wrap):
-            _build._loaded["sweep"] = libs[label]
-            return wrap.sweep(g.packed, g.act_shift, a, b, vde, mlp, **kw)
+            _build._loaded[name] = libs[label]
+            return call_with(wrap)
 
-        ref = plane_sweep.assemble(*plane_sweep.sweep_plain(
-            g.packed, g.act_shift, a, b, vde, mlp, **kw), H, W, 1.0)
         for label, _, wrap in specs:
-            got = plane_sweep.assemble(*call(label, wrap), H, W, 1.0)
+            got = maps(call(label, wrap))
             torch.cuda.synchronize()
             mx, frac = cs.sweep_errors(got, ref, tie=cs.SWEEP_TOL["tie"])
             print(f"{scene} {label}: vs plain max abs {mx:.3e}, pixels above "
                   f"{cs.SWEEP_TOL['tie']:.0e} {frac:.4%}", flush=True)
         del ref, got
         for label, _, wrap in specs + specs[::-1]:
-            ms = cs.cuda_ms(lambda: call(label, wrap), 3)
+            ms = cs.cuda_ms(lambda: call(label, wrap), 20 if box else 3)
             results.setdefault(scene, {}).setdefault(label, []).append(ms)
             print(f"{scene} {label}: {ms:.3f} ms", flush=True)
-        del g, a, b, vde
         torch.cuda.empty_cache()
-    _build._loaded.pop("sweep", None)
+    _build._loaded.pop(name, None)
     print(json.dumps(results))
     return 0
 

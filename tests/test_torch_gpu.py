@@ -138,7 +138,9 @@ def _box_scene(cuda, *, rgbnet_dim, rgbnet_direct, width, act="relu",
     return cfg, params, buffers
 
 
-def _look_at(h, w, angle, dist=2.8):
+def _look_at(h, w, angle, dist=2.8, target=(0.0, 0.0, 0.0), focal=0.9):
+    """A camera ``dist`` from ``target``, looking at it, rotated by
+    ``angle`` (about x, then y), focal length ``focal * w``."""
     ax, ay = angle
     Rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
                    [0, np.sin(ax), np.cos(ax)]])
@@ -147,8 +149,9 @@ def _look_at(h, w, angle, dist=2.8):
     R = (Ry @ Rx).astype(np.float32)
     c2w = np.eye(4, dtype=np.float32)[:3, :4]
     c2w[:3, :3] = R
-    c2w[:3, 3] = R @ np.array([0, 0, dist], dtype=np.float32)
-    f = 0.9 * w
+    c2w[:3, 3] = np.asarray(target, np.float32) + R @ np.array(
+        [0, 0, dist], dtype=np.float32)
+    f = focal * w
     K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], dtype=np.float32)
     return K, c2w
 
@@ -158,8 +161,8 @@ BOX_POSES = [(0.0, 0.0), (0.0, np.pi), (0.0, 0.5 * np.pi),
              (0.0, -0.5 * np.pi), (-0.5 * np.pi, 0.2), (0.5 * np.pi, 0.2)]
 
 
-def _check_box(cuda, cfg, params, buffers, h, w, angle, use_bf16):
-    K, c2w = _look_at(h, w, angle)
+def _check_box(cuda, cfg, params, buffers, h, w, angle, use_bf16, **cam):
+    K, c2w = _look_at(h, w, angle, **cam)
     kw = dict(stepsize=0.5, near=0.2, bg=0.7, use_bf16=use_bf16, device=cuda)
     n0 = cuda_box.sweep_box.launches
     got = cuda_box.render_frame_box_cuda(cfg, params, buffers, h, w, K, c2w,
@@ -201,6 +204,62 @@ def test_box_kernel_frame_smaller_than_a_block(cuda):
     cfg, params, buffers = _box_scene(cuda, rgbnet_dim=6, rgbnet_direct=True,
                                       width=64)
     _check_box(cuda, cfg, params, buffers, 5, 7, (0.4, 0.3), True)
+
+
+def _skip_scene(cuda, kind, rgbnet):
+    """Scenes built to break the box kernel's empty-space skipping (blocks
+    of B = ``cuda_box.OCC_BLOCK`` voxels): ``shell``, the one-voxel shell
+    of the cube [B, 2B-1]^3 in a (3B)^3 grid, its faces on block
+    boundaries whichever way the sweep runs; ``corner``, one voxel at
+    (B, B, B), a block corner, seen by a camera aimed at it whose frame
+    spans about 8 voxels; ``grid37``, a 37^3 grid (no multiple of the
+    block) with a sparse random mask. Density N(4, 2), so the mask decides
+    what is seen; rgbnet ``none``, ``residual`` or ``direct``."""
+    B = cuda_box.OCC_BLOCK
+    G = 37 if kind == "grid37" else 3 * B
+    cfg = dvgo.make_config(
+        xyz_min=[-1.0] * 3, xyz_max=[1.0] * 3, num_voxels=int(G ** 3 * 1.001),
+        num_voxels_base=int(G ** 3 * 1.001), alpha_init=1e-2,
+        rgbnet_dim=0 if rgbnet == "none" else 12,
+        rgbnet_direct=rgbnet == "direct", rgbnet_width=64, rgbnet_depth=3,
+        fast_color_thres=1e-4)
+    assert tuple(cfg.world_size) == (G, G, G)
+    params, buffers = dvgo.init(
+        cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    rng = np.random.default_rng(G)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    params["density"] = t(rng.normal(4, 2, params["density"].shape)
+                          .astype(np.float32))
+    params["k0"] = t(rng.normal(0, 1, params["k0"].shape).astype(np.float32))
+    mask = np.zeros((G, G, G), bool)
+    if kind == "shell":
+        mask[B:2 * B, B:2 * B, B:2 * B] = True
+        mask[B + 1:2 * B - 1, B + 1:2 * B - 1, B + 1:2 * B - 1] = False
+    elif kind == "corner":
+        mask[B, B, B] = True
+    else:
+        mask = rng.uniform(size=(G, G, G)) < 0.01
+        mask[20:23, 5:7, 30:33] = True
+    buffers["mask_cache"] = t(mask)
+    return cfg, params, buffers
+
+
+@pytest.mark.parametrize("rgbnet", ["none", "residual", "direct"])
+@pytest.mark.parametrize("kind", ["shell", "corner", "grid37"])
+def test_box_kernel_skip_scenes(cuda, kind, rgbnet):
+    """Every sweep axis and sign, with rays exactly along the grid axes and
+    tilted by 1e-3 rad (almost parallel to the block faces), bf16 and
+    float32 grids; every frame sees the scene."""
+    cfg, params, buffers = _skip_scene(cuda, kind, rgbnet)
+    cam = {}
+    if kind == "corner":
+        B, G = cuda_box.OCC_BLOCK, cfg.world_size[0]
+        cam = dict(target=[-1.0 + 2.0 * B / (G - 1)] * 3, focal=8.0)
+    for ax, ay in BOX_POSES:
+        for tilt in (0.0, 1e-3):
+            for use_bf16 in (False, True):
+                _check_box(cuda, cfg, params, buffers, 24, 32,
+                           (ax + tilt, ay + tilt), use_bf16, **cam)
 
 
 def test_box_kernel_refuses_a_native_resolution_mask(cuda):
