@@ -35,7 +35,8 @@ Phases (any failure raises and the script exits non-zero):
      timed with ``fuse_rrdb=False`` (``render_video``'s default: 15
      dense-block launches a frame, counted);
   9. fused upsample tail (uptail) kernel vs its plain version at 45x70 (an
-     odd size) and 48x64;
+     odd size), 48x64, 1x1 and the sizes under, at and one pixel past one
+     16x28 output tile in each direction;
  10. the 4K decode with the fused tail at full width: the trunk of the
      synthetic frame (15 dense-block launches) -> one uptail launch ->
      clamp; kernel vs plain on the real ``conv_up1`` output, the frame vs
@@ -859,9 +860,13 @@ def phase_uptail_small(dev, sr_model):
     import torch
     from fourk_nerf_torch.ops import cuda_sr
     wts = cuda_sr.pack_uptail_weights(sr_model)
-    log("[9] uptail kernel vs plain (16x32 output tiles)")
+    log("[9] uptail kernel vs plain (16x28 output tiles: 8x14 of the 2x "
+        "map)")
     worst = 0.0
-    for h2, w2 in ((45, 70), (48, 64)):
+    # an odd size, an even one, one pixel, under, at and one pixel past a
+    # tile in each direction and in both
+    for h2, w2 in ((45, 70), (48, 64), (1, 1), (7, 13), (8, 14), (9, 14),
+                   (8, 15), (9, 15)):
         x = torch.as_tensor(np.random.default_rng(7).normal(
             size=(1, h2, w2, 64)).astype(np.float32), device=dev)
         got = cuda_sr.uptail_apply(x, wts)
@@ -949,12 +954,20 @@ def run_fused_tail(dev, sr_model, syn):
     n_out = rgb.numel() * rgb.element_size()
     t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
+    # rates: the bound's operations, and the MACs the kernel issues with its
+    # tiles' halo and padding, over the kernel's time
+    issued = cuda_sr.uptail_issued_macs(H2, W2)
+    tflops = 2 * mac_px * H2 * W2 / ms / 1e9
+    tflops_issued = 2 * issued / ms / 1e9
     log(f"  uptail kernel {ms:.3f} ms ({ms1:.3f}, {ms2:.3f}), library tail "
         f"(transposed conv_up2 + conv_hr + float32 conv_last) {lib_ms:.3f} ms "
         f"({lib1:.3f}, {lib2:.3f}), plain {plain_ms:.1f} ms, bound "
         f"{bound:.3f} ms ({mac_px} MAC per 2x pixel x {H2 * W2} pixels = "
         f"{2 * mac_px * H2 * W2 / 1e12:.3f} TFLOP at the bf16 peak; bytes "
         f"{n_in / 1e6:.0f} MB in + {n_out / 1e6:.0f} MB out, {t_bytes:.3f} ms)")
+    log(f"  uptail kernel rate {tflops:.1f} TFLOP/s on the bound's operations,"
+        f" {tflops_issued:.1f} TFLOP/s on the {issued} MAC it issues "
+        f"({issued / (mac_px * H2 * W2):.3f}x: halo and padding)")
     # the decode end to end, host clock around a synchronise, median of 3
     def decode_ms(fn):
         fn()
@@ -976,7 +989,8 @@ def run_fused_tail(dev, sr_model, syn):
     res = dict(launches=launches, uptail_err=err, uptail_ms=ms,
                uptail_plain_ms=plain_ms, uptail_bound=bound,
                uptail_bound_by="operations" if t_ops >= t_bytes else "bytes",
-               uptail_library_ms=lib_ms, frame_err=fr_err)
+               uptail_library_ms=lib_ms, frame_err=fr_err,
+               uptail_tflops=tflops, uptail_tflops_issued=tflops_issued)
     del rgb, frame, up1
     torch.cuda.empty_cache()
 
@@ -1161,7 +1175,9 @@ def main() -> int:
          "max_abs_err": tail["uptail_err"], "ms": tail["uptail_ms"],
          "plain_ms": tail["uptail_plain_ms"], "bound_ms": tail["uptail_bound"],
          "bound_by": tail["uptail_bound_by"],
-         "library_ms": tail["uptail_library_ms"]},
+         "library_ms": tail["uptail_library_ms"],
+         "tflops": tail["uptail_tflops"],
+         "tflops_issued": tail["uptail_tflops_issued"]},
         # the probes: ms is the sum over a suite's kernels, one launch each.
         # library_ms: for the floor probes the window product through
         # torch.mm (the loops and the copy ring have no library call), for

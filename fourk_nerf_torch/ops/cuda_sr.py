@@ -27,7 +27,9 @@ is the rest.
 ``conv_up2`` on the nearest-upsampled trunk output, ``conv_hr`` and
 ``conv_last`` in one launch, as the JAX package's ``uptail_apply_pallas``.
 Its plain version is :func:`uptail_plain`, its packer
-:func:`pack_uptail_weights`, its count ``uptail_apply.launches``. As in the
+:func:`pack_uptail_weights` (the HWIO weights for the plain version and
+the same values in ``mma.sync`` fragment order for the kernel), its count
+``uptail_apply.launches``. As in the
 JAX package no decode entry point chains it; a caller composes
 :func:`sftnet_trunk_cuda` and :func:`uptail_apply`.
 """
@@ -93,9 +95,30 @@ def _to_fragments(k):
 
 
 def _from_fragments(flat, cin: int, cout: int):
-    """The inverse of :func:`_to_fragments`."""
-    return flat.reshape(9 * cin // 16, cout // 16, 8, 4, 2, 2, 2) \
-        .permute(_UNFRAG).reshape(3, 3, cin, cout)
+    """The inverse of :func:`_to_fragments` for a 3x3 conv, as HWIO."""
+    return _matrix_from_fragments(flat, 9 * cin, cout).reshape(3, 3, cin, cout)
+
+
+# one n8 B tile [K, 8] in the order (step, g, t, khi, klo): lane 4 g + t
+# holds B[k][g] for k in (2t, 2t+1, 2t+8, 2t+9), its two B registers
+_FRAG8 = (0, 4, 2, 1, 3)
+_UNFRAG8 = tuple(_FRAG8.index(d) for d in range(5))
+
+
+def _to_fragments8(k):
+    """A B operand ``[K, 8]`` -> the kernel's flat n8 fragment order."""
+    return k.reshape(-1, 2, 4, 2, 8).permute(_FRAG8).reshape(-1)
+
+
+def _matrix_from_fragments(flat, k: int, n: int):
+    """The ``[K, N]`` matrix of a flat fragment order: the inverse of
+    :func:`_to_fragments` (N a multiple of 16) or of
+    :func:`_to_fragments8` (N = 8)."""
+    if n == 8:
+        return flat.reshape(k // 16, 8, 4, 2, 2).permute(_UNFRAG8) \
+            .reshape(k, 8)
+    return flat.reshape(k // 16, n // 16, 8, 4, 2, 2, 2).permute(_UNFRAG) \
+        .reshape(k, n)
 
 
 def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
@@ -468,18 +491,25 @@ def sftnet_apply_plain(model, x, cond, *, fuse_rrdb: bool = False,
 
 @dataclasses.dataclass(frozen=True)
 class UptailWeights:
-    """``conv_up2`` / ``conv_hr`` / ``conv_last`` in the uptail kernel's
-    layout. ``kup [4, 4, 64, 64]`` bf16: the 2x2 phase kernels of
+    """``conv_up2`` / ``conv_hr`` / ``conv_last`` for the uptail kernel and
+    its plain version. ``kup [4, 4, 64, 64]`` bf16: the 2x2 phase kernels of
     ``conv3x3(nearest_up2(.))`` as ``[2*qy+qx, 2*dy+dx, cin, cout]``, their
     taps summed in float32 and rounded to bf16 once. ``khr [9, 64, 64]`` and
     ``klast [9, 64, 8]`` bf16: tap-major HWIO, ``conv_last``'s three output
     channels zero-padded to 8. ``bias [3, 64]`` float32 (row 2: three
-    values)."""
+    values). These serve :func:`uptail_plain`; the kernel reads the same
+    values in ``mma.sync`` fragment order, flat bf16: ``kupf`` (per phase,
+    ``kup[ph]`` as a ``[256, 64]`` B operand, :func:`_to_fragments`),
+    ``khrf`` (``khr`` as ``[576, 64]``) and ``klastf`` (``klast`` as
+    ``[576, 8]``, :func:`_to_fragments8`)."""
 
     kup: torch.Tensor
     khr: torch.Tensor
     klast: torch.Tensor
     bias: torch.Tensor
+    kupf: torch.Tensor
+    khrf: torch.Tensor
+    klastf: torch.Tensor
 
 
 def pack_uptail_weights(model) -> UptailWeights:
@@ -510,7 +540,10 @@ def pack_uptail_weights(model) -> UptailWeights:
     bias[0] = model.conv_up2.bias.detach().float()
     bias[1] = model.conv_hr.bias.detach().float()
     bias[2, :3] = model.conv_last.bias.detach().float()
-    return UptailWeights(kup, khr, klast, bias)
+    return UptailWeights(kup, khr, klast, bias,
+                         _to_fragments(kup.reshape(4 * 4 * _F, _F)),
+                         _to_fragments(khr.reshape(9 * _F, _F)),
+                         _to_fragments8(klast.reshape(9 * _F, 8)))
 
 
 def uptail_plain(up1_out, w: UptailWeights):
@@ -544,7 +577,8 @@ def uptail_apply(up1_out, w: UptailWeights):
     (bf16-rounded values), with no tensor at the output resolution but the
     RGB. CUDA tensors launch the kernel (and raise if the launch fails);
     CPU tensors, and only they, take :func:`uptail_plain`."""
-    tensors = [up1_out, w.kup, w.khr, w.klast, w.bias]
+    tensors = [up1_out, w.kup, w.khr, w.klast, w.bias, w.kupf, w.khrf,
+               w.klastf]
     if all(t.device.type == "cpu" for t in tensors):
         return uptail_plain(up1_out, w)
     dev = up1_out.device
@@ -555,7 +589,8 @@ def uptail_apply(up1_out, w: UptailWeights):
         raise ValueError("uptail_apply: input must be [1,H2,W2,64], got "
                          f"{tuple(up1_out.shape)}")
     for t, shape in ((w.kup, (4, 4, _F, _F)), (w.khr, (9, _F, _F)),
-                     (w.klast, (9, _F, 8))):
+                     (w.klast, (9, _F, 8)), (w.kupf, (16 * _F * _F,)),
+                     (w.khrf, (9 * _F * _F,)), (w.klastf, (9 * _F * 8,))):
         if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError("uptail_apply: bad packed weights")
@@ -570,8 +605,8 @@ def uptail_apply(up1_out, w: UptailWeights):
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), out.data_ptr(), w.kup.data_ptr(),
-             w.khr.data_ptr(), w.klast.data_ptr(), w.bias.data_ptr(), H2, W2,
+    err = fn(x.data_ptr(), out.data_ptr(), w.kupf.data_ptr(),
+             w.khrf.data_ptr(), w.klastf.data_ptr(), w.bias.data_ptr(), H2, W2,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "uptail_error_string", err, "uptail kernel")
     uptail_apply.launches += 1
@@ -579,3 +614,12 @@ def uptail_apply(up1_out, w: UptailWeights):
 
 
 uptail_apply.launches = 0
+
+
+def uptail_issued_macs(H2: int, W2: int) -> int:
+    """The MACs the uptail kernel issues for an ``H2 x W2`` input, its
+    tiles' halo and padding included (the kernel's library reports them
+    from its own tile geometry; builds it on first use)."""
+    fn = _build.load("uptail").uptail_issued_macs
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    return int(fn(H2, W2))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time builds of the plane-sweep kernel against each other on the 4K frame,
-or, with ``--box``, builds of the box-sweep kernel on the fly-through frame.
+with ``--box`` builds of the box-sweep kernel on the fly-through frame, or
+with ``--uptail`` builds of the fused upsample tail on the 4K decode.
 
 Each argument names one build, ``LABEL=SOURCE.cu`` or
 ``LABEL=SOURCE.cu@WRAPPER.py``: the source is compiled with the port's
@@ -24,13 +25,25 @@ held against ``box_sweep.sweep_box_plain`` on frame 0 of
 ``box_pose(0.1)``, 800x800 rays in tile order or row-major with
 ``--row-major``; bf16 grid, or float32 with ``--f32``), called as
 ``sweep_box(packed, consts, vde, mlp, **kwargs)`` with the scene's
-``PackedBox``. Run on a machine with the card, from the repository root,
-for example:
+``PackedBox``.
+
+``--uptail`` does the same for ``csrc/uptail.cu`` (wrapper
+``ops/cuda_sr.py``, called as ``uptail_apply(up1, weights)``) on the real
+``[1, 1512, 2016, 64]`` ``conv_up1`` output of ``chip_smoke.py``'s
+synthetic 4K frame (the frame's encoder, then ``sftnet_trunk_cuda`` with
+the dilated upchain, SFTNet seed 1), held against ``cuda_sr.uptail_plain``
+to 0.03 (``chip_smoke.UPTAIL_TOL``); a build that disagrees stops the run,
+unless ``--split`` is given (for throwaway builds that skip part of the
+work to split the time; their error is printed). Timed by the mean of 5
+launches a reading. Run on a machine with the card, from the repository
+root, for example:
 
     python3 -m fourk_nerf_torch.tools.sweep_variants tree \\
         slow=build/variants/slow.cu
     python3 -m fourk_nerf_torch.tools.sweep_variants --box tree \\
         parent=build/variants/parent/box.cu@build/variants/parent/cuda_box.py
+    python3 -m fourk_nerf_torch.tools.sweep_variants --uptail tree \
+        parent=build/variants/parent/uptail.cu@build/variants/parent/cuda_sr.py
 
 The last line is a JSON object {scene: {label: [ms, ms]}}.
 """
@@ -48,8 +61,8 @@ import time
 import torch
 
 from fourk_nerf_torch import weights
-from fourk_nerf_torch.ops import _build, box_sweep, cuda_box, cuda_sweep, \
-    plane_sweep
+from fourk_nerf_torch.ops import _build, box_sweep, cuda_box, cuda_sr, \
+    cuda_sweep, plane_sweep
 
 ROOT = os.path.dirname(os.path.dirname(_build.CSRC))
 
@@ -60,6 +73,7 @@ def _wrapper(path: str | None, default):
     spec = importlib.util.spec_from_file_location(
         f"sweep_wrapper_{abs(hash(path))}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -114,7 +128,8 @@ def sweep_scenes(dev, f32: bool, row_major: bool):
         ref = maps(plane_sweep.sweep_plain(g.packed, g.act_shift, a, b, vde,
                                            mlp, **kw))
         yield (scene, lambda wrap: wrap.sweep(g.packed, g.act_shift, a, b,
-                                              vde, mlp, **kw), ref, maps)
+                                              vde, mlp, **kw),
+               _sweep_check(ref, maps))
 
 
 def box_scenes(dev, f32: bool, row_major: bool):
@@ -137,16 +152,51 @@ def box_scenes(dev, f32: bool, row_major: bool):
                                          **kw))
     scene = f"fly-through frame 0 (axis {frame.axis}, flip {frame.flip})"
     yield (scene, lambda wrap: wrap.sweep_box(packed, consts, vde, mlp, **kw),
-           ref, maps)
+           _sweep_check(ref, maps))
+
+
+def _sweep_check(ref, maps):
+    import chip_smoke as cs
+
+    def check(out):
+        mx, frac = cs.sweep_errors(maps(out), ref, tie=cs.SWEEP_TOL["tie"])
+        return (f"vs plain max abs {mx:.3e}, pixels above "
+                f"{cs.SWEEP_TOL['tie']:.0e} {frac:.4%}")
+    return check
+
+
+def uptail_scenes(dev, split: bool):
+    """The 4K decode's conv_up1 output and the fused tail's weights."""
+    import chip_smoke as cs
+    from fourk_nerf_torch.pipeline import FramePipeline
+    sr_model = weights.sftnet_init(num_block=5, seed=1, device=dev)
+    pipe = FramePipeline(*cs.fern_synthetic(dev), sr_model, device=dev)
+    enc = pipe.encode(cs.H, cs.W, *cs.camera(cs.H, cs.W, 815.0))
+    up1 = cuda_sr.sftnet_trunk_cuda(pipe.sr, enc["rgb_feature"][None],
+                                    enc["depth"][None, ..., None],
+                                    upchain="dilated")
+    wts = cuda_sr.pack_uptail_weights(sr_model)
+    del pipe, enc
+    ref = cuda_sr.uptail_plain(up1, wts)
+
+    def check(out):
+        err = float((out - ref).abs().max())
+        ok = err <= cs.UPTAIL_TOL and bool(torch.isfinite(out).all())
+        if not (ok or split):
+            raise AssertionError(f"uptail build disagrees with the plain "
+                                 f"version: max abs {err:.3e}")
+        return f"vs plain max abs {err:.3e}{'' if ok else ' (DISAGREES)'}"
+    yield (f"4K decode tail {tuple(up1.shape)}",
+           lambda wrap: wrap.uptail_apply(up1, wts), check)
 
 
 def main(argv) -> int:
     import chip_smoke as cs
     flags = {a for a in argv if a.startswith("--")}
-    row_major, f32, box = ("--row-major" in flags, "--f32" in flags,
-                           "--box" in flags)
-    name = "box" if box else "sweep"
-    default = cuda_box if box else cuda_sweep
+    row_major, f32, box, uptail = ("--row-major" in flags, "--f32" in flags,
+                                   "--box" in flags, "--uptail" in flags)
+    name = "uptail" if uptail else "box" if box else "sweep"
+    default = cuda_sr if uptail else cuda_box if box else cuda_sweep
     specs = []
     for arg in (a for a in argv if a not in flags):
         label, _, rest = arg.partition("=")
@@ -156,7 +206,7 @@ def main(argv) -> int:
                       _wrapper(os.path.abspath(wrap) if wrap else None,
                                default)))
     if not specs or not torch.cuda.is_available():
-        print("usage: [--box] [--row-major] [--f32] "
+        print("usage: [--box | --uptail [--split]] [--row-major] [--f32] "
               "LABEL[=SOURCE.cu[@WRAPPER.py]] ..., on a machine with a CUDA "
               "device", file=sys.stderr)
         return 2
@@ -165,23 +215,26 @@ def main(argv) -> int:
                          text=True).stdout.strip(), flush=True)
     libs = build(specs, os.path.join(ROOT, "build", "sweep_variants"), name)
     dev = torch.device("cuda")
-    scenes = box_scenes(dev, f32, row_major) if box \
-        else sweep_scenes(dev, f32, row_major)
+    if uptail:
+        scenes = uptail_scenes(dev, "--split" in flags)
+    elif box:
+        scenes = box_scenes(dev, f32, row_major)
+    else:
+        scenes = sweep_scenes(dev, f32, row_major)
+    reps = 5 if uptail else 20 if box else 3
     results: dict = {}
-    for scene, call_with, ref, maps in scenes:
+    for scene, call_with, check in scenes:
         def call(label, wrap):
             _build._loaded[name] = libs[label]
             return call_with(wrap)
 
         for label, _, wrap in specs:
-            got = maps(call(label, wrap))
+            got = call(label, wrap)
             torch.cuda.synchronize()
-            mx, frac = cs.sweep_errors(got, ref, tie=cs.SWEEP_TOL["tie"])
-            print(f"{scene} {label}: vs plain max abs {mx:.3e}, pixels above "
-                  f"{cs.SWEEP_TOL['tie']:.0e} {frac:.4%}", flush=True)
-        del ref, got
+            print(f"{scene} {label}: {check(got)}", flush=True)
+        del check, got
         for label, _, wrap in specs + specs[::-1]:
-            ms = cs.cuda_ms(lambda: call(label, wrap), 20 if box else 3)
+            ms = cs.cuda_ms(lambda: call(label, wrap), reps)
             results.setdefault(scene, {}).setdefault(label, []).append(ms)
             print(f"{scene} {label}: {ms:.3f} ms", flush=True)
         torch.cuda.empty_cache()

@@ -292,11 +292,14 @@ def test_rrdb_kernel_matches_plain(cuda, h, w):
 
 
 @pytest.mark.parametrize("h2,w2", [(45, 70), (48, 64), (1, 1), (5, 9),
-                                   (8, 16), (17, 33)])
+                                   (8, 16), (17, 33), (7, 13), (8, 14),
+                                   (9, 15), (9, 14), (8, 15), (17, 29)])
 def test_uptail_kernel_matches_plain(cuda, h2, w2):
     """The odd size of the JAX suite's test, an even one, a single pixel,
-    sizes under, at and just over one 16x32 output tile: SAME zero padding
-    at every frame edge, for every stage."""
+    sizes under, at and one 2x-map pixel past one 16x28 output tile (8x14
+    pixels of the 2x map) in each direction and in both, two tiles and one
+    pixel, and the old 16x32 tile's edges: SAME zero padding at every frame
+    edge, for every stage."""
     model = weights.sftnet_init(num_block=1, seed=2, device=cuda)
     rng = np.random.default_rng(7)
     x = torch.as_tensor(rng.normal(size=(1, h2, w2, 64)).astype(np.float32),

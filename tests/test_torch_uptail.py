@@ -7,6 +7,7 @@ materialized upchain and the trunk + fused tail vs sftnet_apply_pallas to
 0.05 (the bf16 decoder's tolerance). The packed layout is the port's own,
 so the packer is held by what the plain version computes from it."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -115,6 +116,70 @@ def test_pack_uptail_weights_layout():
     np.testing.assert_array_equal(w.bias[2, :3].numpy(),
                                   np.asarray(p["conv_last"]["bias"]))
     assert float(w.bias[2, 3:].abs().max()) == 0.0
+
+
+def _unpack(w):
+    """(kup, khr, klast) as the kernel reads them: the fragment-order
+    fields unpacked into the HWIO fields' shapes."""
+    m = cuda_sr._matrix_from_fragments
+    return (m(w.kupf, 4 * 4 * 64, 64).reshape(4, 4, 64, 64),
+            m(w.khrf, 9 * 64, 64).reshape(9, 64, 64),
+            m(w.klastf, 9 * 64, 8).reshape(9, 64, 8))
+
+
+def _b_words(flat, n, i, lane, p=0):
+    """The bf16 values lane ``lane`` reads for step ``i`` (and, for N a
+    multiple of 16, pair ``p``) of a flat fragment-order B operand."""
+    if n == 8:
+        return flat.reshape(-1, 32, 4)[i, lane]
+    return flat.reshape(-1, n // 16, 32, 8)[i, p, lane]
+
+
+@pytest.mark.parametrize("field", ["kup", "khr", "klast"])
+def test_uptail_fragments_roundtrip(field):
+    """Each fragment pack unpacks to its HWIO field bit for bit, and lane
+    4 g + t of step i holds the mma.sync B registers: rows 16 i + (2t,
+    2t+1, 2t+8, 2t+9) of column 16 p + g, then of column 16 p + 8 + g (one
+    column g for conv_last's n8 tile)."""
+    _, tm = _net()
+    w = cuda_sr.pack_uptail_weights(tm)
+    hwio = getattr(w, field)
+    flat = getattr(w, field + "f")
+    assert flat.dtype == torch.bfloat16 and flat.is_contiguous()
+    assert flat.numel() == hwio.numel()
+    back = dict(zip(("kup", "khr", "klast"), _unpack(w)))[field]
+    assert back.shape == hwio.shape
+    assert torch.equal(back.view(torch.int16), hwio.view(torch.int16))
+    n = hwio.shape[-1]
+    mat = hwio.reshape(-1, n)
+    rng = np.random.default_rng(11)
+    for _ in range(64):
+        i = int(rng.integers(mat.shape[0] // 16))
+        lane = int(rng.integers(32))
+        g, t = lane // 4, lane % 4
+        rows = [16 * i + k for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
+        if n == 8:
+            want = mat[rows, g]
+        else:
+            pp = int(rng.integers(n // 16))
+            want = torch.cat([mat[rows, 16 * pp + g],
+                              mat[rows, 16 * pp + 8 + g]])
+        got = _b_words(flat, n, i, lane, 0 if n == 8 else pp)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_uptail_plain_on_unpacked_fragments_is_bitwise():
+    """What the kernel reads is the plain version's function: the plain
+    tail on the weights unpacked from the fragment order equals the plain
+    tail on the HWIO fields bit for bit."""
+    _, tm = _net()
+    w = cuda_sr.pack_uptail_weights(tm)
+    kup, khr, klast = _unpack(w)
+    wf = dataclasses.replace(w, kup=kup, khr=khr, klast=klast)
+    x = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(1, 9, 15, 64)).astype(np.float32))
+    a, b = cuda_sr.uptail_plain(x, w), cuda_sr.uptail_plain(x, wf)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_pack_uptail_weights_refuses_what_it_cannot_pack():
