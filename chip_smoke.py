@@ -48,7 +48,19 @@ Phases (any failure raises and the script exits non-zero):
  12. the floor probes and the construct probes
      (``fourk_nerf_torch/tools/probe_floor.py`` / ``probe_ops.py``), every
      check enforced, their timings printed;
- 13. one JSON line with the seven kernels' summary, then the result line.
+ 13. encoder training at full width: the trained anchor renders 10 views
+     at 1008x756 through ``render_viewpoints`` (the sweep kernel), their
+     contrast stretched, 8 to train and 2 held out; ``fourk_nerf_torch/configs/llff/
+     fern_lg_pretrain.py`` trains on them for 60 steps through all five
+     grid sizes (``TRAIN_OVERRIDES``) with an ``i_val`` render, a periodic
+     and a final checkpoint; checks: the loss falls, everything finite,
+     the sweep launches, the final checkpoint reloads and renders the held
+     out views bitwise as before, a 10-step run of the tiny CPU-test scene
+     gives the same losses on the card and on the CPU; timings: the step at
+     each grid size, the full-width step split into its parts beside their
+     byte bounds, peak memory, a profiled step, the checkpoint's save and
+     load; one ``{"training": ...}`` JSON line;
+ 14. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -78,6 +90,15 @@ BOX_HW = 800               # the bounded-scene frame (synthetic-NeRF size)
 BOX_FRAMES = 3
 SR_TOL = 0.1               # max abs of the full decode, kernel vs plain
 UPTAIL_TOL = 0.03          # max abs, as the JAX package's uptail test
+TRAIN_VIEWS = 10           # phase 13: views of the anchor, every 5th held out
+#: phase 13: what is set over the published fern_lg_pretrain config (the
+#: run directory goes under build/ and is deleted at the phase's end)
+TRAIN_OVERRIDES = {
+    "fine_train": {"N_iters": 60, "pg_scale": [8, 16, 24, 32],
+                   "tv_dense_before": 50},
+    "args": {"i_print": 10, "i_val": 60, "i_weights": 31},
+}
+TINY_TOL = 1e-4            # phase 13: tiny run, per-step loss, cuda vs cpu
 
 
 def log(*a):
@@ -449,34 +470,47 @@ def run_frame(label, cfg, params, buffers, sr_model, dev, sweep_regs):
     return out
 
 
-def profile_frame(pipe, H, W, K, c2w):
-    """One frame under torch.profiler: device time by kernel (top 8) and
-    the device's idle share of the frame's wall time. Only device-side
-    kernel rows are summed (operator rows repeat their kernels' time)."""
+def profile_call(fn, what: str = "frame", top: int = 8) -> dict:
+    """``fn()`` once under torch.profiler: device time by kernel (the top
+    ``top``) and the device's idle share of the call's wall time. Only
+    device-side kernel rows are summed (operator rows repeat their
+    kernels' time, and a ``record_function`` range's device row spans
+    the kernels inside it). Returns ``wall_ms``, ``device_ms``, ``idle_share`` and
+    ``top`` ([name, ms, calls], ...), or {} when no device time was
+    recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(H, W, K, c2w)
+        fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
         log("  profiler: no device time recorded")
-        return
+        return {}
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms > wall_ms:
         raise AssertionError(f"device kernel time {busy_ms:.1f} ms exceeds "
-                             f"the frame's wall time {wall_ms:.1f} ms: the "
+                             f"the {what}'s wall time {wall_ms:.1f} ms: the "
                              "kernel rows are counted twice")
-    log(f"  profiler: frame wall {wall_ms:.1f} ms (profiled), device kernels "
+    log(f"  profiler: {what} wall {wall_ms:.1f} ms (profiled), device kernels "
         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for us, key, n in rows[:8]:
+    for us, key, n in rows[:top]:
         log(f"    {us / 1e3:9.2f} ms  x{n:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "top": [[key[:90], us / 1e3, n] for us, key, n in rows[:top]]}
+
+
+def profile_frame(pipe, H, W, K, c2w):
+    """One frame under torch.profiler (:func:`profile_call`)."""
+    profile_call(lambda: pipe(H, W, K, c2w))
 
 
 def box_pose(ang: float):
@@ -1040,6 +1074,314 @@ def run_fused_tail(dev, sr_model, syn):
     return res
 
 
+class Recorder:
+    """A scalar writer that keeps the rows (the trainer's ``writer``)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def scalar(self, tag, value, step):
+        self.rows.append((tag, float(value), int(step)))
+
+    def values(self, tag):
+        return [v for t, v, _ in self.rows if t == tag]
+
+
+def train_teacher_views(dev):
+    """The scene of phase 13: the trained anchor rendered at 1008x756 from
+    ``TRAIN_VIEWS`` poses a few hundredths apart (the sweep kernel, bf16
+    path), its contrast stretched, as the LLFF loader's ``data_dict`` with
+    every 5th view held out and ``i_val`` the first of those."""
+    from fourk_nerf_torch import weights
+    from fourk_nerf_torch.models import dmpigo
+    from fourk_nerf_torch.train import trainer
+    cfg, params, buffers = weights.load_anchor(device=dev)
+    K, c2w0 = camera(H, W, 815.0)
+    poses = np.stack([c2w0 + np.array([[0, 0, 0, 0.02 * (i % 5 - 2)],
+                                       [0, 0, 0, 0.03 * (i // 5 - 0.5)],
+                                       [0, 0, 0, 0]], np.float32)
+                      for i in range(TRAIN_VIEWS)]).astype(np.float32)
+    n = TRAIN_VIEWS
+    res = trainer.render_viewpoints(
+        dmpigo, cfg, params, buffers, poses, np.array([[H, W]] * n),
+        np.stack([K] * n), data=trainer.DataFlags(ndc=True),
+        render_kwargs={"stepsize": 1.0, "bg": 0.0}, verbose=False,
+        device=dev)
+    images = res["rgbs"].float().cpu().numpy()
+    del cfg, params, buffers, res
+    # the anchor's frames are near-uniform grey (mean 0.50, std ~0.02), and
+    # the MSE of an untrained model is then smaller than the published
+    # distortion term: stretch them to a std of 0.2 around their mean so
+    # that 60 steps show in the loss
+    images = np.clip(0.5 + (images - images.mean()) * (0.2 / images.std()),
+                     0.0, 1.0).astype(np.float32)
+    i_test = np.arange(n)[::5]
+    i_val = [int(i_test[0])]
+    i_train = np.array([i for i in range(n)
+                        if i not in i_test and i not in i_val])
+    return dict(hwf=[H, W, 815.0], HW=np.array([[H, W]] * n),
+                Ks=np.stack([K] * n).astype(np.float64), near=0.0, far=1.0,
+                near_clip=None, i_train=i_train, i_val=i_val, i_test=i_test,
+                poses=poses, render_poses=poses.copy(), images=images,
+                irregular_shape=False)
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` calls of ``fn`` (after one warm-up) of the ms
+    between CUDA events around each call."""
+    import torch
+    fn()
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return statistics.median(out)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def run_training(dev):
+    """Phase 13 (see the module docstring). Returns the ``training``
+    record."""
+    import shutil
+    import types
+
+    import torch
+    from fourk_nerf_torch import config as config_mod
+    from fourk_nerf_torch.models import dmpigo
+    from fourk_nerf_torch.ops import cuda_sweep, grid_sample
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import checkpoints, optim, trainer
+
+    cfg_path = os.path.join("fourk_nerf_torch", "configs", "llff",
+                            "fern_lg_pretrain.py")
+    basedir = os.path.join(HERE, "build", "phase13_train")
+    shutil.rmtree(basedir, ignore_errors=True)
+    rec: dict = {"config": cfg_path, "overrides": TRAIN_OVERRIDES}
+    t_phase = time.perf_counter()
+
+    # --- the scene -----------------------------------------------------------
+    cuda_sweep.sweep.launches = 0
+    data = train_teacher_views(dev)
+    sync()
+    launches = {"teacher": cuda_sweep.sweep.launches}
+    if launches["teacher"] != TRAIN_VIEWS:
+        raise AssertionError(f"teacher views: {launches['teacher']} sweep "
+                             f"launches for {TRAIN_VIEWS} views")
+    log(f"  teacher: {TRAIN_VIEWS} views of {W}x{H} through the sweep "
+        f"kernel; train {data['i_train'].tolist()}, test "
+        f"{data['i_test'].tolist()}, val {data['i_val']}")
+
+    # --- the run -------------------------------------------------------------
+    cfg = config_mod.load_config(os.path.join(HERE, cfg_path))
+    cfg.basedir, cfg.expname = basedir, "fern_pretrain"
+    for k, v in TRAIN_OVERRIDES["fine_train"].items():
+        cfg.fine_train[k] = v
+    args = types.SimpleNamespace(seed=777, no_reload=True,
+                                 no_reload_optimizer=False, ft_path="",
+                                 **TRAIN_OVERRIDES["args"])
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.sweep.launches = 0
+    t0 = time.perf_counter()
+    _, mcfg, params, buffers = trainer.train(args, cfg, data, writer=writer,
+                                             device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["i_val"] = cuda_sweep.sweep.launches
+    losses = writer.values("train/loss")
+    rec.update(world_size=list(mcfg.world_size),
+               mask_cache_world_size=list(mcfg.mask_cache_world_size),
+               train_s=train_s, losses=losses,
+               train_psnr=writer.values("train/psnr"),
+               val_psnr=writer.values("val/psnr"),
+               max_memory_allocated_bytes=peak)
+    log(f"  trained {cfg.fine_train.N_iters} steps in {train_s:.1f} s (host "
+        f"clock, eval render and saves included): world size "
+        f"{mcfg.world_size}, mask {mcfg.mask_cache_world_size}; loss at "
+        f"each print {['%.6g' % x for x in losses]}, psnr "
+        f"{['%.2f' % x for x in rec['train_psnr']]}; val psnr "
+        f"{rec['val_psnr']}; peak memory {peak / 2**30:.2f} GiB")
+    if launches["i_val"] != 1:
+        raise AssertionError(f"i_val: {launches['i_val']} sweep launches")
+    if len(losses) != cfg.fine_train.N_iters // args.i_print \
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for k, v in checkpoints.tree_to_flat_dict(params).items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite parameter {k}")
+    full = int(np.prod(mcfg.world_size))
+    if not full > 0.9 * cfg.fine_model_and_render.num_voxels:
+        raise AssertionError(f"the run ended at {mcfg.world_size}, not the "
+                             "full voxel budget")
+
+    # --- held-out views, and the same from the final checkpoint --------------
+    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "stepsize": 1.0}
+    gt = [data["images"][i] for i in data["i_test"]]
+
+    def render_test(p, b, c):
+        return trainer.render_viewpoints(
+            dmpigo, c, p, b, data["poses"][data["i_test"]],
+            data["HW"][data["i_test"]], data["Ks"][data["i_test"]],
+            data=trainer.DataFlags(ndc=True), render_kwargs=rk, gt_imgs=gt,
+            eval_ssim=False, device=dev)
+
+    cuda_sweep.sweep.launches = 0
+    res = render_test(params, buffers, mcfg)
+    sync()
+    launches["i_test"] = cuda_sweep.sweep.launches
+    last = os.path.join(basedir, "fern_pretrain", "fine_last.npz")
+    del params, buffers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kw, p2, b2, opt, step, _ = checkpoints.load_checkpoint(last, device=dev)
+    sync()
+    load_s = time.perf_counter() - t0
+    c2 = dmpigo.make_config(**kw)
+    cuda_sweep.sweep.launches = 0
+    res2 = render_test(p2, b2, c2)
+    sync()
+    launches["reloaded_i_test"] = cuda_sweep.sweep.launches
+    rec.update(test_psnr=res["psnrs"], sweep_launches=launches)
+    log(f"  held-out views: psnr {res['psnrs']}; sweep launches {launches}")
+    if launches["i_test"] != 2 or launches["reloaded_i_test"] != 2:
+        raise AssertionError(f"held-out renders: {launches}")
+    if c2 != mcfg or step != cfg.fine_train.N_iters or opt is None \
+            or not all(torch.equal(a, b) for a, b in
+                       zip(res["rgbs"], res2["rgbs"])):
+        raise AssertionError("the final checkpoint does not render the "
+                             "held-out views as the trained model did")
+
+    # --- timings at full width (after the run, nothing timed inside it) -----
+    cfg_train = cfg.fine_train
+    rk_train = {**rk, "rand_bkgd": True, "ndc_planes": True}
+    flat, _ = trainer.gather_training_rays(cfg, cfg_train, data, dev)
+    sample = trainer.make_batch_sampler("flatten", flat, cfg_train.N_rand,
+                                        777)
+    lrs = {k: optim.group_lr(v, 10, cfg_train.lrate_decay) for k, v in
+           optim.build_group_lrs(cfg_train, p2).items()}
+    skip = frozenset(cfg_train.skip_zero_grad_fields)
+    n_rand = cfg_train.N_rand
+    noise = trainer.bkgd_noise(777, 1, n_rand, dev)
+    counter = [0]
+
+    def batch():
+        counter[0] += 1
+        return trainer.gather_batch(flat, *sample(counter[0]))
+
+    def step_ms(c, p, b, o, tv_dense=True):
+        st = trainer.TrainStep(dmpigo, c, cfg_train, render_kwargs=rk_train,
+                               skip_zero_grad=skip)
+        return event_ms(lambda: st(p, b, o, batch(), lrs, None, noise,
+                                   apply_tv=True, tv_dense=tv_dense))
+
+    # the step at each grid size of the run (the trained grids resampled)
+    sizes = [int(cfg.fine_model_and_render.num_voxels / 2 ** n)
+             for n in range(len(cfg_train.pg_scale), -1, -1)]
+    per_size = []
+    for nv in sizes[:-1]:
+        c = dmpigo.make_config(**{**kw, "num_voxels": nv})
+        p = {**p2, **{k: grid_sample.resize_trilinear_chunked(
+            p2[k], c.world_size).contiguous() for k in ("density", "k0")}}
+        o = optim.init_state(p)
+        per_size.append([list(c.world_size), step_ms(c, p, b2, o)])
+        del p, o
+        torch.cuda.empty_cache()
+    full_dense = step_ms(c2, p2, b2, opt)
+    full_sparse = step_ms(c2, p2, b2, opt, tv_dense=False)
+    per_size.append([list(c2.world_size), full_dense])
+    log("  step ms (CUDA events, median of 5) by world size: "
+        + ", ".join(f"{tuple(ws)} {ms:.2f}" for ws, ms in per_size)
+        + f"; full width with sparse TV {full_sparse:.2f}")
+
+    # the full-width step's parts, each beside its byte bound
+    st = trainer.TrainStep(dmpigo, c2, cfg_train, render_kwargs=rk_train,
+                           skip_zero_grad=skip)
+    bt = batch()
+    _, _, grads = st.loss_and_grads(p2, b2, bt, lrs.keys(), noise)
+    split = {
+        "gather": event_ms(batch),
+        "fwd_bwd": event_ms(lambda: st.loss_and_grads(p2, b2, bt, lrs.keys(),
+                                                      noise)),
+        "tv_dense": event_ms(lambda: st.add_tv(p2, grads, n_rand, True)),
+        "tv_sparse": event_ms(lambda: st.add_tv(p2, grads, n_rand, False)),
+        "adam": event_ms(lambda: optim.apply_updates(
+            p2, grads, opt, lrs, skip_zero_grad=skip)),
+    }
+    grid_bytes = tree_bytes({k: p2[k] for k in ("density", "k0")})
+    param_bytes = tree_bytes(p2)
+    K = c2.n_samples(1.0)
+    C = 1 + c2.k0_dim
+    taps = n_rand * K * 4 * C * 4  # 4 bilinear corners a sample
+    bound_bytes = {
+        "gather": 2 * n_rand * 12 * 4 + n_rand * 8,
+        # the taps read forward and scattered backward; the dense
+        # gradients written once
+        "fwd_bwd": 2 * taps + param_bytes,
+        # the grid and its gradient read, the gradient written
+        "tv_dense": 3 * grid_bytes, "tv_sparse": 3 * grid_bytes,
+        # p, g, m, v read and p, m, v written: 28 B a float32 parameter
+        "adam": 7 * param_bytes,
+    }
+    bound_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in bound_bytes.items()}
+    rec.update(step_ms_by_world_size=per_size, step_ms_full_sparse_tv=full_sparse,
+               split_ms=split, split_bound_ms=bound_ms,
+               split_bound_bytes=bound_bytes, params=param_bytes // 4)
+    log(f"  full-width step split ({param_bytes // 4} parameters): "
+        + ", ".join(f"{k} {v:.4g} ms (bound {bound_ms[k]:.4g})"
+                    for k, v in split.items()))
+    del grads
+    prof = profile_call(lambda: st(p2, b2, opt, batch(), lrs, None, noise,
+                                   apply_tv=True, tv_dense=True),
+                        "training step", top=10)
+    rec["profile"] = prof
+
+    # --- the checkpoint's save and load --------------------------------------
+    t0 = time.perf_counter()
+    checkpoints.save_checkpoint(last, kw, p2, b2, opt, step)
+    save_s = time.perf_counter() - t0
+    rec["checkpoint"] = {"bytes": os.path.getsize(last), "save_s": save_s,
+                         "load_s": load_s}
+    log(f"  checkpoint {os.path.getsize(last) / 2**30:.2f} GiB: save "
+        f"{save_s:.2f} s, load {load_s:.2f} s (host clock)")
+    del p2, b2, opt, flat
+    torch.cuda.empty_cache()
+
+    # --- the tiny CPU-test scene on the card and on the CPU ------------------
+    tiny = {}
+    for name in ("cuda", "cpu"):
+        tcfg = tiny_scene.apply_overrides(
+            config_mod.load_config(os.path.join(HERE, cfg_path)), basedir,
+            f"tiny_{name}")
+        w = Recorder()
+        targs = types.SimpleNamespace(seed=0, no_reload=True,
+                                      no_reload_optimizer=False, ft_path="",
+                                      i_print=1, i_val=0, i_weights=0)
+        trainer.train(targs, tcfg, tiny_scene.scene(), writer=w,
+                      device=torch.device(name))
+        tiny[name] = np.array(w.values("train/loss"))
+    rel = float(np.max(np.abs(tiny["cuda"] - tiny["cpu"]) / tiny["cpu"]))
+    rec["tiny_loss_max_rel_diff"] = rel
+    log(f"  tiny scene, {len(tiny['cpu'])} steps: per-step loss cuda vs cpu "
+        f"max rel {rel:.3e} (limit {TINY_TOL:.0e})")
+    if len(tiny["cpu"]) != 10 or not rel <= TINY_TOL:
+        raise AssertionError("the tiny run differs between cuda and cpu")
+    shutil.rmtree(basedir)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def run_probes(dev):
     """Phase 12: both probe suites as their users run them, counted."""
     from fourk_nerf_torch.tools import probe_floor, probe_ops
@@ -1131,6 +1473,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[12] probes")
     probes = run_probes(dev)
+    log("[13] encoder training at full width, fern pretrain config")
+    training = run_training(dev)
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "sweep", "route": "cuda",
@@ -1203,6 +1548,7 @@ def main() -> int:
          "bound_by": probes["probe_ops"]["bound_by"],
          "library_ms": probes["probe_ops"]["library_ms"]},
     ]
+    log(json.dumps({"training": training}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the 4K-NeRF inference path for NVIDIA Hopper.
+"""PyTorch + CUDA port of 4K-NeRF for NVIDIA Hopper: the inference paths
+and the encoder's pretraining (``run.py``, ``train/``).
 
 The package renders the 4K frame of the LLFF fern configuration, a
 DirectMPIGO plane sweep at 1008x756 (``ops.cuda_sweep``) followed by the x4
@@ -8,6 +9,9 @@ DirectVoxGO scene (``ops.cuda_box``, ``train.trainer.render_viewpoints``,
 each on request. Each is carried by a CUDA kernel written for ``sm_90a``
 (``csrc/``). Every kernel has a plain PyTorch version beside it; a wrapper
 takes the plain version only for tensors that lie on the CPU.
+``python -m fourk_nerf_torch.run`` fits the fine stage of a forward-facing
+scene (the fern pretrain config); its eval renders go through the
+plane-sweep kernel.
 
 Importing the package loads no kernel and touches no device. Entry points
 take ``device`` and default to ``cuda``; they raise when no card is present

@@ -1,0 +1,96 @@
+"""Dataset layer: a loader turns a dataset into one ``data_dict``.
+
+Keys (frozoul/4K-NeRF lib/load_data.py:166-174): hwf, HW, Ks, near, far,
+near_clip, i_train / i_val / i_test, poses, render_poses, images, depths,
+irregular_shape, srgt (high-resolution SR ground truth), w2c. Numpy only;
+the trainer moves what it needs to the device.
+
+The port reads LLFF forward-facing scenes (``data/llff.py``). The other
+loaders of the JAX package come with the slices whose models use them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+#: where each loader that is not ported yet stands in ROADMAP.md
+_LATER = {
+    "blender": "Queue A item 2 (the bounded run.py path)",
+    "nsvf": "Queue A item 4 (the other loaders)",
+    "blendedmvs": "Queue A item 4 (the other loaders)",
+    "tankstemple": "Queue A item 4 (the other loaders)",
+    "deepvoxels": "Queue A item 4 (the other loaders)",
+    "co3d": "Queue A item 4 (the other loaders)",
+    "nerfpp": "Queue A item 4 (the other loaders)",
+}
+
+
+def load_data(args) -> dict:
+    """Load the dataset that ``args`` (a config's ``data`` section) names."""
+    K, depths = None, None
+    near_clip = None
+    srgt_pack = [0, 0]
+
+    if args.dataset_type == "llff":
+        from fourk_nerf_torch.data import llff
+
+        images, depths, poses, bds, render_poses, i_test, srgt, w2c = \
+            llff.load_llff_data(
+                args.datadir, args.factor, args.width, args.height,
+                recenter=True, bd_factor=args.bd_factor,
+                spherify=args.spherify, load_depths=args.load_depths,
+                load_sr=args.load_sr,
+                movie_render_kwargs=dict(args.movie_render_kwargs))
+        srgt_pack = [srgt, w2c]
+        hwf = poses[0, :3, -1]
+        poses = poses[:, :3, :4]
+        if not isinstance(i_test, (list, np.ndarray)):
+            i_test = [i_test]
+        if args.llffhold > 0:
+            i_test = np.arange(images.shape[0])[:: args.llffhold]
+        i_val = [i_test[0]]
+        i_train = np.array([i for i in np.arange(int(images.shape[0]))
+                            if i not in i_test and i not in i_val])
+        if args.ndc:
+            near, far = 0.0, 1.0
+        else:
+            near_clip = max(np.min(bds) * 0.9, 0)
+            near = 0
+            far = inward_nearfar_heuristic(poses[i_train, :3, 3])[1]
+    elif args.dataset_type in _LATER:
+        raise NotImplementedError(
+            f"the {args.dataset_type} loader is not ported yet: ROADMAP.md "
+            f"{_LATER[args.dataset_type]}")
+    else:
+        raise NotImplementedError(f"Unknown dataset type {args.dataset_type}")
+
+    H, W, focal = hwf
+    H, W = int(H), int(W)
+    hwf = [H, W, focal]
+    HW = np.array([im.shape[:2] for im in images])
+    irregular_shape = images.dtype is np.dtype("object")
+
+    if K is None:
+        K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    Ks = K[None].repeat(len(poses), axis=0) if len(K.shape) == 2 else K
+    render_poses = render_poses[..., :4]
+
+    srgt, w2c = (srgt_pack[0], srgt_pack[1]) if args.load_sr else (0, 0)
+
+    return dict(
+        hwf=hwf, HW=HW, Ks=Ks,
+        near=near, far=far, near_clip=near_clip,
+        i_train=i_train, i_val=i_val, i_test=i_test,
+        poses=poses, render_poses=render_poses,
+        images=images, depths=depths,
+        irregular_shape=irregular_shape,
+        srgt=srgt, w2c=w2c,
+    )
+
+
+def inward_nearfar_heuristic(cam_o: np.ndarray, ratio: float = 0.05):
+    """near / far from the spread of the cameras (frozoul/4K-NeRF
+    lib/load_data.py:178-184)."""
+    dist = np.linalg.norm(cam_o[:, None] - cam_o, axis=-1)
+    far = float(dist.max())
+    return far * ratio, far

@@ -4,7 +4,10 @@ pipeline (torch).
 A model is (static :class:`Config`, params dict, buffers dict), as in the
 JAX package: params hold ``density [X,Y,Z,1]``, ``k0 [X,Y,Z,C]`` and the
 ``rgbnet`` dict; buffers hold ``act_shift [1,1,Z,1]`` and the bool
-``mask_cache``. Only dense grids are ported.
+``mask_cache``. Only dense grids are ported. The training forms (random
+background, progressive grid scaling, the act_shift decay, the TV
+gradients, the view-count mask) follow the forward pass; gradients come
+from torch autograd of the same forward.
 """
 
 from __future__ import annotations
@@ -85,6 +88,34 @@ def make_config(xyz_min, xyz_max, num_voxels, mpi_depth,
     )
 
 
+def get_kwargs(cfg: Config) -> dict:
+    """The model's self-describing checkpoint metadata, the JAX package's
+    ``model_kwargs`` (frozoul/4K-NeRF lib/dmpigo.py:168-187)."""
+    return {
+        "xyz_min": list(cfg.xyz_min),
+        "xyz_max": list(cfg.xyz_max),
+        "num_voxels": cfg.num_voxels,
+        "mpi_depth": cfg.mpi_depth,
+        "voxel_size_ratio": cfg.voxel_size_ratio,
+        "mask_cache_path": cfg.mask_cache_path,
+        "mask_cache_thres": cfg.mask_cache_thres,
+        "mask_cache_world_size": list(cfg.mask_cache_world_size),
+        "fast_color_thres": cfg.fast_color_thres,
+        "density_type": cfg.density_type,
+        "k0_type": cfg.k0_type,
+        "density_config": dict(cfg.density_config),
+        "k0_config": dict(cfg.k0_config),
+        "mode_type": cfg.mode_type,
+        "act_type": cfg.act_type,
+        "dim_rend": cfg.dim_rend,
+        "rgbnet_dim": cfg.rgbnet_dim,
+        "rgbnet_depth": cfg.rgbnet_depth,
+        "rgbnet_width": cfg.rgbnet_width,
+        "viewbase_pe": cfg.viewbase_pe,
+        "spatial_pe": cfg.spatial_pe,
+    }
+
+
 def _dense_only(cfg: Config):
     if cfg.density_type != "DenseGrid" or cfg.k0_type != "DenseGrid":
         raise NotImplementedError("the port has dense grids only")
@@ -139,11 +170,15 @@ def plane_aligned_ok(cfg: Config, stepsize: float, ndc: bool) -> bool:
 
 def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
             viewdirs, *, stepsize: float, bg: float = 0.0,
+            rand_bkgd: bool = False, is_train: bool = False, bg_noise=None,
             render_depth: bool = False, ndc_planes: bool = False) -> dict:
-    """Volume-render N rays densely (eval: no random background).
+    """Volume-render N rays densely.
 
     ``ndc_planes`` selects the exact plane-aligned bilinear path
-    (:func:`plane_aligned_ok`)."""
+    (:func:`plane_aligned_ok`). With ``rand_bkgd`` and ``is_train`` the
+    background is ``bg_noise [N, 3]``, uniform noise that the caller draws
+    (the trainer, from a seeded ``torch.Generator`` per step), in place of
+    ``bg``."""
     _dense_only(cfg)
     N = rays_o.shape[0]
     K = cfg.n_samples(stepsize)
@@ -191,7 +226,12 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
             params["rgbnet"], rgb_feat, common.activation(cfg.act_type)))
 
     rgb_feature = render.composite(weights, rgb_raw)
-    rgb_marched = rgb_feature + alphainv_last[:, None] * bg
+    if rand_bkgd and is_train:
+        if bg_noise is None:
+            raise ValueError("rand_bkgd training needs bg_noise")
+        rgb_marched = rgb_feature + alphainv_last[:, None] * bg_noise
+    else:
+        rgb_marched = rgb_feature + alphainv_last[:, None] * bg
     s = (torch.arange(K, dtype=rgb_marched.dtype, device=rays_o.device)
          + 0.5) / K
     s = s[None, :].expand(N, K)
@@ -206,7 +246,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         "s": s,
     }
     if render_depth:
-        out["depth"] = render.composite(weights, s)
+        out["depth"] = render.composite(weights, s).detach()
     return out
 
 
@@ -233,3 +273,112 @@ def update_occupancy_cache(cfg: Config, params: dict, buffers: dict) -> dict:
                                                   cfg.voxel_size_ratio)
     alpha = grid_sample.max_pool3d_same(alpha)
     return {**buffers, "mask_cache": mask & (alpha > cfg.fast_color_thres)}
+
+
+def _grid_xyz(cfg: Config, shape, device):
+    """World coordinates of the voxels of a ``shape`` grid over the box."""
+    axes = [torch.linspace(cfg.xyz_min[d], cfg.xyz_max[d], int(shape[d]),
+                           dtype=torch.float32, device=device)
+            for d in range(3)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+
+
+def update_occupancy_cache_lt_nviews(cfg: Config, buffers: dict,
+                                     rays_o_views, rays_d_views,
+                                     stepsize: float,
+                                     maskout_lt_nviews: int) -> dict:
+    """AND the cache with the voxels that at least ``maskout_lt_nviews``
+    training views touch (frozoul/4K-NeRF lib/dmpigo.py:228-246). A view
+    touches a voxel when the gradient of a ones-grid query summed over the
+    view's sample points (its trilinear splat) exceeds 1 there."""
+    mask = buffers["mask_cache"]
+    dev = mask.device
+    xyz_min, xyz_max = _xyz_minmax(cfg, dev)
+    X, Y, Z = cfg.world_size
+    K = cfg.n_samples(stepsize)
+    ones = torch.ones((X, Y, Z, 1), device=dev, requires_grad=True)
+    count = torch.zeros((X, Y, Z, 1), device=dev)
+    for ro_v, rd_v in zip(rays_o_views, rays_d_views):
+        ro, rd = ro_v.reshape(-1, 3), rd_v.reshape(-1, 3)
+        g = torch.zeros_like(count)
+        for s in range(0, ro.shape[0], 8192):
+            pts = render.sample_ndc_pts_on_rays(ro[s:s + 8192],
+                                                rd[s:s + 8192], K)
+            total = grid_sample.grid_query(ones, pts, xyz_min, xyz_max).sum()
+            g = g + torch.autograd.grad(total, ones)[0]
+        count = count + (g > 1).float()
+    if tuple(mask.shape) == (X, Y, Z):
+        new_mask = mask & (count[..., 0] >= maskout_lt_nviews)
+    else:  # the count resampled onto the cache's resolution
+        cnt = grid_sample.grid_query(count, _grid_xyz(cfg, mask.shape, dev),
+                                     xyz_min, xyz_max)[..., 0]
+        new_mask = mask & (cnt >= maskout_lt_nviews)
+    return {**buffers, "mask_cache": new_mask}
+
+
+@torch.no_grad()
+def scale_volume_grid(cfg: Config, params: dict, buffers: dict,
+                      num_voxels: int, mpi_depth: int):
+    """Progressive scaling (frozoul/4K-NeRF lib/dmpigo.py:189-211): the
+    grids resampled trilinearly onto the world size of ``num_voxels``.
+    Up to 256^3 voxels the mask is rebuilt at the new resolution from the
+    old mask and the new density; above, it keeps its resolution. Returns
+    (new_cfg, new_params, new_buffers); the grids are new tensors."""
+    _dense_only(cfg)
+    new_cfg = dataclasses.replace(
+        cfg, num_voxels=int(num_voxels), mpi_depth=int(mpi_depth),
+        world_size=common.dmpigo_grid_resolution(
+            cfg.xyz_min, cfg.xyz_max, num_voxels, mpi_depth),
+        voxel_size_ratio=256.0 / mpi_depth)
+    new_params = dict(params)
+    for k in ("density", "k0"):
+        new_params[k] = grid_sample.resize_trilinear_chunked(
+            params[k], new_cfg.world_size).contiguous()
+    new_buffers = dict(buffers)
+    if int(np.prod(new_cfg.world_size)) <= 256 ** 3:
+        dev = params["density"].device
+        xyz_min, xyz_max = _xyz_minmax(new_cfg, dev)
+        old_mask_at_new = grid_sample.nearest_mask_lookup(
+            buffers["mask_cache"], _grid_xyz(new_cfg, new_cfg.world_size, dev),
+            xyz_min, xyz_max)
+        dens = new_params["density"] + buffers["act_shift"]
+        alpha = render.raw2alpha(dens[..., 0], 0.0, new_cfg.voxel_size_ratio)
+        alpha = grid_sample.max_pool3d_same(alpha)
+        new_buffers["mask_cache"] = old_mask_at_new & (
+            alpha > new_cfg.fast_color_thres)
+        new_cfg = dataclasses.replace(
+            new_cfg, mask_cache_world_size=new_cfg.world_size)
+    return new_cfg, new_params, new_buffers
+
+
+def decay_act_shift(buffers: dict, amount: float) -> dict:
+    """act_shift -= amount after each progressive scaling (run.py:475)."""
+    return {**buffers, "act_shift": buffers["act_shift"] - amount}
+
+
+def _tv_weights(cfg: Config, weight: float, n_rays: int):
+    # frozoul/4K-NeRF lib/dmpigo.py:248-251: wxy = w max(X, Y) / 128 and
+    # wz = w D / 128, passed as (wx, wy, wz) = (wxy, wxy, wz) to the
+    # kernel's innermost-first axis order
+    w = weight / n_rays
+    return (w * max(cfg.world_size[:2]) / 128.0,
+            w * cfg.mpi_depth / 128.0)
+
+
+def density_tv_grad(cfg: Config, params: dict, weight: float,
+                    dense_mode: bool, n_rays: int, density_grad):
+    """TV gradient of the density grid; in sparse mode (``dense_mode``
+    false) only where ``density_grad`` is non-zero."""
+    _dense_only(cfg)
+    wxy, wz = _tv_weights(cfg, weight, n_rays)
+    return render.total_variation_grad(
+        params["density"], wxy, wxy, wz, None if dense_mode else density_grad)
+
+
+def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
+               n_rays: int, k0_grad):
+    """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
+    _dense_only(cfg)
+    wxy, wz = _tv_weights(cfg, weight, n_rays)
+    return render.total_variation_grad(
+        params["k0"], wxy, wxy, wz, None if dense_mode else k0_grad)

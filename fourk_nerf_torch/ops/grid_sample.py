@@ -72,6 +72,13 @@ def trilinear_sample_plane_aligned(grid, ind01_xy):
     return out
 
 
+def grid_query(grid, xyz, xyz_min, xyz_max):
+    """Trilinear query of a ``[X,Y,Z,C]`` grid at world coordinates
+    ``[..., 3]`` over the box ``[xyz_min, xyz_max]`` (``DenseGrid.forward``
+    of the reference)."""
+    return trilinear_sample(grid, world_to_ind01(xyz, xyz_min, xyz_max))
+
+
 def nearest_mask_lookup(mask, xyz, xyz_min, xyz_max):
     """Nearest-neighbour occupancy lookup, False outside the grid:
     ``ijk = round(xyz * scale + shift)`` (round half to even)."""

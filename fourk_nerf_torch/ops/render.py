@@ -3,7 +3,8 @@
 As in the JAX package, the reference's ragged sample compactions are
 folded into the alphas: a dropped sample behaves exactly as alpha = 0.
 Early ray termination (transmittance < 1e-3) zeroes the weights after the
-break and fixes ``alphainv_last`` at the break point.
+break and fixes ``alphainv_last`` at the break point. The training terms
+(the distortion loss and the total-variation gradient) sit at the end.
 """
 
 from __future__ import annotations
@@ -13,10 +14,27 @@ import torch
 EARLY_TERM_THRES = 1e-3
 
 
+class _Softplus(torch.autograd.Function):
+    """The formula's own autograd would differentiate ``max(x, 0)`` and
+    ``|x|`` separately and give 1 at ``x = 0``; the derivative of softplus
+    is ``sigmoid(x)`` everywhere (0.5 at 0, as ``jax.nn.softplus``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * torch.sigmoid(x)
+
+
 def softplus(x):
     """``log(1 + exp(x))`` in the overflow-free ``max(x,0) + log1p(exp(-|x|))``
-    form (the same formula the sweep kernel evaluates)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    form (the same formula the sweep kernel evaluates), differentiated as
+    ``sigmoid(x)``."""
+    return _Softplus.apply(x)
 
 
 def raw2alpha(density, shift, interval):
@@ -88,3 +106,42 @@ def sample_pts_on_rays_fixed(rays_o, rays_d, xyz_min, xyz_max, near, far,
     in_count = k[None, :] < n_per_ray[:, None]
     in_bbox = ((pts >= xyz_min) & (pts <= xyz_max)).all(-1)
     return pts, in_count & in_bbox, t_min
+
+
+def distortion_loss(weights, s, interval, n_rays=None):
+    """The O(K) distortion loss on dense ``[N, K]`` weights:
+    ``(sum 2 w_k (s_k Wex_k - WSex_k) + interval/3 sum w_k^2) / N`` with the
+    exclusive prefix sums ``Wex`` / ``WSex`` of each ray. Masked samples
+    carry weight 0 and add nothing."""
+    n = weights.shape[0] if n_rays is None else n_rays
+    ws = weights * s
+    w_prefix = torch.cumsum(weights, dim=-1) - weights
+    ws_prefix = torch.cumsum(ws, dim=-1) - ws
+    loss_bi = 2.0 * weights * (s * w_prefix - ws_prefix)
+    loss_uni = (1.0 / 3.0) * interval * weights ** 2
+    return (loss_bi.sum() + loss_uni.sum()) / n
+
+
+def total_variation_grad(grid, wx, wy, wz, sparse_grad=None):
+    """Gradient of the clamped total variation of a ``[X,Y,Z,C]`` grid: per
+    axis ``w/6 * (clip(g_i - g_{i+1}) + clip(g_i - g_{i-1}))``, a missing
+    neighbour adding nothing. ``wx`` weighs the innermost (Z) axis and ``wz``
+    the outermost (X), the reference kernel's convention. With
+    ``sparse_grad``, voxels whose gradient there is zero get none.
+
+    Built from slices: one clamped difference per axis feeds both of its
+    voxels (``clip(-d) = -clip(d)``), so there is no wrapped copy of the
+    grid and no boundary mask."""
+    tv = torch.zeros_like(grid)
+    for axis, w in ((2, wx / 6.0), (1, wy / 6.0), (0, wz / 6.0)):
+        n = grid.shape[axis]
+        if n < 2:
+            continue
+        d = (grid.narrow(axis, 0, n - 1) - grid.narrow(axis, 1, n - 1))
+        d = d.clamp_(-1.0, 1.0).mul_(w)
+        tv.narrow(axis, 0, n - 1).add_(d)
+        tv.narrow(axis, 1, n - 1).sub_(d)
+        del d
+    if sparse_grad is not None:
+        tv.masked_fill_(sparse_grad == 0, 0.0)
+    return tv

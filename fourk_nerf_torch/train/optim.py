@@ -1,0 +1,158 @@
+"""MaskedAdam, the reference's sparse-voxel Adam, updating in place.
+
+The same update as the JAX package's ``train/optim.py`` and the reference's
+three CUDA kernels (frozoul/4K-NeRF lib/cuda/adam_upd_kernel.cu:8-58):
+
+- Adam with ``step_size = lr * sqrt(1 - b2^t) / (1 - b1^t)`` and ``eps``
+  added outside the square root, the bias correction in float32;
+- masked: entries whose gradient is 0 are left alone, moments included
+  (the ``skip_zero_grad`` groups, lib/masked_adam.py:64-67);
+- per-voxel lr: the update scaled element-wise (lib/masked_adam.py:35-37).
+
+Param groups are the top-level keys of the params dict, matched against the
+config's ``lrate_<key>`` entries; a group without an lr is frozen. The
+caller decays the lrs (:func:`group_lr`) and resets the state at every
+progressive-scaling boundary, as the reference does (run.py:465-476).
+
+:func:`apply_updates` writes the params and the moments in place under
+``torch.no_grad()``, in chunks of ``_CHUNK`` elements, so no second copy
+of a grid or of its moments exists while it runs (the JAX package gets the
+same from buffer donation). The step count is a host integer: the update
+reads nothing back from the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BETA1, BETA2, EPS = 0.9, 0.99, 1e-8  # lib/masked_adam.py:19
+_CHUNK = 1 << 24  # elements per in-place slice: 64 MB of float32
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+def init_state(params: dict) -> dict:
+    """Zero moments shaped like ``params`` and step 0."""
+    return {"exp_avg": _zeros_like_tree(params),
+            "exp_avg_sq": _zeros_like_tree(params), "step": 0}
+
+
+def _bias_correction(step: int) -> float:
+    """``sqrt(1 - b2^t) / (1 - b1^t)`` in float32, as the JAX update."""
+    t = np.float32(step)
+    one = np.float32(1.0)
+    return float(np.sqrt(one - np.float32(BETA2) ** t)
+                 / (one - np.float32(BETA1) ** t))
+
+
+def _update_leaf(p, g, m, v, step_size: float, masked: bool, plr=None):
+    pf, gf, mf, vf = (t.view(-1) for t in (p, g, m, v))
+    plrf = None if plr is None else plr.reshape(-1)
+    for s in range(0, pf.numel(), _CHUNK):
+        sl = slice(s, s + _CHUNK)
+        gc, mc, vc = gf[sl], mf[sl], vf[sl]
+        m_new = BETA1 * mc + (1.0 - BETA1) * gc
+        v_new = BETA2 * vc + (1.0 - BETA2) * gc * gc
+        delta = step_size * m_new / (v_new.sqrt() + EPS)
+        if plrf is not None:
+            delta = delta * plrf[sl]
+        if masked:
+            nz = gc != 0
+            delta.masked_fill_(~nz, 0.0)
+            m_new = torch.where(nz, m_new, mc)
+            v_new = torch.where(nz, v_new, vc)
+        pf[sl].sub_(delta)
+        mc.copy_(m_new)
+        vc.copy_(v_new)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@torch.no_grad()
+def apply_updates(params: dict, grads: dict, state: dict, lrs: dict,
+                  skip_zero_grad=frozenset(), per_lr: dict | None = None
+                  ) -> None:
+    """One MaskedAdam step over a two-level params dict, in place.
+
+    ``grads`` has the layout of ``params`` for the groups it holds; ``lrs``
+    maps a group to its (decayed) lr, and a group absent from it is
+    frozen; ``skip_zero_grad`` names the masked groups; ``per_lr`` maps a
+    group to an element-wise lr scale of its shape."""
+    state["step"] = step = state["step"] + 1
+    bc = _bias_correction(step)
+    for name, p in params.items():
+        g, lr = grads.get(name), lrs.get(name)
+        if g is None or lr is None:
+            continue
+        step_size = float(np.float32(lr) * np.float32(bc))
+        masked = name in skip_zero_grad
+        plr = per_lr.get(name) if per_lr else None
+        for path, leaf in _leaves(p):
+            plr_leaf = (plr if plr is not None and not path
+                        and tuple(plr.shape) == tuple(leaf.shape) else None)
+            _update_leaf(leaf, _at(g, path),
+                         _at(state["exp_avg"][name], path),
+                         _at(state["exp_avg_sq"][name], path),
+                         step_size, masked, plr_leaf)
+
+
+def state_compatible(loaded, fresh) -> bool:
+    """True when a checkpointed state has the tree structure and the leaf
+    shapes of a fresh one (grid shapes change across pg_scale, so a stale
+    state is rejected, not used)."""
+    if isinstance(fresh, dict):
+        return (isinstance(loaded, dict) and set(loaded) == set(fresh)
+                and all(state_compatible(loaded[k], fresh[k]) for k in fresh))
+    return getattr(loaded, "shape", None) == getattr(fresh, "shape", None)
+
+
+def restore_state(loaded, fresh, *, label: str = "optimizer"):
+    """``(state, restored)``: the checkpointed state where it fits the
+    fresh one (the reference's ``optimizer.load_state_dict`` on resume,
+    lib/utils.py:53-59), else the fresh state."""
+    if loaded is None:
+        return fresh, False
+    if not state_compatible(loaded, fresh):
+        print(f"restore_state: checkpointed {label} state incompatible with "
+              "current shapes; reinitializing")
+        return fresh, False
+    return loaded, True
+
+
+def group_lr(lr0: float, steps_since_reset, lrate_decay: float):
+    """lr after ``steps_since_reset`` optimizer steps (run.py:560-563)."""
+    decay_factor = 0.1 ** (1.0 / (lrate_decay * 1000.0))
+    return lr0 * decay_factor ** steps_since_reset
+
+
+def build_group_lrs(cfg_train, params: dict) -> dict:
+    """Base lr of each param group from the ``lrate_<name>`` entries
+    (lib/utils.py:26-47); a group whose lr is not positive is frozen."""
+    lrs = {}
+    for k in cfg_train.keys():
+        if not k.startswith("lrate_"):
+            continue
+        name = k[len("lrate_"):]
+        if name not in params:
+            continue
+        lr = cfg_train[k]
+        if lr and lr > 0:
+            lrs[name] = float(lr)
+    return lrs

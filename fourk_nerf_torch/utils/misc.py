@@ -1,0 +1,71 @@
+"""Runtime helpers: shape assertions, profiler ranges, a device timer and
+an endless sampler (the port's form of the JAX package's ``utils/misc.py``,
+after frozoul/4K-NeRF torch_utils/misc.py). The replica-consistency check
+of that module waits for the multi-GPU slice (``parallel/``)."""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+
+def assert_shape(x, ref_shape: Sequence[int | None]) -> None:
+    """Raise unless ``x.shape`` matches ``ref_shape`` (None: any size)."""
+    shape = tuple(x.shape)
+    if len(shape) != len(ref_shape):
+        raise AssertionError(f"rank {len(shape)} != {len(ref_shape)}")
+    for i, (s, r) in enumerate(zip(shape, ref_shape)):
+        if r is not None and s != r:
+            raise AssertionError(
+                f"dim {i}: {s} != {r} (full: {shape} vs {ref_shape})")
+
+
+def profiled_function(fn):
+    """Run ``fn`` inside a ``torch.profiler.record_function`` range named
+    after it, so a profiler trace shows the call."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def device_timer(label: str = "", device=None):
+    """Time the block: by CUDA events on a CUDA ``device`` (the work queued
+    inside the block, waited for at its end), by the host clock otherwise.
+    Yields a dict that holds ``seconds`` after the block."""
+    box: dict = {}
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+    t0 = time.perf_counter()
+    yield box
+    if cuda:
+        e1.record()
+        e1.synchronize()
+        box["seconds"] = e0.elapsed_time(e1) / 1e3
+    else:
+        box["seconds"] = time.perf_counter() - t0
+    if label:
+        print(f"{label}: {box['seconds']:.4f}s")
+
+
+def infinite_sampler(n: int, rng: np.random.Generator, shuffle: bool = True,
+                     rank: int = 0, num_replicas: int = 1) -> Iterator[int]:
+    """Endless index stream, reshuffled each pass, sharded by ``rank``."""
+    order = np.arange(n)
+    while True:
+        if shuffle:
+            order = rng.permutation(n)
+        for i in order[rank::num_replicas]:
+            yield int(i)

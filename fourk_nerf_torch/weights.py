@@ -41,6 +41,17 @@ def dmpigo_from_numpy(params, buffers, device=None):
     return to_torch(params, dev), to_torch(buffers, dev)
 
 
+def opt_state_from_numpy(state, device=None) -> dict:
+    """A MaskedAdam state in the JAX package's ``init_state`` layout
+    (``exp_avg`` and ``exp_avg_sq`` trees of arrays, an int32 ``step``)
+    -> the port's: tensors on ``device`` (default ``cuda``), the step a
+    host int."""
+    dev = resolve_device(device)
+    return {"exp_avg": to_torch(state["exp_avg"], dev),
+            "exp_avg_sq": to_torch(state["exp_avg_sq"], dev),
+            "step": int(np.asarray(state["step"]))}
+
+
 def dvgo_from_numpy(params, buffers, device=None):
     """JAX-layout dvgo ``params`` (``density``, ``k0``, optional
     ``rgbnet``) and ``buffers`` (``mask_cache``) -> tensors on ``device``

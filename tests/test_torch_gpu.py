@@ -352,3 +352,92 @@ def test_probe_ops_limits(cuda):
     assert all(p["library_ms"] > 0 for p in res["probes"].values())
     for name in ("r3_bcast", "strided_row", "repeat_rows", "block_reduce"):
         assert res["probes"][name]["max_err"] == 0.0
+
+
+# --- the encoder's training step on the card (plain torch ops) ------------
+
+def test_train_steps_cuda_match_cpu(cuda, tmp_path):
+    """Ten steps of the tiny CPU-test scene on the card and on the CPU:
+    per-step losses within 1e-4 relative (the index backward's atomics on
+    the card sum in another order)."""
+    import os
+    import types
+
+    from fourk_nerf_torch import config
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import trainer
+
+    class W:
+        def __init__(self):
+            self.loss = []
+
+        def scalar(self, tag, value, step):
+            if tag == "train/loss":
+                self.loss.append(value)
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = tiny_scene.apply_overrides(config.load_config(os.path.join(
+            root, "fourk_nerf_torch", "configs", "llff",
+            "fern_lg_pretrain.py")), str(tmp_path), dev)
+        cfg.data.rand_bkgd = True
+        w = W()
+        args = types.SimpleNamespace(seed=0, no_reload=True,
+                                     no_reload_optimizer=False, ft_path="",
+                                     i_print=1, i_val=0, i_weights=0)
+        trainer.train(args, cfg, tiny_scene.scene(), writer=w, device=dev)
+        out[dev] = np.array(w.loss)
+    assert len(out["cpu"]) == 10
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+def _grid64(seed, c):
+    rng = np.random.default_rng(seed)
+    return rng.normal(0, 1, (64, 64, 64, c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_masked_adam_cuda_matches_cpu(cuda, masked):
+    """MaskedAdam at a 64^3 grid (10 channels, three steps): params and
+    moments within 1e-6 of the CPU update."""
+    from fourk_nerf_torch.train import optim
+
+    p0 = {"density": _grid64(0, 1), "k0": _grid64(1, 9)}
+    grads = [{k: np.where(np.random.default_rng(s).uniform(size=v.shape)
+                          < 0.5, 0, _grid64(s + 10, v.shape[-1]))
+              .astype(np.float32) for k, v in p0.items()} for s in range(3)]
+    skip = frozenset(p0) if masked else frozenset()
+    res = {}
+    for dev in ("cpu", cuda):
+        p = weights.to_torch(p0, dev)
+        st = optim.init_state(p)
+        for g in grads:
+            optim.apply_updates(p, weights.to_torch(g, dev), st,
+                                {"density": 0.1, "k0": 0.1},
+                                skip_zero_grad=skip)
+        res[str(dev)] = (p, st)
+    for k in p0:
+        for a, b in ((res["cpu"][0][k], res["cuda"][0][k]),
+                     (res["cpu"][1]["exp_avg"][k],
+                      res["cuda"][1]["exp_avg"][k]),
+                     (res["cpu"][1]["exp_avg_sq"][k],
+                      res["cuda"][1]["exp_avg_sq"][k])):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=0,
+                                       atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_total_variation_grad_cuda_matches_cpu(cuda, sparse):
+    """The TV gradient at a 64^3 grid, 9 channels: within 1e-7 of the CPU
+    (the same elementwise float32 ops)."""
+    from fourk_nerf_torch.ops import render
+
+    grid = _grid64(2, 9)
+    g = np.where(np.random.default_rng(3).uniform(size=grid.shape) < 0.5, 0,
+                 1).astype(np.float32)
+    out = [render.total_variation_grad(
+        torch.as_tensor(grid, device=d), 1e-3, 1e-3, 2e-3,
+        torch.as_tensor(g, device=d) if sparse else None).cpu().numpy()
+        for d in ("cpu", cuda)]
+    np.testing.assert_allclose(out[1], out[0], rtol=0, atol=1e-7)
