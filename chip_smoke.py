@@ -59,8 +59,27 @@ Phases (any failure raises and the script exits non-zero):
      gives the same losses on the card and on the CPU; timings: the step at
      each grid size, the full-width step split into its parts beside their
      byte bounds, peak memory, a profiled step, the checkpoint's save and
-     load; one ``{"training": ...}`` JSON line;
- 14. one JSON line with the seven kernels' summary, then the result line.
+     load; one ``{"training": ...}`` JSON line; the scene's views are also
+     rendered at 4032x3024 for phase 14, and the final checkpoint is kept
+     for it;
+ 14. joint encoder + SR training at full width: the scored held-out views
+     of phase 13's checkpoint (its mask at the third grid size) through
+     the float32 sweep kernel (the mask resampled onto the grid) and
+     through the native-resolution lookup, compared (no pixel may differ
+     by more than 2e-4, the PSNR by more than 0.01 dB);
+     ``fourk_nerf_torch/configs/llff/fern_lg_joint_l1.py`` from that
+     checkpoint (``--ftdv_path``) for 40 steps on the ten views with their
+     4K ground truth (``JOINT_OVERRIDES``: no pg_scale fires, TV off as in
+     the published run) with an ``i_val`` evaluation, a periodic and a
+     final joint checkpoint; checks: the SR L1 falls, the step takes the
+     full-grid sweep with the NATIVE mask; then ``run_sr --render_only
+     --render_test --render_video`` from the final checkpoint serves one
+     4K frame (the sweep kernel, 15 dense-block launches, counted) held to
+     the plain chain, its video write logged and skipped where imageio is
+     not installed; timings: the full-width joint step split into its
+     parts beside their bounds, a profiled step, ``evaluate_sr``'s parts,
+     the checkpoint's save and load; one ``{"joint": ...}`` JSON line;
+ 15. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -99,6 +118,15 @@ TRAIN_OVERRIDES = {
     "args": {"i_print": 10, "i_val": 60, "i_weights": 31},
 }
 TINY_TOL = 1e-4            # phase 13: tiny run, per-step loss, cuda vs cpu
+JOINT_STEPS = 40           # phase 14: joint steps after the pretrain's last
+#: phase 14: what is set over the published fern_lg_joint_l1 config (N_iters
+#: is the pretrain's last step + JOINT_STEPS; the run directory goes under
+#: build/ and is deleted at the phase's end)
+JOINT_OVERRIDES = {
+    "fine_train": {"pg_scale": TRAIN_OVERRIDES["fine_train"]["pg_scale"],
+                   "tv_before": 20},
+    "args": {"i_print": 10, "i_val": 40, "i_weights": 30},
+}
 
 
 def log(*a):
@@ -1087,11 +1115,14 @@ class Recorder:
         return [v for t, v, _ in self.rows if t == tag]
 
 
-def train_teacher_views(dev):
+def train_teacher_views(dev, hr: bool = False):
     """The scene of phase 13: the trained anchor rendered at 1008x756 from
     ``TRAIN_VIEWS`` poses a few hundredths apart (the sweep kernel, bf16
     path), its contrast stretched, as the LLFF loader's ``data_dict`` with
-    every 5th view held out and ``i_val`` the first of those."""
+    every 5th view held out and ``i_val`` the first of those. With ``hr``
+    the same poses are also rendered at 4032x3024 (``K`` scaled by 4),
+    stretched by the low-resolution views' mean and std, as ``srgt``
+    (NCHW, as the LLFF loader gives it) with the poses' ``w2c``."""
     from fourk_nerf_torch import weights
     from fourk_nerf_torch.models import dmpigo
     from fourk_nerf_torch.train import trainer
@@ -1108,22 +1139,44 @@ def train_teacher_views(dev):
         render_kwargs={"stepsize": 1.0, "bg": 0.0}, verbose=False,
         device=dev)
     images = res["rgbs"].float().cpu().numpy()
-    del cfg, params, buffers, res
+    del res
+    srgt = None
+    if hr:
+        K4 = K.copy()
+        K4[:2, :3] *= SCALE
+        res = trainer.render_viewpoints(
+            dmpigo, cfg, params, buffers, poses,
+            np.array([[H * SCALE, W * SCALE]] * n), np.stack([K4] * n),
+            data=trainer.DataFlags(ndc=True),
+            render_kwargs={"stepsize": 1.0, "bg": 0.0}, verbose=False,
+            device=dev)
+        srgt = res["rgbs"].float().permute(0, 3, 1, 2).cpu().numpy()
+        del res
+    del cfg, params, buffers
     # the anchor's frames are near-uniform grey (mean 0.50, std ~0.02), and
     # the MSE of an untrained model is then smaller than the published
     # distortion term: stretch them to a std of 0.2 around their mean so
     # that 60 steps show in the loss
-    images = np.clip(0.5 + (images - images.mean()) * (0.2 / images.std()),
-                     0.0, 1.0).astype(np.float32)
+    mean, std = images.mean(), images.std()
+
+    def stretch(x):
+        return np.clip(0.5 + (x - mean) * (0.2 / std), 0.0,
+                       1.0).astype(np.float32)
+
+    images = stretch(images)
     i_test = np.arange(n)[::5]
     i_val = [int(i_test[0])]
     i_train = np.array([i for i in range(n)
                         if i not in i_test and i not in i_val])
-    return dict(hwf=[H, W, 815.0], HW=np.array([[H, W]] * n),
+    data = dict(hwf=[H, W, 815.0], HW=np.array([[H, W]] * n),
                 Ks=np.stack([K] * n).astype(np.float64), near=0.0, far=1.0,
                 near_clip=None, i_train=i_train, i_val=i_val, i_test=i_test,
                 poses=poses, render_poses=poses.copy(), images=images,
                 irregular_shape=False)
+    if hr:
+        from fourk_nerf_torch.data import llff
+        data.update(srgt=stretch(srgt), w2c=llff.w2c_gen(poses))
+    return data
 
 
 def event_ms(fn, reps: int = 5) -> float:
@@ -1169,14 +1222,14 @@ def run_training(dev):
     rec: dict = {"config": cfg_path, "overrides": TRAIN_OVERRIDES}
     t_phase = time.perf_counter()
 
-    # --- the scene -----------------------------------------------------------
+    # --- the scene (and its 4K views for phase 14) ---------------------------
     cuda_sweep.sweep.launches = 0
-    data = train_teacher_views(dev)
+    data = train_teacher_views(dev, hr=True)
     sync()
     launches = {"teacher": cuda_sweep.sweep.launches}
-    if launches["teacher"] != TRAIN_VIEWS:
+    if launches["teacher"] != 2 * TRAIN_VIEWS:
         raise AssertionError(f"teacher views: {launches['teacher']} sweep "
-                             f"launches for {TRAIN_VIEWS} views")
+                             f"launches for {TRAIN_VIEWS} views at two sizes")
     log(f"  teacher: {TRAIN_VIEWS} views of {W}x{H} through the sweep "
         f"kernel; train {data['i_train'].tolist()}, test "
         f"{data['i_test'].tolist()}, val {data['i_val']}")
@@ -1376,10 +1429,367 @@ def run_training(dev):
         f"max rel {rel:.3e} (limit {TINY_TOL:.0e})")
     if len(tiny["cpu"]) != 10 or not rel <= TINY_TOL:
         raise AssertionError("the tiny run differs between cuda and cpu")
-    shutil.rmtree(basedir)
+    # phase 14 starts from the final checkpoint; the rest goes now
+    for name in os.listdir(basedir):
+        if name != "fern_pretrain":
+            shutil.rmtree(os.path.join(basedir, name))
+    for name in os.listdir(os.path.join(basedir, "fern_pretrain")):
+        path = os.path.join(basedir, "fern_pretrain", name)
+        if name != "fine_last.npz":
+            (shutil.rmtree if os.path.isdir(path) else os.remove)(path)
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 13: {rec['phase_s']:.1f} s")
-    return rec
+    return rec, {"data": data, "basedir": basedir, "ckpt": last}
+
+
+def flops_of(fn) -> int:
+    """Floating-point operations of one call of ``fn`` as PyTorch's flop
+    counter counts them (every convolution and matmul, forward and
+    backward: two a multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return int(fc.get_total_flops())
+
+
+class SkippedWrites:
+    """Stands in for ``imageio.v2`` in ``run_sr`` where imageio is not
+    installed: each write is logged and skipped."""
+
+    @staticmethod
+    def mimwrite(path, frames, **kw):
+        log(f"  video write skipped (no imageio): {os.path.basename(path)}, "
+            f"{len(frames)} frames")
+
+    @staticmethod
+    def imwrite(path, img, **kw):
+        log(f"  image write skipped (no imageio): {os.path.basename(path)}")
+
+
+def run_joint(dev, pre):
+    """Phase 14 (see the module docstring). ``pre``: phase 13's scene and
+    final checkpoint. Returns the ``joint`` record and the launch counts of
+    the path."""
+    import shutil
+    import types
+
+    import torch
+    from fourk_nerf_torch import config as config_mod, run_sr, weights
+    from fourk_nerf_torch.models import dmpigo
+    from fourk_nerf_torch.ops import cuda_sr, cuda_sweep, plane_sweep
+    from fourk_nerf_torch.train import checkpoints, optim, sr_trainer, trainer
+
+    t_phase = time.perf_counter()
+    data, pre_ckpt = pre["data"], pre["ckpt"]
+    basedir = os.path.join(HERE, "build", "phase14_joint")
+    shutil.rmtree(basedir, ignore_errors=True)
+    cfg_path = os.path.join("fourk_nerf_torch", "configs", "llff",
+                            "fern_lg_joint_l1.py")
+    rec: dict = {"config": cfg_path, "ftdv_path": os.path.relpath(pre_ckpt,
+                                                                   HERE)}
+    launches: dict = {}
+
+    # --- scored renders with a mask of another resolution (Queue C 1) --------
+    kw, p0, b0, _, start, _ = checkpoints.load_checkpoint(pre_ckpt,
+                                                          device=dev)
+    c0 = dmpigo.make_config(**kw)
+    rec["mask"] = [list(c0.world_size), list(b0["mask_cache"].shape)]
+    packed = cuda_sweep.pack_grids_kernel(p0, b0, use_bf16=False)
+    kern, nat, t_kern, t_nat = [], [], [], []
+    for i in data["i_test"]:
+        K = np.asarray(data["Ks"][i], np.float32)
+        c2w = np.asarray(data["poses"][i], np.float32)
+        t0 = time.perf_counter()
+        kern.append(cuda_sweep.render_frame_cuda(
+            c0, p0, b0, H, W, K, c2w, stepsize=1.0, bg=0.0, device=dev,
+            packed=packed)["rgb_marched"])
+        sync()
+        t1 = time.perf_counter()
+        nat.append(plane_sweep.render_frame_native(
+            c0, p0, b0, H, W, K, c2w, stepsize=1.0, bg=0.0,
+            device=dev)["rgb_marched"])
+        sync()
+        t_kern.append((t1 - t0) * 1e3)
+        t_nat.append((time.perf_counter() - t1) * 1e3)
+    gts = [data["images"][i] for i in data["i_test"]]
+    diff = max(float((a - b).abs().max()) for a, b in zip(kern, nat))
+    n_px = sum(int(((a - b).abs() > 2e-4).any(-1).sum())
+               for a, b in zip(kern, nat))
+    from fourk_nerf_torch.utils import metrics
+    psnr_k = float(np.mean([metrics.psnr(a.cpu().numpy(), g)
+                            for a, g in zip(kern, gts)]))
+    psnr_n = float(np.mean([metrics.psnr(a.cpu().numpy(), g)
+                            for a, g in zip(nat, gts)]))
+    rec["scored_mask"] = {"max_abs_diff": diff, "pixels_over_2e-4": n_px,
+                          "psnr_resampled": psnr_k, "psnr_native": psnr_n,
+                          "ms_kernel": t_kern, "ms_native": t_nat}
+    log(f"  scored held-out views, grid {c0.world_size}, mask "
+        f"{tuple(b0['mask_cache'].shape)}: the float32 sweep kernel on the "
+        f"resampled mask vs the native lookup: max abs {diff:.3e}, "
+        f"{n_px} pixels over 2e-4; psnr {psnr_k:.4f} vs {psnr_n:.4f} dB; "
+        f"ms per view (host clock) kernel {[round(t, 1) for t in t_kern]}, "
+        f"native {[round(t, 1) for t in t_nat]}")
+    if n_px > 0 or abs(psnr_k - psnr_n) > 0.01:
+        raise AssertionError("the scored render on the resampled mask "
+                             "disagrees with the native lookup (limits: no "
+                             "pixel over 2e-4, PSNR within 0.01 dB)")
+    del p0, b0, packed, kern, nat
+    torch.cuda.empty_cache()
+
+    # --- the joint run -------------------------------------------------------
+    cfg = config_mod.load_config(os.path.join(HERE, cfg_path))
+    cfg.basedir, cfg.expname = basedir, "fern_joint"
+    for k, v in JOINT_OVERRIDES["fine_train"].items():
+        cfg.fine_train[k] = v
+    cfg.fine_train.N_iters = start + JOINT_STEPS
+    args = types.SimpleNamespace(
+        seed=777, no_reload=False, no_reload_optimizer=False, ft_path="",
+        ftdv_path=pre_ckpt, ftsr_path="", test_tile=0,
+        **JOINT_OVERRIDES["args"])
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.sweep.launches = 0
+    t0 = time.perf_counter()
+    _, mcfg, params, buffers, sr_model = sr_trainer.train_sr(
+        args, cfg, data, writer=writer, device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    launches["i_val"] = cuda_sweep.sweep.launches
+    peak = torch.cuda.max_memory_allocated()
+    l1 = writer.values("train/loss_l1")
+    rec.update(start=start, steps=JOINT_STEPS, train_s=train_s,
+               loss_l1=l1, loss_photo=writer.values("train/loss_photo"),
+               psnr_sr=writer.values("train/psnr_sr"),
+               val_psnr_sr=writer.values("val/psnr_sr"),
+               val_lpips_proxy=writer.values("val/lpips_sr_proxy"),
+               max_memory_allocated_bytes=peak)
+    log(f"  joint steps {start + 1}..{start + JOINT_STEPS} in {train_s:.1f} s "
+        f"(host clock, eval and saves included); loss_l1 at each print "
+        f"{['%.6g' % x for x in l1]}, loss_photo "
+        f"{['%.6g' % x for x in rec['loss_photo']]}, psnr_sr "
+        f"{['%.2f' % x for x in rec['psnr_sr']]}; val psnr_sr "
+        f"{rec['val_psnr_sr']}, lpips proxy {rec['val_lpips_proxy']}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    if len(l1) != JOINT_STEPS // args.i_print or not all(np.isfinite(l1)) \
+            or not l1[-1] < l1[0]:
+        raise AssertionError(f"the SR L1 did not fall: {l1}")
+    for k, v in checkpoints.tree_to_flat_dict(params).items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite parameter {k}")
+
+    # --- the joint checkpoint's load, then serve the trained decoder through
+    # run_sr --render_only --render_test --render_video ---------------------
+    last = os.path.join(basedir, "fern_joint", "fine_last.npz")
+    t0 = time.perf_counter()
+    loaded = sr_trainer.load_joint(last, True, device=dev)
+    sync()
+    load_s = time.perf_counter() - t0
+    rec["checkpoint"] = {"bytes": os.path.getsize(last), "load_s": load_s}
+    del loaded
+    torch.cuda.empty_cache()
+    one = dict(data, render_poses=data["poses"][data["i_test"][:1]])
+    rargs = run_sr.config_parser().parse_args(
+        ["--config", os.path.join(HERE, cfg_path), "--render_only",
+         "--render_video", "--eval_lpips_vgg", "--ft_path", last,
+         "--device", dev.type])
+    cfg_r = config_mod.load_config(os.path.join(HERE, cfg_path))
+    cfg_r.basedir, cfg_r.expname = basedir, "fern_joint"
+    real_imageio = run_sr._imageio
+    try:
+        import imageio.v2  # noqa: F401
+    except ImportError:
+        run_sr._imageio = SkippedWrites
+    cuda_sweep.sweep.launches = 0
+    cuda_sr.rdb_apply.launches = 0
+    try:
+        res = run_sr.run(rargs, cfg_r, one)
+    finally:
+        run_sr._imageio = real_imageio
+    sync()
+    launches["serve"] = {"sweep": cuda_sweep.sweep.launches,
+                         "rdb": cuda_sr.rdb_apply.launches}
+    video, test = res["video"], res["test"]
+    enc_s = video["encoder"]["frame_times"][0]
+    sr_s = video["sr_times"][0]
+    rec["evaluate_sr_s"] = test["seconds"]
+    log(f"  evaluate_sr of the {len(data['i_test'])} held-out views: seconds "
+        f"{test['seconds']} (host clock)")
+    rec["serve"] = {"launches": launches["serve"], "encoder_s": enc_s,
+                    "decoder_s": sr_s, "frame_s": enc_s + sr_s,
+                    "psnr_sr_test": test["psnr_sr"],
+                    "ssim_sr_test": test["ssim_sr"],
+                    "psnr_lr_test": test["psnr_lr"]}
+    log(f"  served 4K frame (first call, host clock): encoder "
+        f"{enc_s * 1e3:.1f} ms, decoder {sr_s * 1e3:.1f} ms, frame "
+        f"{(enc_s + sr_s) * 1e3:.1f} ms; launches {launches['serve']}; "
+        f"--render_test held-out views: PSNR_SR {test['psnr_sr']:.3f}, "
+        f"SSIM {test['ssim_sr']:.4f}, LR PSNR {test['psnr_lr']}")
+    n_test = len(data["i_test"])
+    if launches["serve"] != {"sweep": 1 + n_test, "rdb": 15}:
+        raise AssertionError(f"serving launches {launches['serve']}")
+    frame = video["frames"][0]
+    if tuple(frame.shape) != (H * SCALE, W * SCALE, 3) \
+            or not bool(torch.isfinite(frame).all()):
+        raise AssertionError("the served frame is not a finite 4K frame")
+    model = res["model"][4]
+    prep = cuda_sr.prepare_sftnet(model)
+    feat = video["encoder"]["rgb_features"][0][None]
+    depth = video["encoder"]["depths"][0][None, ..., None]
+    got = cuda_sr.sftnet_apply_cuda(prep, feat, depth, upchain="dilated")
+    want = cuda_sr.sftnet_apply_plain(prep, feat, depth, upchain="dilated")
+    sync()
+    err = float((got - want).abs().max())
+    rec["serve"]["decode_vs_plain_max_abs"] = err
+    log(f"  trained decoder, kernel chain vs plain chain: max abs {err:.3e} "
+        f"(limit {SR_TOL})")
+    if not err <= SR_TOL:
+        raise AssertionError("the trained decoder's kernel chain disagrees "
+                             "with its plain chain")
+    del res, video, test, prep, got, want, model
+    # --- the full-width joint step, by parts (after the run) -----------------
+    ct = cfg.fine_train
+    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "rand_bkgd": True,
+          "stepsize": 1.0, "ndc_planes": True}
+    flat, _ = trainer.gather_training_rays(
+        cfg, sr_trainer._force_image_sampler(ct), data, dev)
+    a_all, b_all = (t.cpu().numpy() for t in plane_sweep.affine_coeffs(
+        flat["rays_o"], flat["rays_d"],
+        torch.tensor(mcfg.xyz_min, device=dev),
+        torch.tensor(mcfg.xyz_max, device=dev),
+        torch.tensor(mcfg.world_size[:2], dtype=torch.float32, device=dev),
+        mcfg.world_size[2]))
+    patch, V = int(ct.N_patch), flat["rgb"].shape[0]
+    sampler = sr_trainer.make_patch_sampler(V, H, W, patch, 777)
+    sp = sr_trainer.sweep_patch_size_for(mcfg, a_all, b_all, sampler.rows,
+                                         sampler.cols, patch)
+    gw = sr_trainer.sweep_window_size_for(mcfg, a_all, b_all, sampler.rows,
+                                          sampler.cols, patch, sp)
+    hr_all = torch.as_tensor(np.ascontiguousarray(np.moveaxis(
+        data["srgt"][data["i_train"]], 1, -1)), device=dev)
+    skip = frozenset(ct.skip_zero_grad_fields)
+    st = sr_trainer.SRTrainStep(
+        dmpigo, mcfg, ct, cfg.fine_model_and_render, render_kwargs=rk,
+        skip_zero_grad=skip, sr_model=sr_model, n_views=V, patch=patch,
+        sr_ratio=SCALE, sweep_patch=sp, grid_window=gw)
+    path = st.path(params, buffers, apply_tv=False)
+    mode = "CHANNEL" if tuple(buffers["mask_cache"].shape) == tuple(
+        mcfg.world_size) else "NATIVE"
+    rec["step_path"] = {"path": path, "mask_mode": mode, "slice": sp,
+                        "grid_window": gw}
+    log(f"  the step renders through the {path} path, mask in {mode} mode "
+        f"({tuple(buffers['mask_cache'].shape)} on a {mcfg.world_size} "
+        f"grid), slice {sp}, grid window {gw}")
+    if (path, mode) != ("sweep", "NATIVE"):
+        raise AssertionError("the fern joint step should take the full-grid "
+                             "sweep with the NATIVE mask")
+    counter = [0]
+
+    def batch():
+        counter[0] += 1
+        v, r, c = sampler(counter[0])
+
+        def sl(t):
+            return t[v, r:r + patch, c:c + patch].reshape(-1, 3)
+        return (sl(flat["rays_o"]), sl(flat["rays_d"]), sl(flat["viewdirs"]),
+                sl(flat["rgb"]), hr_all[v, r * SCALE:(r + patch) * SCALE,
+                                        c * SCALE:(c + patch) * SCALE]
+                .reshape(-1, 3))
+
+    lrs = {"enc": {k: optim.group_lr(v, 100, ct.lrate_decay) for k, v in
+                   optim.build_group_lrs(ct, params).items()},
+           "srnet": optim.group_lr(ct.lrate_srnet, 100, ct.lrate_decay)}
+    enc_opt = optim.init_state(params)
+    sr_opt = optim.init_state({"srnet": st.sr_params})
+    noise = trainer.bkgd_noise(777, 1, patch * patch, dev)
+    bt = batch()
+    full = event_ms(lambda: st(params, buffers, enc_opt, sr_opt, batch(),
+                               lrs, noise, apply_tv=False, tv_dense=False))
+    *_, eg, sg, win = st.loss_and_grads(params, buffers, bt,
+                                        lrs["enc"].keys(), noise)
+    live = {k: trainer._detached_leaves(params[k]) for k in lrs["enc"]}
+
+    def sweep_fb():
+        out = st.render({**params, **live}, buffers, *bt[:3], path="sweep",
+                        bg_noise=noise)
+        leaves = trainer._flatten(live, [])
+        torch.autograd.grad((out["rgb_feature"].sum() + out["weights"].sum()
+                             + out["raw_rgb"].sum()), leaves,
+                            allow_unused=True)
+
+    out = st.render(params, buffers, *bt[:3], path="sweep")
+    x = out["rgb_feature"].detach().reshape(1, patch, patch, 3)
+    cond = out["depth"].detach().reshape(1, patch, patch, 1)
+    hr = bt[4].reshape(1, patch * SCALE, patch * SCALE, 3)
+    sr_leaves = trainer._flatten(st.sr_params, [])
+
+    def sft_fb():
+        loss = (sr_model(x, cond) - hr).abs().mean()
+        torch.autograd.grad(loss, sr_leaves)
+
+    from fourk_nerf_torch.device import fp32_precision
+    with fp32_precision():
+        split = {
+            "gather": event_ms(batch),
+            "fwd_bwd": event_ms(lambda: st.loss_and_grads(
+                params, buffers, bt, lrs["enc"].keys(), noise)),
+            "sweep_fwd_bwd": event_ms(sweep_fb),
+            "sftnet_fwd_bwd": event_ms(sft_fb),
+            "enc_adam": event_ms(lambda: optim.apply_updates(
+                params, eg, enc_opt, lrs["enc"], skip_zero_grad=skip)),
+            "sr_adam": event_ms(lambda: optim.apply_updates(
+                {"srnet": st.sr_params}, {"srnet": sg}, sr_opt,
+                {"srnet": lrs["srnet"]})),
+        }
+        sft_flops = flops_of(sft_fb)
+    R, Z = patch * patch, mcfg.world_size[2]
+    C = 1 + mcfg.k0_dim
+    param_bytes = tree_bytes(params)
+    sr_bytes = tree_bytes(st.sr_params)
+    taps = R * Z * 4 * C * 4
+    bound_bytes = {
+        "gather": 2 * (R * 4 * 12 + R * SCALE * SCALE * 12),
+        "sweep_fwd_bwd": 2 * taps + param_bytes,
+        "enc_adam": 7 * param_bytes, "sr_adam": 7 * sr_bytes}
+    bound_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in bound_bytes.items()}
+    # the generator's forward and backward as timed (the weight gradients
+    # and the input gradients they need), float32, at the FP32 peak
+    bound_ms["sftnet_fwd_bwd"] = sft_flops / FP32_FLOPS * 1e3
+    bound_ms["fwd_bwd"] = bound_ms["sweep_fwd_bwd"] \
+        + bound_ms["sftnet_fwd_bwd"]
+    rec.update(step_ms=full, split_ms=split, split_bound_ms=bound_ms,
+               split_bound_bytes=bound_bytes, sftnet_fwd_bwd_flops=sft_flops,
+               params=param_bytes // 4, sr_params=sr_bytes // 4)
+    log(f"  full-width joint step {full:.2f} ms (CUDA events, median of 5); "
+        f"parts ({param_bytes // 4} encoder, {sr_bytes // 4} generator "
+        "parameters): " + ", ".join(
+            f"{k} {v:.4g} ms (bound {bound_ms[k]:.4g})"
+            for k, v in split.items())
+        + f"; bounds: bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, the "
+        f"SFTNet's {sft_flops / 1e9:.1f} GFLOP float32 at the FP32 peak "
+        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s")
+    rec["profile"] = profile_call(
+        lambda: st(params, buffers, enc_opt, sr_opt, batch(), lrs, noise,
+                   apply_tv=False, tv_dense=False), "joint step", top=10)
+    del eg, sg, live, flat, hr_all
+    torch.cuda.empty_cache()
+
+    # --- the joint checkpoint's save (params and both optimizers) -----------
+    path = os.path.join(basedir, "fern_joint", "timed_save.npz")
+    t0 = time.perf_counter()
+    sr_trainer.save_joint(path, dmpigo, mcfg, params, buffers, sr_model,
+                          start + JOINT_STEPS,
+                          opt_states={"enc": enc_opt, "sr": sr_opt})
+    rec["checkpoint"]["save_s"] = save_s = time.perf_counter() - t0
+    log(f"  joint checkpoint {os.path.getsize(last) / 2**30:.2f} GiB (params "
+        f"and both optimizers): save {save_s:.2f} s, load {load_s:.2f} s "
+        "(host clock)")
+    del params, buffers, enc_opt, sr_opt, sr_model
+    torch.cuda.empty_cache()
+    shutil.rmtree(basedir)
+    shutil.rmtree(pre["basedir"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {rec['phase_s']:.1f} s")
+    return rec, launches
 
 
 def run_probes(dev):
@@ -1474,7 +1884,12 @@ def main() -> int:
     log("[12] probes")
     probes = run_probes(dev)
     log("[13] encoder training at full width, fern pretrain config")
-    training = run_training(dev)
+    training, pre = run_training(dev)
+    torch.cuda.empty_cache()
+    log("[14] joint encoder + SR training at full width, fern joint L1 "
+        "config, then its 4K frame")
+    joint, joint_launches = run_joint(dev, pre)
+    del pre
     torch.cuda.empty_cache()
 
     kernels = [
@@ -1485,7 +1900,9 @@ def main() -> int:
          "max_abs_err": syn["sweep_err"], "ms": syn["sweep_ms"],
          "plain_ms": syn["plain_sweep_ms"], "bound_ms": syn["sweep_bound"],
          "bound_by": syn["sweep_bound_by"], "library_ms": None,
-         "registers": syn["sweep_registers"]},
+         "registers": syn["sweep_registers"],
+         "launches_joint": {"i_val": joint_launches["i_val"],
+                            "serve": joint_launches["serve"]["sweep"]}},
         {"name": "rdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:481",
@@ -1493,7 +1910,8 @@ def main() -> int:
          "max_abs_err": syn["rdb_err"], "ms": syn["rdb_ms"],
          "plain_ms": syn["rdb_plain_ms"], "bound_ms": syn["rdb_bound"],
          "bound_by": syn["rdb_bound_by"], "library_ms": None,
-         "conv_chain_ms": syn["conv_chain_ms"]},
+         "conv_chain_ms": syn["conv_chain_ms"],
+         "launches_joint": {"serve": joint_launches["serve"]["rdb"]}},
         # library_ms is null for the sweep, the dense block, the box sweep
         # and the RRDB: no single PyTorch call computes any of them
         # (conv_chain_ms: the block's five convs alone as cuDNN calls)
@@ -1549,6 +1967,7 @@ def main() -> int:
          "library_ms": probes["probe_ops"]["library_ms"]},
     ]
     log(json.dumps({"training": training}))
+    log(json.dumps({"joint": joint}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

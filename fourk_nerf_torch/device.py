@@ -7,6 +7,8 @@ Nothing drops to the CPU silently when the card is missing.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -28,3 +30,23 @@ def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def fp32_precision():
+    """Float32 matmuls and cuDNN convolutions in full float32 inside the
+    block: TF32 off for both (torch's default lets cuDNN convs run in TF32),
+    the previous settings restored after. The entry points run under it,
+    so a user's float32 decode or training step computes what the checks
+    compare."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -186,6 +186,104 @@ class SFTNet(nn.Module):
         return out.permute(0, 2, 3, 1)
 
 
+def _dense_conv(path: str) -> bool:
+    """True for the module path of a dense-block conv (``bodyI.rdbJ.convK``)."""
+    parts = path.split(".")
+    return len(parts) == 3 and parts[1].startswith("rdb") \
+        and parts[2].startswith("conv")
+
+
+def _trunc_normal(shape, generator):
+    """Standard normal draws truncated to [-2, 2] (inverse CDF)."""
+    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                    dtype=torch.float64)
+    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).float()
+
+
+@torch.no_grad()
+def init_like_jax(model: nn.Module, generator: torch.Generator):
+    """Draw ``model``'s convs from the JAX module's initialisers, in place:
+    flax's default conv init (``lecun_normal``: a normal truncated to two
+    standard deviations, scaled to a variance of 1/fan_in) and, for the
+    dense-block convs, ``_rdb_kernel_init`` (kaiming normal over fan_in
+    with the relu gain, times 0.1); every bias zero. Returns ``model``."""
+    for path, mod in model.named_modules():
+        if not isinstance(mod, Conv):
+            continue
+        w = mod.weight
+        fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+        if _dense_conv(path):
+            draw = torch.randn(w.shape, generator=generator) \
+                * (0.1 * math.sqrt(2.0 / fan_in))
+        else:
+            draw = _trunc_normal(w.shape, generator) \
+                * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+        w.copy_(draw.to(w.device))
+        mod.bias.zero_()
+    return model
+
+
+_SFT_MAP = {"SFT_scale_conv0": "scale0", "SFT_scale_conv1": "scale1",
+            "SFT_shift_conv0": "shift0", "SFT_shift_conv1": "shift1"}
+_CONDNET = {0: "cond0", 2: "cond1", 4: "cond2", 6: "cond3"}
+_TOP_CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
+              "conv_last")
+
+
+def _reference_path(key: str) -> str | None:
+    """The module path of a reference SFTNet / RRDBNet state-dict conv
+    (``body.0.rdb1.sft0.SFT_scale_conv0`` -> ``body0.rdb1.sft0.scale0``,
+    ``CondNet.2`` -> ``cond1``), None for a key it does not map."""
+    parts = key.split(".")
+    if parts[0] in _TOP_CONVS and len(parts) == 1:
+        return parts[0]
+    if parts[0] == "CondNet" and len(parts) == 2:
+        return _CONDNET.get(int(parts[1]))
+    if parts[0] == "sftbody" and len(parts) == 2 and parts[1] in _SFT_MAP:
+        return f"sftbody.{_SFT_MAP[parts[1]]}"
+    if parts[0] == "body" and len(parts) >= 3:
+        blk = f"body{parts[1]}"
+        if parts[2].startswith("rdb") and len(parts) == 4 \
+                and parts[3].startswith("conv"):
+            return f"{blk}.{parts[2]}.{parts[3]}"
+        if parts[2].startswith("rdb") and len(parts) == 5 \
+                and parts[4] in _SFT_MAP:
+            return f"{blk}.{parts[2]}.{parts[3]}.{_SFT_MAP[parts[4]]}"
+        if parts[2] == "sft0" and len(parts) == 4 and parts[3] in _SFT_MAP:
+            return f"{blk}.sft0.{_SFT_MAP[parts[3]]}"
+    return None
+
+
+@torch.no_grad()
+def load_reference_state_dict(model: nn.Module, state_dict) -> list:
+    """Copy a reference SFTNet save, or the plain RealESRNet RRDBNet init,
+    into ``model`` by name (the JAX package's ``import_sftnet_torch`` then
+    ``merge_params``; ``--ftsr_path`` / ``--sr_path``). A conv whose key is
+    absent, or whose weight or bias has another shape, keeps its current
+    values (the reference's ``strict=False`` load); a missing bias loads
+    as zeros. Returns the module paths that were loaded."""
+    mods = dict(model.named_modules())
+    loaded = []
+    for k, v in state_dict.items():
+        if not k.endswith(".weight"):
+            continue
+        base = k[:-len(".weight")]
+        path = _reference_path(base)
+        mod = mods.get(path) if path else None
+        if not isinstance(mod, Conv):
+            continue
+        w = torch.as_tensor(v).float()
+        b = state_dict.get(base + ".bias")
+        b = torch.zeros(w.shape[0]) if b is None else torch.as_tensor(b).float()
+        if w.shape != mod.weight.shape or b.shape != mod.bias.shape:
+            continue
+        mod.weight.copy_(w)
+        mod.bias.copy_(b)
+        loaded.append(path)
+    return loaded
+
+
 def apply_bf16(model: SFTNet, x, cond):
     """bfloat16 inference (weights and activations), float32 result."""
     m16 = copy.deepcopy(model).to(torch.bfloat16)

@@ -22,6 +22,7 @@ and what the kernel is held against on the card.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -252,3 +253,328 @@ def render_frame(cfg, params, buffers, H: int, W: int, K, c2w, *,
         fast_thres=float(cfg.fast_color_thres), spatial_pe=cfg.spatial_pe,
         act_type=cfg.act_type)
     return assemble(rgb, depth, ail, H, W, bg)
+
+
+# ---------------------------------------------------------------------------
+# training forms: the patch sweep under autograd (the JAX package's
+# ``sweep_patch_train`` / ``sweep_patch_train_win``), and the native-mask
+# float32 frame render of its scored path
+# ---------------------------------------------------------------------------
+
+def mask_scale_and_patch(cfg, mask_shape, patch: int):
+    """Per-axis index scale from grid units to mask units, and the mask
+    window size that covers a ``patch``-wide grid footprint (the JAX
+    package's ``plane_sweep.mask_scale_and_patch``)."""
+    X, Y, _ = cfg.world_size
+    mX, mY = int(mask_shape[0]), int(mask_shape[1])
+    sx = (mX - 1) / max(X - 1, 1)
+    sy = (mY - 1) / max(Y - 1, 1)
+    pm = int(math.ceil(patch * max(sx, sy))) + 4
+    pm = max(int(math.ceil(pm / 8.0) * 8), 8)
+    return float(sx), float(sy), min(pm, mX, mY)
+
+
+class _RoundBF16(torch.autograd.Function):
+    """Round to bfloat16 going forward, pass the gradient through in
+    float32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def _origin(pos, n: int, window: int | None):
+    """Start of each (tile, plane)'s ``window``-wide slice of an axis of
+    ``n`` cells: ``floor(min over the tile's rays) - 1``, clipped to the
+    axis. ``pos [T, R, Z]``; returns ``[T, 1, Z]`` (0 without a window)."""
+    if window is None:
+        return torch.zeros_like(pos[:, :1, :], dtype=torch.long)
+    o = torch.floor(pos.amin(1, keepdim=True)).long() - 1
+    return o.clamp(0, max(n - window, 0))
+
+
+def _hat_taps(p, lo, n: int, window: int | None):
+    """The two bilinear taps of positions ``p`` along one axis: indices
+    ``i0, i0 + 1`` and weights ``1 - |p - i|`` (the hat weights of the JAX
+    sweep), a weight set to 0 where its tap lies outside the slice
+    ``[lo, lo + window)`` (outside ``[0, n)`` without a window). Returns
+    (i0, i1 clamped into the axis, w0, w1)."""
+    f = torch.floor(p)
+    fr = p - f
+    w0 = 1.0 - fr
+    w1 = 1.0 - (fr - 1.0).abs()
+    i0 = f.long()
+    i1 = i0 + 1
+    hi = n if window is None else lo + window
+    lo = 0 if window is None else lo
+    w0 = torch.where((i0 >= lo) & (i0 < hi), w0, torch.zeros_like(w0))
+    w1 = torch.where((i1 >= lo) & (i1 < hi), w1, torch.zeros_like(w1))
+    return i0.clamp(0, n - 1), i1.clamp(0, n - 1), w0, w1
+
+
+def _nearest_tap(p, lo, n: int, window: int | None):
+    """The nearest cell of positions ``p`` (ties up, as the JAX sweep's
+    one-hot weights select) and whether it lies in ``[lo, lo + window)``
+    (``[0, n)`` without a window)."""
+    f = torch.floor(p)
+    i = f.long() + (p - f >= 0.5).long()
+    lo = 0 if window is None else lo
+    hi = n if window is None else lo + window
+    return i.clamp(0, n - 1), (i >= lo) & (i < hi)
+
+
+def sweep_all_tiles_train(density, k0, act_shift, mask, a_tiles, b_tiles,
+                          vd_tiles, rgbnet: dict, *, cfg, interval: float,
+                          patch: int | None, msx: float = 1.0,
+                          msy: float = 1.0, mpatch: int | None = None,
+                          use_bf16: bool = True, origin=None, bounds=None):
+    """Plane sweep of ``T`` ray tiles with per-sample outputs, under
+    autograd (the JAX package's ``sweep_all_tiles_train``).
+
+    ``density [X,Y,Z,1]`` and ``k0 [X,Y,Z,C]`` are the grids, or, with
+    ``origin = (ox, oy)`` (host ints) and ``bounds = (Xg, Yg)``, their
+    window at that origin in a grid of that extent; ``act_shift [Z]``.
+    The mask is read in one of the JAX sweep's two modes: CHANNEL when
+    ``mask`` has the (window's) grid shape (the nearest mask value from
+    the bilinear taps), NATIVE otherwise (the nearest cell at the mask's
+    own resolution, grid positions scaled by ``msx``/``msy``, z by the
+    nearest plane). ``a_tiles``/``b_tiles [T,R,2]`` give sample k at grid
+    position ``a + b*k`` (global units); ``vd_tiles [T,R,3]``.
+
+    As in the JAX sweep, each (tile, plane) reads a ``patch``-wide slice
+    of the grid (``mpatch`` of the mask) starting one cell before the
+    tile's smallest position, and a tap outside it counts zero; with
+    ``patch`` None the whole grid is the slice (zero padding outside).
+    With ``use_bf16`` the grid values, the x weights and the MLP run in
+    bfloat16 where the JAX sweep casts (``astype(bfloat16)``): grid values
+    and x weights rounded, products summed in float32, the MLP's matmuls,
+    biases and activations in bfloat16; the gradient of a rounded grid
+    value passes through in float32.
+
+    Returns (weights [T,R,Z], alphainv_last [T,R], rgb_feature [T,R,3],
+    raw_rgb [T,R,Z,3])."""
+    X, Y, Z, C = k0.shape
+    Xg, Yg = bounds if bounds is not None else (X, Y)
+    dev = a_tiles.device
+    channel = tuple(mask.shape) == (X, Y, Z)
+    ks = torch.arange(Z, dtype=torch.float32, device=dev)
+    pos = a_tiles[:, :, None, :] + b_tiles[:, :, None, :] * ks[:, None]
+    px, py = pos[..., 0], pos[..., 1]                        # [T,R,Z] global
+    if origin is None:
+        lx, ly = px, py
+    else:
+        lx, ly = px - float(origin[0]), py - float(origin[1])
+    ox, oy = _origin(lx, X, patch), _origin(ly, Y, patch)
+    x0, x1, wx0, wx1 = _hat_taps(lx, ox, X, patch)
+    y0, y1, wy0, wy1 = _hat_taps(ly, oy, Y, patch)
+    kz = torch.arange(Z, device=dev)
+    taps = torch.stack([(x0 * Y + y0) * Z + kz, (x1 * Y + y0) * Z + kz,
+                        (x0 * Y + y1) * Z + kz, (x1 * Y + y1) * Z + kz])
+    rnd = _RoundBF16.apply if use_bf16 else (lambda t: t)
+    if use_bf16:
+        wx0, wx1 = round_bf16(wx0), round_bf16(wx1)
+    d = rnd(density.reshape(-1)[taps])                       # [4,T,R,Z]
+    f = rnd(k0.reshape(-1, C)[taps])                         # [4,T,R,Z,C]
+    dens = wy0 * (wx0 * d[0] + wx1 * d[1]) + wy1 * (wx0 * d[2] + wx1 * d[3])
+    feat = (wy0[..., None] * (wx0[..., None] * f[0] + wx1[..., None] * f[1])
+            + wy1[..., None] * (wx0[..., None] * f[2]
+                                + wx1[..., None] * f[3]))
+    with torch.no_grad():
+        if channel:
+            m = mask.reshape(-1)[taps].float()
+            r0 = wx0 * m[0] + wx1 * m[1]
+            r1 = wx0 * m[2] + wx1 * m[3]
+            mval = torch.floor(torch.floor(wy0 + 0.5) * r0
+                               + torch.floor(wy1 + 0.5) * r1 + 0.5)
+        else:
+            mX, mY, mZ = mask.shape
+            pmx, pmy = px * msx, py * msy
+            oxm, oym = _origin(pmx, mX, mpatch), _origin(pmy, mY, mpatch)
+            ix, okx = _nearest_tap(pmx, oxm, mX, mpatch)
+            iy, oky = _nearest_tap(pmy, oym, mY, mpatch)
+            zidx = torch.round(ks * (mZ - 1) / max(Z - 1, 1)).long()
+            mval = (mask[ix, iy, zidx] & okx & oky).float()
+    alpha = render.raw2alpha(dens, act_shift.to(dens.dtype), interval)
+    inb = (px >= 0) & (px <= Xg - 1) & (py >= 0) & (py <= Yg - 1)
+    zero = torch.zeros_like(alpha)
+    alpha = torch.where(inb & (mval > 0.5), alpha, zero)
+    if cfg.fast_color_thres > 0:
+        alpha = torch.where(alpha > cfg.fast_color_thres, alpha, zero)
+    # early termination: a ray stops after the first plane that leaves its
+    # transmittance under the threshold (the product before the stop is
+    # the same with or without the stop, since it never increases)
+    with torch.no_grad():
+        t_all = torch.cumprod(1.0 - alpha, dim=-1)
+        alive = torch.cat([torch.ones_like(t_all[..., :1], dtype=torch.bool),
+                           t_all[..., :-1] >= render.EARLY_TERM_THRES], -1)
+    alpha = torch.where(alive, alpha, zero)
+    t_post = torch.cumprod(1.0 - alpha, dim=-1)
+    t_pre = torch.cat([torch.ones_like(t_post[..., :1]), t_post[..., :-1]],
+                      dim=-1)
+    w = t_pre * alpha
+    if cfg.fast_color_thres > 0:
+        w = torch.where(w > cfg.fast_color_thres, w, zero)
+
+    T_, R = px.shape[:2]
+    kk = torch.full_like(px, 0.0) + (2.0 * ks / max(Z - 1, 1) - 1.0)
+    pe_spa = torch.stack([kk, py / (Yg - 1) * 2.0 - 1.0,
+                          px / (Xg - 1) * 2.0 - 1.0], dim=-1)
+    vde = ray_ops.positional_encoding(vd_tiles, cfg.viewbase_pe)
+    h = torch.cat([feat, ray_ops.positional_encoding(pe_spa, cfg.spatial_pe),
+                   vde[:, :, None, :].expand(T_, R, Z, vde.shape[-1])], -1)
+    act = common.activation(cfg.act_type)
+    if use_bf16:
+        h = _mlp_bf16(rgbnet, h, act)
+    else:
+        h = common.mlp_apply(rgbnet, h, act)
+    raw_rgb = torch.sigmoid(h)
+    rgb_feature = (w[..., None] * raw_rgb).sum(-2)
+    return w, t_post[..., -1], rgb_feature, raw_rgb
+
+
+def _mlp_bf16(rgbnet: dict, h, act):
+    """The rgbnet with its input, weights and biases in bfloat16, rounded
+    where the JAX sweep's compiled MLP rounds: each layer's product to
+    bfloat16, the bias added in float32, a hidden layer's sum rounded to
+    bfloat16 again before its activation; the last layer's sum stays
+    float32 (XLA drops that rounding before the cast back)."""
+    n = len(rgbnet) // 2
+    h = h.to(torch.bfloat16)
+    for i in range(n):
+        w = rgbnet[f"w{i}"].to(torch.bfloat16)
+        b = rgbnet[f"b{i}"].to(torch.bfloat16).float()
+        h = (h @ w).float() + b
+        if i < n - 1:
+            h = act(h.to(torch.bfloat16).float()).to(torch.bfloat16)
+    return h
+
+
+def _patch_outputs(w, t_cum, rgb_feature, raw_rgb, Z: int, *, bg: float,
+                   bg_noise=None) -> dict:
+    """The dense output dict of ``dmpigo.forward`` from one tile's sweep
+    outputs (``bg_noise [R,3]`` replaces ``bg`` when given)."""
+    w, t_cum, rgb_feature, raw_rgb = w[0], t_cum[0], rgb_feature[0], \
+        raw_rgb[0]
+    R = w.shape[0]
+    back = bg if bg_noise is None else bg_noise
+    s = ((torch.arange(Z, dtype=torch.float32, device=w.device) + 0.5)
+         / Z)[None, :].expand(R, Z)
+    return {"alphainv_last": t_cum, "weights": w,
+            "rgb_marched": rgb_feature + t_cum[:, None] * back,
+            "rgb_feature": rgb_feature, "raw_rgb": raw_rgb, "n_max": Z,
+            "s": s, "depth": (w * s).sum(-1).detach()}
+
+
+def sweep_patch_train(cfg, params, buffers, rays_o, rays_d, viewdirs, *,
+                      stepsize: float, bg: float, bg_noise=None,
+                      patch: int = 48, check: bool = True) -> dict:
+    """Differentiable render of one pixel patch (rays ``[R, 3]``) by the
+    plane sweep, returning the dense dict of ``dmpigo.forward`` (the JAX
+    package's ``plane_sweep.sweep_patch_train``, bf16 as the JAX step
+    calls it). ``patch`` is the grid slice each plane reads; with
+    ``check`` the patch's footprint is held to it and a ``ValueError``
+    raised when it does not fit."""
+    if not dmpigo.plane_aligned_ok(cfg, stepsize, ndc=True):
+        raise ValueError("the plane sweep needs the plane-aligned NDC setup")
+    X, Y, Z = cfg.world_size
+    dev = rays_o.device
+    sizes = torch.tensor([X, Y], dtype=torch.float32, device=dev)
+    a, b = affine_coeffs(rays_o, rays_d, as_tensor(cfg.xyz_min, dev),
+                         as_tensor(cfg.xyz_max, dev), sizes, Z)
+    if check:
+        for k in (0.0, float(Z - 1)):
+            p = a + b * k
+            spread = (p.amax(0) - p.amin(0)).cpu()
+            if bool((spread > patch - 3).any()):
+                raise ValueError(f"patch footprint {spread.tolist()} exceeds "
+                                 f"{patch}")
+    mask = buffers["mask_cache"]
+    msx, msy, mpatch = mask_scale_and_patch(cfg, mask.shape, patch)
+    out = sweep_all_tiles_train(
+        params["density"], params["k0"], buffers["act_shift"].reshape(-1),
+        mask, a[None], b[None], viewdirs[None], params["rgbnet"], cfg=cfg,
+        interval=float(stepsize * cfg.voxel_size_ratio), patch=patch,
+        msx=msx, msy=msy, mpatch=mpatch)
+    return _patch_outputs(*out, Z, bg=bg, bg_noise=bg_noise)
+
+
+def sweep_window_origin(a, b, Z: int, X: int, Y: int, window: int):
+    """Origin ``(ox, oy)`` (host ints) of the ``window``-wide grid window
+    that holds a ray patch's footprint on every plane: ``pos(k) = a + b*k``
+    is affine in k, so the extremes lie on planes 0 and Z - 1."""
+    p1 = a + b * float(Z - 1)
+    mn = torch.minimum(a.reshape(-1, 2).amin(0), p1.reshape(-1, 2).amin(0))
+    o = torch.floor(mn).long() - 1
+    return (int(o[0].clamp(0, X - window)), int(o[1].clamp(0, Y - window)))
+
+
+def sweep_patch_train_win(cfg, win_params, win_buffers, a, b, viewdirs, *,
+                          origin, interval: float, patch: int, bg: float,
+                          bg_noise=None) -> dict:
+    """:func:`sweep_patch_train` on a grid window (the JAX package's
+    ``sweep_patch_train_win``): ``win_params`` holds the density and k0
+    windows at ``origin`` and the rgbnet, ``win_buffers`` the act_shift and
+    the mask window (the mask must have the grid's resolution); ``a, b``
+    are the global affine coefficients. The slices shift by the integer
+    origin, so the taps, their order and the result are those of the full
+    grid's sweep."""
+    X, Y, Z = cfg.world_size
+    mask = win_buffers["mask_cache"]
+    if tuple(mask.shape) != tuple(win_params["density"].shape[:3]):
+        raise NotImplementedError(
+            "the windowed step needs a mask at the grid's resolution (the "
+            "caller takes sweep_patch_train)")
+    out = sweep_all_tiles_train(
+        win_params["density"], win_params["k0"],
+        win_buffers["act_shift"].reshape(-1), mask, a[None], b[None],
+        viewdirs[None], win_params["rgbnet"], cfg=cfg, interval=interval,
+        patch=patch, origin=origin, bounds=(X, Y))
+    return _patch_outputs(*out, Z, bg=bg, bg_noise=bg_noise)
+
+
+_NATIVE_SAMPLES = 1 << 21  # (ray, plane) pairs a chunk of the native render
+
+
+@torch.no_grad()
+def render_frame_native(cfg, params, buffers, H: int, W: int, K, c2w, *,
+                        stepsize: float, bg: float, device=None) -> dict:
+    """Full-frame float32 render that reads the mask at its own resolution
+    (the JAX package's XLA ``plane_sweep.render_frame`` with
+    ``use_bf16=False``, the render its scored views take) of an LLFF
+    camera (no y inversion, no flips): rays in chunks through
+    :func:`sweep_all_tiles_train` without grid slices."""
+    if not dmpigo.plane_aligned_ok(cfg, stepsize, ndc=True):
+        raise ValueError("the plane sweep needs the plane-aligned NDC setup")
+    dev = resolve_device(device)
+    X, Y, Z = cfg.world_size
+    ro, rd, vd = (t.reshape(-1, 3) for t in ray_ops.get_rays_of_a_view(
+        H, W, K, c2w, ndc=True, inverse_y=False, flip_x=False,
+        flip_y=False, device=dev))
+    sizes = torch.tensor([X, Y], dtype=torch.float32, device=dev)
+    a, b = affine_coeffs(ro, rd, as_tensor(cfg.xyz_min, dev),
+                         as_tensor(cfg.xyz_max, dev), sizes, Z)
+    mask = buffers["mask_cache"]
+    msx, msy, _ = mask_scale_and_patch(cfg, mask.shape, 8)
+    params32 = {k: v.float() if k != "rgbnet" else
+                {n: t.float() for n, t in v.items()}
+                for k, v in params.items()}
+    chunk = max(_NATIVE_SAMPLES // Z, 1)
+    rgb, depth, ail = [], [], []
+    s = (torch.arange(Z, dtype=torch.float32, device=dev) + 0.5) / Z
+    for i in range(0, a.shape[0], chunk):
+        w, t, f, _ = sweep_all_tiles_train(
+            params32["density"], params32["k0"],
+            buffers["act_shift"].reshape(-1).float(), mask,
+            a[None, i:i + chunk], b[None, i:i + chunk], vd[None, i:i + chunk],
+            params32["rgbnet"], cfg=cfg,
+            interval=float(stepsize * cfg.voxel_size_ratio), patch=None,
+            msx=msx, msy=msy, use_bf16=False)
+        rgb.append(f[0])
+        depth.append((w[0] * s).sum(-1))
+        ail.append(t[0])
+    return assemble(torch.cat(rgb), torch.cat(depth), torch.cat(ail), H, W,
+                    bg)

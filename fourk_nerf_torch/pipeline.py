@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from fourk_nerf_torch.device import resolve_device
+from fourk_nerf_torch.device import fp32_precision, resolve_device
 from fourk_nerf_torch.models import dmpigo, dvgo, sr_esrnet
 from fourk_nerf_torch.ops import cuda_box, cuda_sr, cuda_sweep, \
     rays as ray_ops
@@ -36,7 +36,8 @@ class FramePipeline:
     ``fuse_rrdb`` decodes with one launch per RRDB instead of three. An
     SFTNet of another geometry than the kernels' (64 feat, grow 32)
     decodes through its float32 forward, as the JAX package's video loop
-    does; that is decided here, from the geometry."""
+    does; that is decided here, from the geometry. The decode runs in full
+    float32 (no TF32)."""
 
     def __init__(self, cfg, params: dict, buffers: dict, sr_model, *,
                  use_bf16: bool = True, fuse_rrdb: bool = False,
@@ -71,6 +72,7 @@ class FramePipeline:
             self.cfg, self.params, None, H, W, K, c2w, stepsize=self.stepsize,
             bg=self.bg, device=self.device, packed=self.packed)
 
+    @fp32_precision()
     def decode(self, enc: dict) -> torch.Tensor:
         """The SR decode of an encoder output: ``[1, sH, sW, 3]`` float32
         at the network's scale, conditioned on depth."""
@@ -107,10 +109,12 @@ def sr_condition(num_cond: int, depth, K, c2w, data: trainer.DataFlags,
     return torch.cat(conds, dim=-1)
 
 
+@fp32_precision()
 def render_video(model_mod, model_cfg, params, buffers, sr_model,
                  render_poses, HW, Ks, *, data: trainer.DataFlags,
                  render_kwargs: dict, num_cond: int = 1,
-                 fuse_rrdb: bool = False, test_tile: int = 0,
+                 fuse_rrdb: bool = False, upchain: str = "dilated",
+                 test_tile: int = 0,
                  render_factor: int = 0, render_video_flipy: bool = False,
                  render_video_rot90: int = 0, device=None) -> dict:
     """Render a fly-through: the encoder frames of every pose, then per
@@ -121,7 +125,8 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
     ``test_tile`` > 0 each frame is decoded in tiles of that size by
     ``sr_esrnet.tile_process`` around the float32 ``SFTNet`` forward (the
     memory-bounded decode of ``run_sr.py --test_tile``; it needs the
-    module, not a prepared pack); otherwise by the fused decode, or, for
+    module, not a prepared pack); otherwise by the fused decode (its
+    ``upchain``, ``"dilated"`` or ``"materialized"``), or, for
     an SFTNet of another geometry than the kernels', by its float32 forward
     (decided up front, as the JAX package's loop decides). The viewdir
     condition (``num_cond`` 63 or 64) is built, as in that loop, from the
@@ -129,7 +134,8 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
     Returns
     ``frames [N, sH, sW, 3]`` (float32, on the device), ``sr_times``
     (seconds per decode, host clock) and the encoder's result dict under
-    ``encoder``."""
+    ``encoder``. Runs in full float32 (no TF32): the float32 decodes
+    compute what the checks compare."""
     dev = resolve_device(device)
     n = len(render_poses)
     HW = np.tile(np.asarray(HW)[None], (n, 1))
@@ -160,7 +166,7 @@ def render_video(model_mod, model_cfg, params, buffers, sr_model,
         def decode(feat, cond):
             return cuda_sr.sftnet_apply_cuda(prep, feat, cond,
                                              fuse_rrdb=fuse_rrdb,
-                                             upchain="dilated")
+                                             upchain=upchain)
     K = Ks[0]
     frames, sr_times = [], []
     for fi in range(n):

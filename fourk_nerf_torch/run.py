@@ -19,7 +19,7 @@ import random
 import numpy as np
 import torch
 
-from fourk_nerf_torch.device import resolve_device
+from fourk_nerf_torch.device import fp32_precision, resolve_device
 
 
 def config_parser():
@@ -87,10 +87,11 @@ def _write_images(outdir: str, rgbs) -> None:
                         to8b(rgb.cpu().numpy()))
 
 
+@fp32_precision()
 def run(args, cfg, data_dict) -> dict:
-    """Train (or reload) and render on ``args.device``. Returns the
-    ``render_viewpoints`` results by split name ("test", "train",
-    "video")."""
+    """Train (or reload) and render on ``args.device``, in full float32
+    (no TF32). Returns the ``render_viewpoints`` results by split name
+    ("test", "train", "video")."""
     from fourk_nerf_torch.train import checkpoints, trainer
     from fourk_nerf_torch.utils.logging import ScalarWriter, dump_provenance
 
@@ -102,8 +103,8 @@ def run(args, cfg, data_dict) -> dict:
                                   "ROADMAP.md Queue A item 2 (the coarse "
                                   "stage)")
     if args.eval_lpips_alex or args.eval_lpips_vgg:
-        raise NotImplementedError("LPIPS is not ported yet: ROADMAP.md Queue "
-                                  "A item 3 (utils/metrics)")
+        raise NotImplementedError("LPIPS of the encoder's renders is not "
+                                  "ported yet: ROADMAP.md Queue A item 3b")
     dev = resolve_device(args.device)
     rundir = os.path.join(cfg.basedir, cfg.expname)
     dump_provenance(cfg, args, rundir)

@@ -1,10 +1,12 @@
-"""A tiny forward-facing scene and the fern pretrain config cut to its size,
-for the CPU tests of the trainer and the card's CPU-vs-CUDA check.
+"""Tiny forward-facing scenes and the fern configs cut to their size, for
+the CPU tests of the trainers and the card's CPU-vs-CUDA checks.
 
 :func:`scene` builds an LLFF-shaped ``data_dict`` in memory from a seed
 (smooth colour fields seen by NDC cameras shifted a few hundredths in x
 and y); :data:`OVERRIDES` and :func:`apply_overrides` cut a loaded config
 (of this package or of the JAX package: the same keys) to that scene.
+:func:`sr_scene` adds the x4 ground truth of the joint trainer, and
+:data:`JOINT_OVERRIDES` cuts ``configs/llff/fern_lg_joint_l1.py`` to it.
 """
 
 from __future__ import annotations
@@ -74,3 +76,50 @@ def scene(seed: int = 0, n_views: int = N_VIEWS) -> dict:
         Ks=K[None].repeat(n_views, 0), near=0.0, far=1.0, near_clip=None,
         i_train=i_train, i_val=i_val, i_test=i_test, poses=c2w,
         render_poses=c2w.copy(), images=images, irregular_shape=False)
+
+
+#: section -> key -> value, set over ``configs/llff/fern_lg_joint_l1.py``
+#: for :func:`sr_scene`: a 64x64x16 grid, 8-pixel patches, TV through step
+#: 4, the published SFTNet (the trainer fixes its width and depth)
+JOINT_OVERRIDES = {
+    "data": {"rand_bkgd": False, "load_sr": 1, "factor": 4},
+    "fine_train": {"N_iters": 6, "N_patch": 8, "pg_scale": [],
+                   "tv_before": 5, "weight_tv_density": 1e-4,
+                   "weight_tv_k0": 1e-5},
+    "fine_model_and_render": {"num_voxels": 64 * 64 * 16, "mpi_depth": 16,
+                              "rgbnet_dim": 6, "rgbnet_width": 16,
+                              "fast_color_thres": 1.0 / 16 / 5},
+}
+#: the scene box of :func:`sr_scene` (xyz_min, xyz_max)
+SR_BOX = ([-2.0, -2.0, -1.0], [2.0, 2.0, 1.0])
+
+
+def sr_scene(seed: int = 0, n_views: int = 3, h: int = 32,
+             w: int = 32) -> dict:
+    """An LLFF-shaped ``data_dict`` for the joint trainer: ``n_views``
+    views of smooth colour fields seen by NDC cameras a few hundredths
+    apart in x, the last held out; ``srgt`` the x4 fields (NCHW, as the
+    LLFF loader gives it) and ``images`` their 4x4 means."""
+    rng = np.random.default_rng(seed)
+    f = 40.0
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    c2w = np.zeros((n_views, 3, 4), np.float32)
+    for i, dx in enumerate(np.linspace(-0.05, 0.05, n_views)):
+        c2w[i, :, :3] = np.eye(3)
+        c2w[i, :, 3] = (dx, 0.0, 1.0)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 4 * h), np.linspace(0, 1, 4 * w),
+                         indexing="ij")
+    freq = rng.uniform(1.0, 4.0, (3, 2))
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    hr = np.stack([np.stack(
+        [0.5 + 0.4 * np.sin(2 * np.pi * (freq[c, 0] * (xx + c2w[v, 0, 3])
+                                         + freq[c, 1] * yy) + phase[c])
+         for c in range(3)], -1) for v in range(n_views)]).astype(np.float32)
+    lr = hr.reshape(n_views, h, 4, w, 4, 3).mean((2, 4))
+    return dict(hwf=[h, w, f], HW=np.array([[h, w]] * n_views),
+                Ks=np.stack([K] * n_views), near=0.0, far=1.0,
+                near_clip=None, i_train=np.arange(n_views - 1),
+                i_val=[n_views - 1], i_test=np.array([n_views - 1]),
+                poses=c2w, render_poses=c2w.copy(), images=lr,
+                irregular_shape=False, srgt=np.moveaxis(hr, -1, 1).copy(),
+                w2c=np.stack([np.eye(3, dtype=np.float32)] * n_views))

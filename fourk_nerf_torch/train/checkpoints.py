@@ -113,9 +113,8 @@ def save_checkpoint(path: str, model_kwargs: dict, params: dict,
     flat.update({f"buffers/{k}": v
                  for k, v in tree_to_flat_dict(buffers).items()})
     if opt_state is not None:
-        opt = dict(opt_state)
-        opt["step"] = np.asarray(int(opt["step"]), dtype=np.int32)
-        flat.update({f"opt/{k}": v for k, v in tree_to_flat_dict(opt).items()})
+        flat.update({f"opt/{k}": _int32_steps(k, v) for k, v in
+                     tree_to_flat_dict(opt_state).items()})
     meta = {"model_kwargs": model_kwargs, "global_step": int(global_step)}
     if extra_meta:
         meta.update(extra_meta)
@@ -127,15 +126,31 @@ def save_checkpoint(path: str, model_kwargs: dict, params: dict,
         saver.submit(path, flat)
 
 
+def _is_step(path: str) -> bool:
+    return path == "step" or path.endswith("/step")
+
+
+def _int32_steps(path: str, v):
+    """An optimizer tree's ``step`` leaf (a host int here) as the JAX
+    package's int32 scalar; any other leaf as it is."""
+    if _is_step(path) and not isinstance(v, torch.Tensor):
+        return np.asarray(int(v), dtype=np.int32)
+    return v
+
+
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    dtype = torch.bool if a.dtype == bool else torch.float32
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    """Floats as float32, bools and integers in their own type."""
+    a = np.asarray(a)
+    dtype = torch.float32 if np.issubdtype(a.dtype, np.floating) else None
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def load_checkpoint(path: str, device=None):
     """(model_kwargs, params, buffers, opt_state or None, global_step, meta),
-    the arrays as tensors on ``device`` (default ``cuda``): float32, the
-    masks bool, the optimizer's step a host int."""
+    the arrays as tensors on ``device`` (default ``cuda``): floats float32,
+    masks bool, integers integer. Every optimizer ``step`` becomes a host
+    int: the top-level one of an encoder checkpoint, and the one of each
+    optimizer of a joint checkpoint (``opt/{enc,sr,d}/step``)."""
     dev = resolve_device(device)
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
@@ -144,13 +159,16 @@ def load_checkpoint(path: str, device=None):
     for k, v in flat.items():
         head, rest = k.split("/", 1)
         groups[head][rest] = v
-    step = groups["opt"].pop("step", None)
-    params, buffers, opt = (
+    params, buffers = (
         flat_dict_to_tree({k: _tensor(v, dev) for k, v in g.items()})
-        for g in (groups["params"], groups["buffers"], groups["opt"]))
+        for g in (groups["params"], groups["buffers"]))
     opt_state = None
-    if opt:
-        opt_state = {**opt, "step": int(step) if step is not None else 0}
+    if groups["opt"]:
+        opt_state = flat_dict_to_tree(
+            {k: int(v) if _is_step(k) else _tensor(v, dev)
+             for k, v in groups["opt"].items()})
+        if "exp_avg" in opt_state:
+            opt_state.setdefault("step", 0)
     return (meta["model_kwargs"], params, buffers, opt_state,
             meta.get("global_step", 0), meta)
 

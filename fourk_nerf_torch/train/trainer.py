@@ -229,7 +229,8 @@ def gather_training_rays(cfg, cfg_train, data_dict, device=None):
     if sampler in ("in_maskcache", "patch_box"):
         raise _later(f"the {sampler} sampler", "2 (the bounded run.py path)")
     if sampler in ("patch_simg", "patch_mimg", "patch_inmask"):
-        raise _later(f"the {sampler} sampler", "3 (the joint SR trainer)")
+        raise _later(f"run.py's {sampler} sampler",
+                     "3c (the encoder's patch samplers)")
     if sampler not in ("flatten", "random"):
         raise NotImplementedError(sampler)
     dev = resolve_device(device)
@@ -294,7 +295,8 @@ def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int):
     if sampler in ("in_maskcache", "patch_box"):
         raise _later(f"the {sampler} sampler", "2 (the bounded run.py path)")
     if sampler in ("patch_simg", "patch_mimg", "patch_inmask"):
-        raise _later(f"the {sampler} sampler", "3 (the joint SR trainer)")
+        raise _later(f"run.py's {sampler} sampler",
+                     "3c (the encoder's patch samplers)")
     raise NotImplementedError(sampler)
 
 

@@ -60,9 +60,17 @@ def dvgo_from_numpy(params, buffers, device=None):
     return to_torch(params, dev), to_torch(buffers, dev)
 
 
+def _as_float(x) -> torch.Tensor:
+    """An array or tensor as a float32 tensor on its own device."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return torch.tensor(np.asarray(x, np.float32))
+
+
 def _load_flax_convs(model, tree: dict):
-    """Copy a flax tree into ``model`` by name: every :class:`Conv` takes
-    ``kernel`` (HWIO -> OIHW) and ``bias`` of the node at its path."""
+    """Copy a flax tree (arrays or tensors) into ``model`` by name: every
+    :class:`Conv` takes ``kernel`` (HWIO -> OIHW) and ``bias`` of the node
+    at its path."""
     with torch.no_grad():
         for path, mod in model.named_modules():
             if not isinstance(mod, sr_esrnet.Conv):
@@ -70,27 +78,94 @@ def _load_flax_convs(model, tree: dict):
             node = tree
             for part in path.split("."):
                 node = node[part]
-            k = torch.tensor(np.asarray(node["kernel"], np.float32))
-            mod.weight.copy_(k.permute(3, 2, 0, 1))
-            mod.bias.copy_(torch.tensor(np.asarray(node["bias"], np.float32)))
+            mod.weight.copy_(_as_float(node["kernel"]).permute(3, 2, 0, 1))
+            mod.bias.copy_(_as_float(node["bias"]))
     return model
 
 
 def sftnet_from_flax(tree: dict, device=None) -> sr_esrnet.SFTNet:
-    """Build an :class:`SFTNet` from a flax ``params`` tree, inferring its
-    shape (input colours, condition channels, blocks, scale)."""
+    """Build an :class:`SFTNet` from a flax ``params`` tree (arrays or
+    tensors), inferring its shape (input colours, condition channels,
+    blocks, scale)."""
     dev = resolve_device(device)
     num_block = sum(1 for k in tree if k.startswith("body"))
     scale = 4 if "conv_up2" in tree else 2 if "conv_up1" in tree else 1
+
+    def dim(node, i):
+        return int(tuple(node["kernel"].shape)[i])
+
     model = sr_esrnet.SFTNet(
-        n_in_colors=int(np.shape(tree["conv_first"]["kernel"])[2]),
-        scale=scale,
-        num_feat=int(np.shape(tree["conv_first"]["kernel"])[3]),
-        num_block=num_block,
-        num_grow_ch=int(np.shape(tree["body0"]["rdb1"]["conv1"]["kernel"])[3])
+        n_in_colors=dim(tree["conv_first"], 2), scale=scale,
+        num_feat=dim(tree["conv_first"], 3), num_block=num_block,
+        num_grow_ch=dim(tree["body0"]["rdb1"]["conv1"], 3)
         if num_block else 32,
-        num_cond=int(np.shape(tree["cond0"]["kernel"])[2]))
+        num_cond=dim(tree["cond0"], 2))
     return _load_flax_convs(model, tree).to(dev).eval()
+
+
+def sftnet_params(model) -> dict:
+    """The module's parameters as a tree of the flax names
+    (``{"body0": {"rdb1": {"conv1": {"kernel", "bias"}}}, ...}``), each
+    leaf the module's own tensor (kernels OIHW): the generator's group of
+    the joint trainer's MaskedAdam, which updates them in place."""
+    tree: dict = {}
+    for path, mod in model.named_modules():
+        if not isinstance(mod, sr_esrnet.Conv):
+            continue
+        node = tree
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        node["kernel"], node["bias"] = mod.weight, mod.bias
+    return tree
+
+
+def flax_kernels(tree):
+    """A tree of the flax names with its ``kernel`` leaves taken from the
+    module's OIHW layout to flax's HWIO (new tensors; the other tensors
+    detached)."""
+    if not isinstance(tree, dict):
+        return tree.detach() if isinstance(tree, torch.Tensor) else tree
+    return {k: v.detach().permute(2, 3, 1, 0).contiguous()
+            if k == "kernel" else flax_kernels(v) for k, v in tree.items()}
+
+
+def torch_kernels(tree, device=None):
+    """The inverse of :func:`flax_kernels`: arrays or tensors of flax's
+    layout as float32 tensors on ``device`` (default ``cuda``), kernels
+    OIHW."""
+    if isinstance(tree, dict):
+        return {k: torch_kernels(v, device).permute(3, 2, 0, 1).contiguous()
+                if k == "kernel" else torch_kernels(v, device)
+                for k, v in tree.items()}
+    return _as_float(tree).to(resolve_device(device))
+
+
+def sftnet_to_flax(model) -> dict:
+    """The inverse of :func:`sftnet_from_flax`: the module's weights as a
+    flax ``params`` tree of numpy arrays (kernels HWIO)."""
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        return t.cpu().numpy()
+
+    return np_tree(flax_kernels(sftnet_params(model)))
+
+
+def sr_opt_state_from_numpy(state, device=None) -> dict:
+    """The generator's MaskedAdam state in the JAX package's layout
+    (``init_state({"srnet": params})``: moments under ``srnet`` with HWIO
+    kernels, an int32 ``step``) -> the port's (tensors on ``device``,
+    kernels OIHW, the step a host int)."""
+    return {"exp_avg": torch_kernels(state["exp_avg"], device),
+            "exp_avg_sq": torch_kernels(state["exp_avg_sq"], device),
+            "step": int(np.asarray(state["step"]))}
+
+
+def joint_opt_state_from_numpy(states: dict, device=None) -> dict:
+    """The joint trainer's optimizer states in the JAX layout (the
+    encoder's ``enc``, the generator's ``sr``) -> the port's."""
+    return {"enc": opt_state_from_numpy(states["enc"], device),
+            "sr": sr_opt_state_from_numpy(states["sr"], device)}
 
 
 def rrdbnet_bps_from_flax(tree: dict, device=None) -> sr_esrnet.RRDBNetBPS:

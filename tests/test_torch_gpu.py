@@ -441,3 +441,154 @@ def test_total_variation_grad_cuda_matches_cpu(cuda, sparse):
         torch.as_tensor(g, device=d) if sparse else None).cpu().numpy()
         for d in ("cpu", cuda)]
     np.testing.assert_allclose(out[1], out[0], rtol=0, atol=1e-7)
+
+
+# --- the joint trainer on the card, and full float32 without TF32 ---------
+
+@pytest.fixture
+def cuda_tf32_on():
+    """The card with TF32 forced on for float32 matmuls and cuDNN convs (a
+    user's process has it on for convs by default); the test itself turns
+    nothing off. The settings are restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        saved
+
+
+def _joint_tiny(dev):
+    cfg = dmpigo.make_config(
+        xyz_min=[-1.3, -1.2, -1.0], xyz_max=[1.3, 1.2, 1.0],
+        num_voxels=32 * 32 * 8, mpi_depth=8, rgbnet_dim=6, rgbnet_width=16,
+        fast_color_thres=1.0 / 40)
+    params, buffers = dmpigo.init(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator().manual_seed(1)
+    params["density"] = torch.randn(params["density"].shape,
+                                    generator=g).to(dev)
+    params["k0"] = torch.randn(params["k0"].shape, generator=g).to(dev)
+    return cfg, params, buffers
+
+
+def _sftnet(dev, **kw):
+    from fourk_nerf_torch.models import sr_esrnet
+    model = sr_esrnet.SFTNet(**kw)
+    sr_esrnet.init_like_jax(model, torch.Generator().manual_seed(2))
+    return model.to(dev)
+
+
+def test_float32_video_decode_ignores_tf32(cuda_tf32_on):
+    """``render_video``'s float32 branch (an SFTNet of another geometry
+    than the kernels') on the card, against the same decode on the CPU:
+    within 1e-5, where the same forward under TF32 is off by more."""
+    from fourk_nerf_torch import pipeline
+    from fourk_nerf_torch.train import trainer
+    dev = cuda_tf32_on
+    cfg, params, buffers = _joint_tiny(dev)
+    sr = _sftnet(dev, num_feat=32, num_block=2, num_grow_ch=16)
+    assert not cuda_sr.fits_kernels(sr)
+    K, c2w = sweep_camera(48, 64)
+    res = pipeline.render_video(
+        dmpigo, cfg, params, buffers, sr, c2w[None], np.array([48, 64]), K,
+        data=trainer.DataFlags(ndc=True),
+        render_kwargs={"stepsize": 1.0, "bg": 0.0}, device=dev)
+    feat = res["encoder"]["rgb_features"][0][None]
+    cond = res["encoder"]["depths"][0][None, ..., None]
+    sr_cpu = _sftnet("cpu", num_feat=32, num_block=2, num_grow_ch=16)
+    with torch.no_grad():
+        want = sr_cpu(feat.cpu(), cond.cpu())[0].clamp(0, 1)
+        tf32 = sr(feat, cond)[0].clamp(0, 1).cpu()  # TF32 on: no entry point
+    err = float((res["frames"][0].cpu() - want).abs().max())
+    err_tf32 = float((tf32 - want).abs().max())
+    assert err <= 1e-5, err
+    assert err_tf32 > 1e-5, err_tf32  # the check sees TF32
+
+
+def test_joint_step_ignores_tf32(cuda_tf32_on):
+    """One joint step (gather render, SFTNet forward and backward, both
+    MaskedAdams) on the card against the CPU: loss within 1e-5 relative,
+    the generator's gradients (its first moments) within 1e-4 of each
+    leaf's largest entry."""
+    from fourk_nerf_torch.config import ConfigDict
+    from fourk_nerf_torch.ops import rays
+    from fourk_nerf_torch.train import checkpoints, optim, sr_trainer
+    out = {}
+    for dev in ("cpu", cuda_tf32_on):
+        cfg, params, buffers = _joint_tiny(dev)
+        sr = _sftnet(dev, num_feat=32, num_block=1, num_grow_ch=16)
+        ct = ConfigDict(dict(weight_main=1.0, weight_entropy_last=1e-3,
+                             weight_distortion=0.01, weight_rgbper=0.01,
+                             weight_tv_density=0, weight_tv_k0=0))
+        step = sr_trainer.SRTrainStep(
+            dmpigo, cfg, ct, ConfigDict({}),
+            render_kwargs={"stepsize": 1.0, "bg": 0.0, "ndc_planes": True},
+            skip_zero_grad={"density", "k0"}, sr_model=sr, n_views=1,
+            patch=8, sr_ratio=4)
+        K, c2w = sweep_camera(32, 40)
+        ro, rd, vd = (t[10:18, 12:20].reshape(-1, 3) for t in
+                      rays.get_rays_of_a_view(32, 40, K, c2w, ndc=True,
+                                              inverse_y=False, flip_x=False,
+                                              flip_y=False, device=dev))
+        g = torch.Generator().manual_seed(3)
+        batch = (ro, rd, vd, torch.rand(64, 3, generator=g).to(dev),
+                 torch.rand(1024, 3, generator=g).to(dev))
+        sr_opt = optim.init_state({"srnet": weights.sftnet_params(sr)})
+        loss, _, _ = step(params, buffers, optim.init_state(params), sr_opt,
+                          batch, {"enc": {"k0": 0.1, "density": 0.1},
+                                  "srnet": 1e-3},
+                          apply_tv=False, tv_dense=False)
+        out[str(dev)] = (loss.item(), checkpoints.tree_to_flat_dict(
+            sr_opt["exp_avg"]))
+    (lc, mc), (lg, mg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for k, want in mc.items():
+        got = mg[k].cpu()
+        tol = 1e-4 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol, k
+
+
+def test_joint_steps_cuda_match_cpu(cuda, tmp_path):
+    """Six joint steps of the tiny joint scene (``tools/tiny_scene.py``,
+    the full-grid sweep with TV, then the grid window) on the card and on
+    the CPU: every loss term at every step within 1e-4 relative."""
+    import os
+    import types
+
+    from fourk_nerf_torch import config
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import sr_trainer
+
+    class W:
+        def __init__(self):
+            self.rows = {}
+
+        def scalar(self, tag, value, step):
+            self.rows.setdefault(tag, []).append(value)
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = tiny_scene.apply_overrides(config.load_config(os.path.join(
+            root, "fourk_nerf_torch", "configs", "llff",
+            "fern_lg_joint_l1.py")), str(tmp_path), dev,
+            tiny_scene.JOINT_OVERRIDES)
+        w = W()
+        args = types.SimpleNamespace(seed=0, no_reload=True, ftdv_path="",
+                                     ftsr_path="", no_reload_optimizer=False,
+                                     i_print=1, i_val=0, i_weights=0,
+                                     test_tile=0)
+        sr_trainer.scene_rep_reconstruction_sr_patch(
+            args, cfg, cfg.fine_model_and_render, cfg.fine_train,
+            *(np.array(v) for v in tiny_scene.SR_BOX), tiny_scene.sr_scene(),
+            stage="fine", writer=w, device=dev)
+        out[dev] = w.rows
+    assert set(out["cuda"]) == set(out["cpu"])
+    for k, want in out["cpu"].items():
+        assert len(want) == 6
+        np.testing.assert_allclose(out["cuda"][k], want, rtol=1e-4,
+                                   err_msg=k)
