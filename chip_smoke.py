@@ -79,7 +79,27 @@ Phases (any failure raises and the script exits non-zero):
      not installed; timings: the full-width joint step split into its
      parts beside their bounds, a profiled step, ``evaluate_sr``'s parts,
      the checkpoint's save and load; one ``{"joint": ...}`` JSON line;
- 15. one JSON line with the seven kernels' summary, then the result line.
+ 15. joint GAN + perceptual training at full width:
+     ``fourk_nerf_torch/configs/llff/fern_lg_joint_l1_gan.py`` from phase
+     13's checkpoint for 40 steps (phase 14's cut, and
+     ``allow_random_vgg``: the perceptual and style terms on the fixed-seed
+     random VGG19 tower, logged as the one deviation from the published
+     objective; 64x64 patches, 256x256 truth, the published SFTNet and the
+     ``Unet`` discriminator at 64 features, float32); checks: the SR L1
+     falls, the discriminator's losses stay finite, every spectral-norm
+     vector moved, the final joint file holds ``__disc__``,
+     ``__disc_state__`` and ``opt/d`` and round-trips through
+     ``load_joint``; then ``run_sr --render_only --render_test
+     --render_video`` serves one 4K frame from it as in phase 14; timings:
+     the full-width GAN step, the L1 step and the GAN step in turn on
+     the same state (5 pairs), the GAN step's parts (patch render,
+     SFTNet, VGG perceptual + style, the generator's discriminator call,
+     the discriminator's step, the three MaskedAdams) beside their bounds
+     (bytes, and torch's flop counter at the FP32 peak), a profiled step,
+     peak memory; then ``fern_lg_joint_1x_l1_gan.py`` (the scale-1 SFTNet,
+     the discriminator on the 64x64 LR truth) for 10 steps, its step
+     time; one ``{"joint_gan": ...}`` JSON line;
+ 16. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -126,6 +146,17 @@ JOINT_OVERRIDES = {
     "fine_train": {"pg_scale": TRAIN_OVERRIDES["fine_train"]["pg_scale"],
                    "tv_before": 20},
     "args": {"i_print": 10, "i_val": 40, "i_weights": 30},
+}
+GAN_STEPS = 40             # phase 15: GAN joint steps after the pretrain's
+GAN_1X_STEPS = 10          # last; then the scale-1 config's
+ALTERNATE_PAIRS = 5        # phase 15: L1 and GAN steps timed in turn
+#: phase 15: phase 14's cut, and the one deviation from the published
+#: objective: no pretrained VGG19 weights exist here, so the perceptual and
+#: style terms run on the fixed-seed random tower
+GAN_OVERRIDES = {
+    "fine_train": {**JOINT_OVERRIDES["fine_train"],
+                   "allow_random_vgg": True},
+    "args": JOINT_OVERRIDES["args"],
 }
 
 
@@ -1466,6 +1497,152 @@ class SkippedWrites:
         log(f"  image write skipped (no imageio): {os.path.basename(path)}")
 
 
+def serve_joint(dev, cfg_path, basedir, expname, last, data):
+    """``run_sr --render_only --render_test --render_video --eval_lpips_vgg``
+    from the joint file ``last``: the held-out views scored and one 4K
+    frame served (its video write logged and skipped where imageio is not
+    installed); checks the launches (the sweep kernel for each scored view
+    and the frame, 15 dense-block launches) and holds the frame's decode,
+    kernel chain vs plain chain, within ``SR_TOL``. Returns
+    (``evaluate_sr``'s seconds, the serve record, the launches)."""
+    import torch
+    from fourk_nerf_torch import config as config_mod, run_sr
+    from fourk_nerf_torch.ops import cuda_sr, cuda_sweep
+
+    one = dict(data, render_poses=data["poses"][data["i_test"][:1]])
+    rargs = run_sr.config_parser().parse_args(
+        ["--config", os.path.join(HERE, cfg_path), "--render_only",
+         "--render_video", "--eval_lpips_vgg", "--ft_path", last,
+         "--device", dev.type])
+    cfg_r = config_mod.load_config(os.path.join(HERE, cfg_path))
+    cfg_r.basedir, cfg_r.expname = basedir, expname
+    real_imageio = run_sr._imageio
+    try:
+        import imageio.v2  # noqa: F401
+    except ImportError:
+        run_sr._imageio = SkippedWrites
+    cuda_sweep.sweep.launches = 0
+    cuda_sr.rdb_apply.launches = 0
+    try:
+        res = run_sr.run(rargs, cfg_r, one)
+    finally:
+        run_sr._imageio = real_imageio
+    sync()
+    launches = {"sweep": cuda_sweep.sweep.launches,
+                "rdb": cuda_sr.rdb_apply.launches}
+    video, test = res["video"], res["test"]
+    enc_s = video["encoder"]["frame_times"][0]
+    sr_s = video["sr_times"][0]
+    log(f"  evaluate_sr of the {len(data['i_test'])} held-out views: seconds "
+        f"{test['seconds']} (host clock)")
+    serve = {"launches": launches, "encoder_s": enc_s, "decoder_s": sr_s,
+             "frame_s": enc_s + sr_s, "psnr_sr_test": test["psnr_sr"],
+             "ssim_sr_test": test["ssim_sr"], "psnr_lr_test": test["psnr_lr"]}
+    log(f"  served 4K frame (first call, host clock): encoder "
+        f"{enc_s * 1e3:.1f} ms, decoder {sr_s * 1e3:.1f} ms, frame "
+        f"{(enc_s + sr_s) * 1e3:.1f} ms; launches {launches}; "
+        f"--render_test held-out views: PSNR_SR {test['psnr_sr']:.3f}, "
+        f"SSIM {test['ssim_sr']:.4f}, LR PSNR {test['psnr_lr']}")
+    n_test = len(data["i_test"])
+    if launches != {"sweep": 1 + n_test, "rdb": 15}:
+        raise AssertionError(f"serving launches {launches}")
+    frame = video["frames"][0]
+    if tuple(frame.shape) != (H * SCALE, W * SCALE, 3) \
+            or not bool(torch.isfinite(frame).all()):
+        raise AssertionError("the served frame is not a finite 4K frame")
+    prep = cuda_sr.prepare_sftnet(res["model"][4])
+    feat = video["encoder"]["rgb_features"][0][None]
+    depth = video["encoder"]["depths"][0][None, ..., None]
+    got = cuda_sr.sftnet_apply_cuda(prep, feat, depth, upchain="dilated")
+    want = cuda_sr.sftnet_apply_plain(prep, feat, depth, upchain="dilated")
+    sync()
+    err = float((got - want).abs().max())
+    serve["decode_vs_plain_max_abs"] = err
+    log(f"  trained decoder, kernel chain vs plain chain: max abs {err:.3e} "
+        f"(limit {SR_TOL})")
+    if not err <= SR_TOL:
+        raise AssertionError("the trained decoder's kernel chain disagrees "
+                             "with its plain chain")
+    seconds = test["seconds"]
+    del res, video, test, prep, got, want
+    torch.cuda.empty_cache()
+    return seconds, serve, launches
+
+
+def joint_step_setup(dev, cfg, data, mcfg, params, buffers, sr_model,
+                     scale, *, perceptual=None, d_model=None):
+    """The full-width joint step of a trained run, for timing: its
+    ``SRTrainStep`` (with ``perceptual`` and ``d_model`` where given), the
+    path it takes, a ``batch()`` drawing the sampler's patches in turn (the
+    truth at ``scale`` from ``data["srgt"]``, the view's ``w2c``), the lrs at step 100 of the
+    decay, new optimizer states and a background noise."""
+    import types
+
+    import torch
+    from fourk_nerf_torch.models import dmpigo
+    from fourk_nerf_torch.models.sr_unetdisc import disc_params
+    from fourk_nerf_torch.ops import plane_sweep
+    from fourk_nerf_torch.train import optim, sr_trainer, trainer
+
+    ct = cfg.fine_train
+    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "rand_bkgd": True,
+          "stepsize": 1.0, "ndc_planes": True}
+    flat, _ = trainer.gather_training_rays(
+        cfg, sr_trainer._force_image_sampler(ct), data, dev)
+    a_all, b_all = (t.cpu().numpy() for t in plane_sweep.affine_coeffs(
+        flat["rays_o"], flat["rays_d"],
+        torch.tensor(mcfg.xyz_min, device=dev),
+        torch.tensor(mcfg.xyz_max, device=dev),
+        torch.tensor(mcfg.world_size[:2], dtype=torch.float32, device=dev),
+        mcfg.world_size[2]))
+    patch, V = int(ct.N_patch), flat["rgb"].shape[0]
+    sampler = sr_trainer.make_patch_sampler(V, H, W, patch, 777)
+    sp = sr_trainer.sweep_patch_size_for(mcfg, a_all, b_all, sampler.rows,
+                                         sampler.cols, patch)
+    gw = sr_trainer.sweep_window_size_for(mcfg, a_all, b_all, sampler.rows,
+                                          sampler.cols, patch, sp)
+    hr_all = torch.as_tensor(np.ascontiguousarray(np.moveaxis(
+        data["srgt"][data["i_train"]], 1, -1)), device=dev)
+    w2c_all = torch.as_tensor(np.asarray(data["w2c"])[data["i_train"]],
+                              dtype=torch.float32, device=dev)
+    skip = frozenset(ct.skip_zero_grad_fields)
+    st = sr_trainer.SRTrainStep(
+        dmpigo, mcfg, ct, cfg.fine_model_and_render, render_kwargs=rk,
+        skip_zero_grad=skip, sr_model=sr_model, n_views=V, patch=patch,
+        sr_ratio=scale, sweep_patch=sp, grid_window=gw,
+        perceptual=perceptual, d_model=d_model)
+    path = st.path(params, buffers, apply_tv=False)
+    mode = "CHANNEL" if tuple(buffers["mask_cache"].shape) == tuple(
+        mcfg.world_size) else "NATIVE"
+    log(f"  the step renders through the {path} path, mask in {mode} mode "
+        f"({tuple(buffers['mask_cache'].shape)} on a {mcfg.world_size} "
+        f"grid), slice {sp}, grid window {gw}")
+    counter = [0]
+
+    def batch():
+        counter[0] += 1
+        v, r, c = sampler(counter[0])
+
+        def sl(t):
+            return t[v, r:r + patch, c:c + patch].reshape(-1, 3)
+        return (sl(flat["rays_o"]), sl(flat["rays_d"]), sl(flat["viewdirs"]),
+                sl(flat["rgb"]), hr_all[v, r * scale:(r + patch) * scale,
+                                        c * scale:(c + patch) * scale]
+                .reshape(-1, 3), w2c_all[v])
+
+    lr_sr = optim.group_lr(ct.lrate_srnet, 100, ct.lrate_decay)
+    lrs = {"enc": {k: optim.group_lr(v, 100, ct.lrate_decay) for k, v in
+                   optim.build_group_lrs(ct, params).items()},
+           "srnet": lr_sr, "d": lr_sr}
+    return types.SimpleNamespace(
+        st=st, path=path, mode=mode, sp=sp, gw=gw, batch=batch, lrs=lrs,
+        skip=skip, patch=patch, enc_opt=optim.init_state(params),
+        sr_opt=optim.init_state({"srnet": st.sr_params}),
+        d_opt=optim.init_state({"d": disc_params(d_model)})
+        if d_model is not None else None,
+        noise=trainer.bkgd_noise(777, 1, patch * patch, dev))
+
+
 def run_joint(dev, pre):
     """Phase 14 (see the module docstring). ``pre``: phase 13's scene and
     final checkpoint. Returns the ``joint`` record and the launch counts of
@@ -1474,9 +1651,9 @@ def run_joint(dev, pre):
     import types
 
     import torch
-    from fourk_nerf_torch import config as config_mod, run_sr, weights
+    from fourk_nerf_torch import config as config_mod
     from fourk_nerf_torch.models import dmpigo
-    from fourk_nerf_torch.ops import cuda_sr, cuda_sweep, plane_sweep
+    from fourk_nerf_torch.ops import cuda_sweep, plane_sweep
     from fourk_nerf_torch.train import checkpoints, optim, sr_trainer, trainer
 
     t_phase = time.perf_counter()
@@ -1587,125 +1764,24 @@ def run_joint(dev, pre):
     rec["checkpoint"] = {"bytes": os.path.getsize(last), "load_s": load_s}
     del loaded
     torch.cuda.empty_cache()
-    one = dict(data, render_poses=data["poses"][data["i_test"][:1]])
-    rargs = run_sr.config_parser().parse_args(
-        ["--config", os.path.join(HERE, cfg_path), "--render_only",
-         "--render_video", "--eval_lpips_vgg", "--ft_path", last,
-         "--device", dev.type])
-    cfg_r = config_mod.load_config(os.path.join(HERE, cfg_path))
-    cfg_r.basedir, cfg_r.expname = basedir, "fern_joint"
-    real_imageio = run_sr._imageio
-    try:
-        import imageio.v2  # noqa: F401
-    except ImportError:
-        run_sr._imageio = SkippedWrites
-    cuda_sweep.sweep.launches = 0
-    cuda_sr.rdb_apply.launches = 0
-    try:
-        res = run_sr.run(rargs, cfg_r, one)
-    finally:
-        run_sr._imageio = real_imageio
-    sync()
-    launches["serve"] = {"sweep": cuda_sweep.sweep.launches,
-                         "rdb": cuda_sr.rdb_apply.launches}
-    video, test = res["video"], res["test"]
-    enc_s = video["encoder"]["frame_times"][0]
-    sr_s = video["sr_times"][0]
-    rec["evaluate_sr_s"] = test["seconds"]
-    log(f"  evaluate_sr of the {len(data['i_test'])} held-out views: seconds "
-        f"{test['seconds']} (host clock)")
-    rec["serve"] = {"launches": launches["serve"], "encoder_s": enc_s,
-                    "decoder_s": sr_s, "frame_s": enc_s + sr_s,
-                    "psnr_sr_test": test["psnr_sr"],
-                    "ssim_sr_test": test["ssim_sr"],
-                    "psnr_lr_test": test["psnr_lr"]}
-    log(f"  served 4K frame (first call, host clock): encoder "
-        f"{enc_s * 1e3:.1f} ms, decoder {sr_s * 1e3:.1f} ms, frame "
-        f"{(enc_s + sr_s) * 1e3:.1f} ms; launches {launches['serve']}; "
-        f"--render_test held-out views: PSNR_SR {test['psnr_sr']:.3f}, "
-        f"SSIM {test['ssim_sr']:.4f}, LR PSNR {test['psnr_lr']}")
-    n_test = len(data["i_test"])
-    if launches["serve"] != {"sweep": 1 + n_test, "rdb": 15}:
-        raise AssertionError(f"serving launches {launches['serve']}")
-    frame = video["frames"][0]
-    if tuple(frame.shape) != (H * SCALE, W * SCALE, 3) \
-            or not bool(torch.isfinite(frame).all()):
-        raise AssertionError("the served frame is not a finite 4K frame")
-    model = res["model"][4]
-    prep = cuda_sr.prepare_sftnet(model)
-    feat = video["encoder"]["rgb_features"][0][None]
-    depth = video["encoder"]["depths"][0][None, ..., None]
-    got = cuda_sr.sftnet_apply_cuda(prep, feat, depth, upchain="dilated")
-    want = cuda_sr.sftnet_apply_plain(prep, feat, depth, upchain="dilated")
-    sync()
-    err = float((got - want).abs().max())
-    rec["serve"]["decode_vs_plain_max_abs"] = err
-    log(f"  trained decoder, kernel chain vs plain chain: max abs {err:.3e} "
-        f"(limit {SR_TOL})")
-    if not err <= SR_TOL:
-        raise AssertionError("the trained decoder's kernel chain disagrees "
-                             "with its plain chain")
-    del res, video, test, prep, got, want, model
+    rec["evaluate_sr_s"], rec["serve"], launches["serve"] = serve_joint(
+        dev, cfg_path, basedir, "fern_joint", last, data)
     # --- the full-width joint step, by parts (after the run) -----------------
-    ct = cfg.fine_train
-    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "rand_bkgd": True,
-          "stepsize": 1.0, "ndc_planes": True}
-    flat, _ = trainer.gather_training_rays(
-        cfg, sr_trainer._force_image_sampler(ct), data, dev)
-    a_all, b_all = (t.cpu().numpy() for t in plane_sweep.affine_coeffs(
-        flat["rays_o"], flat["rays_d"],
-        torch.tensor(mcfg.xyz_min, device=dev),
-        torch.tensor(mcfg.xyz_max, device=dev),
-        torch.tensor(mcfg.world_size[:2], dtype=torch.float32, device=dev),
-        mcfg.world_size[2]))
-    patch, V = int(ct.N_patch), flat["rgb"].shape[0]
-    sampler = sr_trainer.make_patch_sampler(V, H, W, patch, 777)
-    sp = sr_trainer.sweep_patch_size_for(mcfg, a_all, b_all, sampler.rows,
-                                         sampler.cols, patch)
-    gw = sr_trainer.sweep_window_size_for(mcfg, a_all, b_all, sampler.rows,
-                                          sampler.cols, patch, sp)
-    hr_all = torch.as_tensor(np.ascontiguousarray(np.moveaxis(
-        data["srgt"][data["i_train"]], 1, -1)), device=dev)
-    skip = frozenset(ct.skip_zero_grad_fields)
-    st = sr_trainer.SRTrainStep(
-        dmpigo, mcfg, ct, cfg.fine_model_and_render, render_kwargs=rk,
-        skip_zero_grad=skip, sr_model=sr_model, n_views=V, patch=patch,
-        sr_ratio=SCALE, sweep_patch=sp, grid_window=gw)
-    path = st.path(params, buffers, apply_tv=False)
-    mode = "CHANNEL" if tuple(buffers["mask_cache"].shape) == tuple(
-        mcfg.world_size) else "NATIVE"
-    rec["step_path"] = {"path": path, "mask_mode": mode, "slice": sp,
-                        "grid_window": gw}
-    log(f"  the step renders through the {path} path, mask in {mode} mode "
-        f"({tuple(buffers['mask_cache'].shape)} on a {mcfg.world_size} "
-        f"grid), slice {sp}, grid window {gw}")
+    js = joint_step_setup(dev, cfg, data, mcfg, params, buffers, sr_model,
+                          SCALE)
+    st, batch, lrs, skip, patch = js.st, js.batch, js.lrs, js.skip, js.patch
+    enc_opt, sr_opt, noise = js.enc_opt, js.sr_opt, js.noise
+    path, mode = js.path, js.mode
+    rec["step_path"] = {"path": path, "mask_mode": mode, "slice": js.sp,
+                        "grid_window": js.gw}
     if (path, mode) != ("sweep", "NATIVE"):
         raise AssertionError("the fern joint step should take the full-grid "
                              "sweep with the NATIVE mask")
-    counter = [0]
-
-    def batch():
-        counter[0] += 1
-        v, r, c = sampler(counter[0])
-
-        def sl(t):
-            return t[v, r:r + patch, c:c + patch].reshape(-1, 3)
-        return (sl(flat["rays_o"]), sl(flat["rays_d"]), sl(flat["viewdirs"]),
-                sl(flat["rgb"]), hr_all[v, r * SCALE:(r + patch) * SCALE,
-                                        c * SCALE:(c + patch) * SCALE]
-                .reshape(-1, 3))
-
-    lrs = {"enc": {k: optim.group_lr(v, 100, ct.lrate_decay) for k, v in
-                   optim.build_group_lrs(ct, params).items()},
-           "srnet": optim.group_lr(ct.lrate_srnet, 100, ct.lrate_decay)}
-    enc_opt = optim.init_state(params)
-    sr_opt = optim.init_state({"srnet": st.sr_params})
-    noise = trainer.bkgd_noise(777, 1, patch * patch, dev)
     bt = batch()
     full = event_ms(lambda: st(params, buffers, enc_opt, sr_opt, batch(),
                                lrs, noise, apply_tv=False, tv_dense=False))
-    *_, eg, sg, win = st.loss_and_grads(params, buffers, bt,
-                                        lrs["enc"].keys(), noise)
+    *_, eg, sg, win, _ = st.loss_and_grads(params, buffers, bt,
+                                           lrs["enc"].keys(), noise)
     live = {k: trainer._detached_leaves(params[k]) for k in lrs["enc"]}
 
     def sweep_fb():
@@ -1770,7 +1846,7 @@ def run_joint(dev, pre):
     rec["profile"] = profile_call(
         lambda: st(params, buffers, enc_opt, sr_opt, batch(), lrs, noise,
                    apply_tv=False, tv_dense=False), "joint step", top=10)
-    del eg, sg, live, flat, hr_all
+    del eg, sg, live, js
     torch.cuda.empty_cache()
 
     # --- the joint checkpoint's save (params and both optimizers) -----------
@@ -1785,10 +1861,294 @@ def run_joint(dev, pre):
         "(host clock)")
     del params, buffers, enc_opt, sr_opt, sr_model
     torch.cuda.empty_cache()
+    shutil.rmtree(basedir)  # phase 15 starts from phase 13's checkpoint
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {rec['phase_s']:.1f} s")
+    return rec, launches
+
+
+def run_joint_gan(dev, pre):
+    """Phase 15 (see the module docstring). ``pre``: phase 13's scene and
+    final checkpoint, deleted at the end. Returns the ``joint_gan`` record
+    and the launch counts of the path."""
+    import copy
+    import shutil
+    import types
+
+    import torch
+    from fourk_nerf_torch import config as config_mod, weights
+    from fourk_nerf_torch.device import fp32_precision
+    from fourk_nerf_torch.models import sr_unetdisc
+    from fourk_nerf_torch.ops import cuda_sweep
+    from fourk_nerf_torch.train import checkpoints, optim, sr_losses, \
+        sr_trainer, trainer
+
+    t_phase = time.perf_counter()
+    data, pre_ckpt = pre["data"], pre["ckpt"]
+    basedir = os.path.join(HERE, "build", "phase15_gan")
+    shutil.rmtree(basedir, ignore_errors=True)
+    cfg_path = os.path.join("fourk_nerf_torch", "configs", "llff",
+                            "fern_lg_joint_l1_gan.py")
+    with np.load(pre_ckpt) as z:
+        start = int(json.loads(bytes(z["__meta__"]).decode())["global_step"])
+    rec: dict = {"config": cfg_path,
+                 "ftdv_path": os.path.relpath(pre_ckpt, HERE),
+                 "deviation": "fine_train.allow_random_vgg=True: the "
+                 "perceptual and style terms on the fixed-seed random VGG19 "
+                 "tower (no pretrained weights here)"}
+    launches: dict = {}
+
+    def train(path, expname, steps, dataset):
+        cfg = config_mod.load_config(os.path.join(HERE, path))
+        cfg.basedir, cfg.expname = basedir, expname
+        for k, v in GAN_OVERRIDES["fine_train"].items():
+            cfg.fine_train[k] = v
+        cfg.fine_train.N_iters = start + steps
+        args = types.SimpleNamespace(
+            seed=777, no_reload=False, no_reload_optimizer=False, ft_path="",
+            ftdv_path=pre_ckpt, ftsr_path="", test_tile=0,
+            **GAN_OVERRIDES["args"])
+        writer = Recorder()
+        t0 = time.perf_counter()
+        model = sr_trainer.train_sr(args, cfg, dataset, writer=writer,
+                                    device=dev)
+        sync()
+        return cfg, args, model, writer, time.perf_counter() - t0
+
+    log(f"  deviation from the published objective: {rec['deviation']}")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.sweep.launches = 0
+    cfg, args, (_, mcfg, params, buffers, sr_model), writer, train_s = train(
+        cfg_path, "fern_gan", GAN_STEPS, data)
+    launches["i_val"] = cuda_sweep.sweep.launches
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: writer.values(f"train/{k}") for k in (
+        "loss_l1", "loss_photo", "loss_pcp", "loss_style", "loss_g",
+        "loss_d_real", "loss_d_fake", "psnr_sr")}
+    vals.update(val_psnr_sr=writer.values("val/psnr_sr"),
+                val_lpips_proxy=writer.values("val/lpips_sr_proxy"))
+    rec.update(start=start, steps=GAN_STEPS, train_s=train_s,
+               max_memory_allocated_bytes=peak, **vals)
+    log(f"  GAN joint steps {start + 1}..{start + GAN_STEPS} in "
+        f"{train_s:.1f} s (host clock, eval and saves included); at each "
+        "print " + "; ".join(f"{k} {['%.6g' % x for x in v]}"
+                             for k, v in vals.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    l1 = vals["loss_l1"]
+    if len(l1) != GAN_STEPS // args.i_print or not all(np.isfinite(l1)) \
+            or not l1[-1] < l1[0]:
+        raise AssertionError(f"the SR L1 did not fall: {l1}")
+    for k in ("loss_d_real", "loss_d_fake", "loss_g", "loss_pcp",
+              "loss_style"):
+        if len(vals[k]) != len(l1) or not all(np.isfinite(vals[k])):
+            raise AssertionError(f"{k} is not finite at every print: "
+                                 f"{vals[k]}")
+
+    # --- the final joint file: the discriminator, its vectors and Adam ------
+    last = os.path.join(basedir, "fern_gan", "fine_last.npz")
+    with np.load(last) as z:
+        names = set(z.files)
+    for prefix in ("params/__disc__/", "params/__disc_state__/",
+                   "opt/d/exp_avg/", "opt/d/exp_avg_sq/"):
+        if not any(k.startswith(prefix) for k in names):
+            raise AssertionError(f"the final joint file lacks {prefix}")
+    if "opt/d/step" not in names:
+        raise AssertionError("the final joint file lacks opt/d/step")
+    t0 = time.perf_counter()
+    *_, d_params, d_state, opt, step, _ = sr_trainer.load_joint(
+        last, True, device=dev)
+    sync()
+    rec["checkpoint"] = {"bytes": os.path.getsize(last),
+                         "load_s": time.perf_counter() - t0}
+    d_model = weights.disc_from_flax(d_params, d_state, device=dev)
+    p_np, s_np = weights.disc_to_flax(d_model)
+    with np.load(last) as z:
+        for tree, head in ((p_np, "__disc__"), (s_np, "__disc_state__")):
+            for k, v in checkpoints.tree_to_flat_dict(tree).items():
+                if not np.array_equal(v, z[f"params/{head}/{k}"]):
+                    raise AssertionError(f"load_joint round trip: {head}/{k}")
+    if step != start + GAN_STEPS or opt["d"]["step"] != GAN_STEPS:
+        raise AssertionError(f"the file's steps: {step}, d {opt['d']['step']}")
+    d0 = sr_trainer.build_discriminator(cfg.fine_model_and_render,
+                                        int(cfg.fine_train.N_patch) * SCALE,
+                                        args.seed, dev)
+    moved = {k: float((u - u0).norm()) for (k, u), u0 in zip(
+        checkpoints.tree_to_flat_dict(
+            sr_unetdisc.disc_spectral(d_model)).items(),
+        checkpoints.tree_to_flat_dict(
+            sr_unetdisc.disc_spectral(d0)).values())}
+    rec["u_moved"] = moved
+    log(f"  final joint file {os.path.getsize(last) / 2**30:.2f} GiB: "
+        f"__disc__, __disc_state__ and opt/d (step {opt['d']['step']}) "
+        "round-trip through load_joint; |u - u_init| by conv: "
+        + ", ".join(f"{k.split('/')[0]} {v:.3g}" for k, v in moved.items()))
+    if len(moved) != 8 or not all(v > 1e-6 for v in moved.values()):
+        raise AssertionError(f"a spectral-norm vector did not move: {moved}")
+    del d0, opt, d_params, d_state
+    rec["evaluate_sr_s"], rec["serve"], launches["serve"] = serve_joint(
+        dev, cfg_path, basedir, "fern_gan", last, data)
+
+    # --- the full-width GAN step, by parts (after the run) -------------------
+    perceptual = sr_trainer.build_perceptual(cfg.fine_train, device=dev)
+    js = joint_step_setup(dev, cfg, data, mcfg, params, buffers, sr_model,
+                          SCALE, perceptual=perceptual, d_model=d_model)
+    st, lrs, noise, patch = js.st, js.lrs, js.noise, js.patch
+    if js.path != "sweep":
+        raise AssertionError("the fern GAN step should take the full-grid "
+                             "sweep, as phase 14's")
+    bt = js.batch()
+
+    def full_step():
+        st(params, buffers, js.enc_opt, js.sr_opt, js.batch(), lrs, noise,
+           apply_tv=False, tv_dense=False, d_opt=js.d_opt)
+
+    full = event_ms(full_step)
+    # the same step without the GAN and perceptual terms (the L1 step) on
+    # the same state, timed in turn with the GAN step: the two whole
+    # steps' difference within pairs, each step one call
+    cfg_l1 = copy.deepcopy(cfg)
+    cfg_l1.fine_train.weight_gan = 0.0
+    js_l1 = joint_step_setup(dev, cfg_l1, data, mcfg, params, buffers,
+                             sr_model, SCALE)
+
+    def l1_step():
+        js_l1.st(params, buffers, js_l1.enc_opt, js_l1.sr_opt,
+                 js_l1.batch(), js_l1.lrs, js_l1.noise, apply_tv=False,
+                 tv_dense=False)
+
+    l1_step()
+    pairs = [[event_ms(l1_step, 1), event_ms(full_step, 1)]
+             for _ in range(ALTERNATE_PAIRS)]
+    del js_l1
+    diff = [g - l for l, g in pairs]
+    rec["alternate"] = {"l1_gan_ms": pairs, "gan_minus_l1_ms": diff,
+                        "median_gan_minus_l1_ms": statistics.median(diff)}
+    log(f"  L1 and GAN steps in turn ({ALTERNATE_PAIRS} pairs, each step "
+        "timed after a warm-up call of its own): " + ", ".join(
+            f"{l:.2f}/{g:.2f}" for l, g in pairs)
+        + f" ms; GAN - L1 median {statistics.median(diff):.2f} ms")
+    *_, eg, sg, win, (rgb_sr, rgb_hr) = st.loss_and_grads(
+        params, buffers, bt, lrs["enc"].keys(), noise)
+    _, _, dg = st.d_loss_and_grads(rgb_sr, rgb_hr, st.d_condition(bt))
+    live = {k: trainer._detached_leaves(params[k]) for k in lrs["enc"]}
+
+    def render_fb():
+        out = st.render({**params, **live}, buffers, *bt[:3], path="sweep",
+                        bg_noise=noise)
+        torch.autograd.grad((out["rgb_feature"].sum() + out["weights"].sum()
+                             + out["raw_rgb"].sum()),
+                            trainer._flatten(live, []), allow_unused=True)
+
+    out = st.render(params, buffers, *bt[:3], path="sweep")
+    x = out["rgb_feature"].detach().reshape(1, patch, patch, 3)
+    cond = out["depth"].detach().reshape(1, patch, patch, 1)
+    sr_leaves = trainer._flatten(st.sr_params, [])
+    sr_in = rgb_sr.clone().requires_grad_(True)
+
+    def sft_fb():
+        loss = (sr_model(x, cond) - rgb_hr).abs().mean()
+        torch.autograd.grad(loss, sr_leaves)
+
+    def vgg_fb():
+        pcp, style = perceptual(sr_in, rgb_hr)
+        torch.autograd.grad(pcp + style, sr_in)
+
+    cond_d = st.d_condition(bt)
+
+    def gside_fb():
+        # a non-leaf module input: the flop counter's module hooks refuse a
+        # leaf one under autograd.grad
+        fake = sr_unetdisc.apply(d_model, sr_in + 0.0, cond_d, False)
+        torch.autograd.grad(sr_losses.gan_loss(
+            fake, True, is_disc=False, loss_weight=cfg.fine_train.weight_gan),
+            sr_in)
+
+    def dstep_fb():
+        st.d_loss_and_grads(rgb_sr, rgb_hr, cond_d)
+
+    adams = {
+        "enc_adam": lambda: optim.apply_updates(
+            params, eg, js.enc_opt, lrs["enc"], skip_zero_grad=js.skip),
+        "sr_adam": lambda: optim.apply_updates(
+            {"srnet": st.sr_params}, {"srnet": sg}, js.sr_opt,
+            {"srnet": lrs["srnet"]}),
+        "d_adam": lambda: optim.apply_updates(
+            {"d": st.d_params}, {"d": dg}, js.d_opt, {"d": lrs["d"]})}
+    parts = {"patch_render_fwd_bwd": render_fb, "sftnet_fwd_bwd": sft_fb,
+             "vgg_pcp_style_fwd_bwd": vgg_fb, "g_side_d_fwd_bwd": gside_fb,
+             "d_step_fwd_bwd": dstep_fb}
+    with fp32_precision():
+        split = {k: event_ms(fn) for k, fn in parts.items()}
+        split.update({k: event_ms(fn) for k, fn in adams.items()})
+        flops = {k: flops_of(fn) for k, fn in parts.items()
+                 if k != "patch_render_fwd_bwd"}
+    split["three_adams"] = sum(split[k] for k in adams)
+    R, Z = patch * patch, mcfg.world_size[2]
+    param_bytes = tree_bytes(params)
+    sr_bytes, d_bytes = tree_bytes(st.sr_params), tree_bytes(st.d_params)
+    bound_bytes = {"patch_render_fwd_bwd": 2 * R * Z * 4 * (1 + mcfg.k0_dim)
+                   * 4 + param_bytes, "enc_adam": 7 * param_bytes,
+                   "sr_adam": 7 * sr_bytes, "d_adam": 7 * d_bytes}
+    bound_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in bound_bytes.items()}
+    bound_ms.update({k: v / FP32_FLOPS * 1e3 for k, v in flops.items()})
+    bound_ms["three_adams"] = sum(bound_ms[k] for k in adams)
+    bound_ms["step"] = sum(bound_ms[k] for k in parts) \
+        + bound_ms["three_adams"]
+    rec.update(step_ms=full, split_ms=split, split_bound_ms=bound_ms,
+               split_bound_bytes=bound_bytes, split_flops=flops,
+               step_path={"path": js.path, "mask_mode": js.mode,
+                          "slice": js.sp, "grid_window": js.gw},
+               params=param_bytes // 4, sr_params=sr_bytes // 4,
+               d_params=d_bytes // 4)
+    log(f"  full-width GAN step {full:.2f} ms (CUDA events, median of 5; "
+        f"bound {bound_ms['step']:.3g} ms); parts ({param_bytes // 4} "
+        f"encoder, {sr_bytes // 4} generator, {d_bytes // 4} discriminator "
+        "parameters): " + ", ".join(
+            f"{k} {v:.4g} ms (bound {bound_ms[k]:.4g}"
+            + (f", {flops[k] / 1e9:.1f} GFLOP" if k in flops else "") + ")"
+            for k, v in split.items())
+        + f"; bounds: bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, float32 "
+        f"operations (torch's flop counter) at {FP32_FLOPS / 1e12:.0f} "
+        "TFLOP/s")
+    rec["profile"] = profile_call(full_step, "GAN step", top=10)
+    del eg, sg, dg, live, js, st, out, x, cond, sr_in, rgb_sr, rgb_hr
+    del params, buffers, sr_model, d_model, perceptual
+    torch.cuda.empty_cache()
+
+    # --- the scale-1 config: the decoder at LR resolution, D on 64x64 -------
+    cfg1_path = os.path.join("fourk_nerf_torch", "configs", "llff",
+                             "fern_lg_joint_1x_l1_gan.py")
+    data1 = dict(data, srgt=np.ascontiguousarray(np.moveaxis(
+        np.asarray(data["images"]), -1, 1)))
+    cfg1, _, (_, mcfg1, p1, b1, sr1), w1, train1_s = train(
+        cfg1_path, "fern_gan_1x", GAN_1X_STEPS, data1)
+    losses1 = {k: w1.values(f"train/{k}") for k in (
+        "loss_l1", "loss_pcp", "loss_g", "loss_d_real", "loss_d_fake")}
+    if sr1.scale != 1 or not all(v and all(np.isfinite(v))
+                                 for v in losses1.values()):
+        raise AssertionError(f"the scale-1 GAN run: x{sr1.scale}, "
+                             f"{losses1}")
+    last1 = os.path.join(basedir, "fern_gan_1x", "fine_last.npz")
+    *_, d1p, d1s, _, _, _ = sr_trainer.load_joint(last1, True, device=dev)
+    d1 = weights.disc_from_flax(d1p, d1s, device=dev)
+    js1 = joint_step_setup(dev, cfg1, data1, mcfg1, p1, b1, sr1, 1,
+                           perceptual=sr_trainer.build_perceptual(
+                               cfg1.fine_train, device=dev), d_model=d1)
+    step1 = event_ms(lambda: js1.st(
+        p1, b1, js1.enc_opt, js1.sr_opt, js1.batch(), js1.lrs, js1.noise,
+        apply_tv=False, tv_dense=False, d_opt=js1.d_opt))
+    rec["scale1"] = {"config": cfg1_path, "steps": GAN_1X_STEPS,
+                     "train_s": train1_s, "step_ms": step1, **losses1}
+    log(f"  scale-1 GAN config, {GAN_1X_STEPS} steps in {train1_s:.1f} s "
+        f"(host clock): step {step1:.2f} ms (CUDA events, median of 5), "
+        "losses at the print " + ", ".join(
+            f"{k} {['%.6g' % x for x in v]}" for k, v in losses1.items()))
+    del p1, b1, sr1, d1, js1, d1p, d1s
+    torch.cuda.empty_cache()
     shutil.rmtree(basedir)
     shutil.rmtree(pre["basedir"])
     rec["phase_s"] = time.perf_counter() - t_phase
-    log(f"  phase 14: {rec['phase_s']:.1f} s")
+    log(f"  phase 15: {rec['phase_s']:.1f} s")
     return rec, launches
 
 
@@ -1889,6 +2249,10 @@ def main() -> int:
     log("[14] joint encoder + SR training at full width, fern joint L1 "
         "config, then its 4K frame")
     joint, joint_launches = run_joint(dev, pre)
+    torch.cuda.empty_cache()
+    log("[15] joint GAN + perceptual training at full width, fern joint "
+        "L1+GAN config, then its 4K frame; the scale-1 GAN config")
+    joint_gan, gan_launches = run_joint_gan(dev, pre)
     del pre
     torch.cuda.empty_cache()
 
@@ -1902,7 +2266,9 @@ def main() -> int:
          "bound_by": syn["sweep_bound_by"], "library_ms": None,
          "registers": syn["sweep_registers"],
          "launches_joint": {"i_val": joint_launches["i_val"],
-                            "serve": joint_launches["serve"]["sweep"]}},
+                            "serve": joint_launches["serve"]["sweep"]},
+         "launches_joint_gan": {"i_val": gan_launches["i_val"],
+                                "serve": gan_launches["serve"]["sweep"]}},
         {"name": "rdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:481",
@@ -1911,7 +2277,8 @@ def main() -> int:
          "plain_ms": syn["rdb_plain_ms"], "bound_ms": syn["rdb_bound"],
          "bound_by": syn["rdb_bound_by"], "library_ms": None,
          "conv_chain_ms": syn["conv_chain_ms"],
-         "launches_joint": {"serve": joint_launches["serve"]["rdb"]}},
+         "launches_joint": {"serve": joint_launches["serve"]["rdb"]},
+         "launches_joint_gan": {"serve": gan_launches["serve"]["rdb"]}},
         # library_ms is null for the sweep, the dense block, the box sweep
         # and the RRDB: no single PyTorch call computes any of them
         # (conv_chain_ms: the block's five convs alone as cuDNN calls)
@@ -1968,6 +2335,7 @@ def main() -> int:
     ]
     log(json.dumps({"training": training}))
     log(json.dumps({"joint": joint}))
+    log(json.dumps({"joint_gan": joint_gan}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,9 +102,6 @@ def run(args, cfg, data_dict) -> dict:
         raise NotImplementedError("--export_coarse_only is not ported yet: "
                                   "ROADMAP.md Queue A item 2 (the coarse "
                                   "stage)")
-    if args.eval_lpips_alex or args.eval_lpips_vgg:
-        raise NotImplementedError("LPIPS of the encoder's renders is not "
-                                  "ported yet: ROADMAP.md Queue A item 3b")
     dev = resolve_device(args.device)
     rundir = os.path.join(cfg.basedir, cfg.expname)
     dump_provenance(cfg, args, rundir)
@@ -146,7 +143,8 @@ def run(args, cfg, data_dict) -> dict:
                 data_dict["poses"][idx], data_dict["HW"][idx],
                 data_dict["Ks"][idx], data=data, render_kwargs=render_kwargs,
                 gt_imgs=[np.asarray(data_dict["images"][i]) for i in idx],
-                eval_ssim=args.eval_ssim, device=dev)
+                eval_ssim=args.eval_ssim, eval_lpips_vgg=args.eval_lpips_vgg,
+                eval_lpips_alex=args.eval_lpips_alex, device=dev)
             if args.dump_images:
                 _write_images(outdir, res["rgbs"])
             results[name] = res

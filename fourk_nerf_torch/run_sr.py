@@ -29,7 +29,9 @@ from fourk_nerf_torch.run import load_everything, seed_everything
 
 def config_parser():
     """The flags of the JAX package's ``run_sr.py`` (frozoul/4K-NeRF
-    run_sr.py:20-71), and ``--device``."""
+    run_sr.py:20-71), and ``--device``. As there, ``--eval_lpips_alex`` is
+    parsed and unused: the scored views take LPIPS (vgg) with
+    ``--eval_lpips_vgg``."""
     p = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--config", required=True)
@@ -135,9 +137,6 @@ def run(args, cfg, data_dict) -> dict:
                                   "box and mask) is not ported yet: "
                                   "ROADMAP.md Queue A item 2 (the coarse "
                                   "stage)")
-    if args.eval_lpips_alex:
-        raise NotImplementedError("LPIPS alex is not ported yet: ROADMAP.md "
-                                  "Queue A item 3b")
     if args.dump_images or args.render_video:
         _imageio()
     dev = resolve_device(args.device)
@@ -157,6 +156,7 @@ def run(args, cfg, data_dict) -> dict:
             model = sr_trainer.train_sr(args, cfg, data_dict, writer=writer,
                                         device=dev)
         else:
+            # a GAN run's file also holds the discriminator: read, unused
             ckpt = args.ft_path or os.path.join(rundir, "fine_last.npz")
             model_mod, model_cfg, params, buffers, sr_params, *_ = \
                 sr_trainer.load_joint(ckpt, cfg.data.ndc, device=dev)

@@ -1,13 +1,19 @@
-"""Joint VC-Encoder + VC-Decoder training, the L1 path (the JAX package's
+"""Joint VC-Encoder + VC-Decoder training (the JAX package's
 ``train/sr_trainer.py``, after frozoul/4K-NeRF run_sr.py:626-1179).
 
 One step renders an aligned low-resolution pixel patch with the voxel
 encoder, decodes it with the SFT-conditioned generator (``SFTNet``), and
-backpropagates the joint loss (the patch's L1, the SR output's L1,
-background entropy, distortion, per-point rgb, and TV scaled by the view
-count) through the generator into the voxel grids. The encoder's groups
-take a MaskedAdam step (only the patch's grid window where the step takes
-the window), then the generator's own MaskedAdam over ``{"srnet": ...}``.
+backpropagates the joint loss (the patch's L1, the SR output's L1, the
+VGG19 perceptual and style terms, the generator's GAN term, background
+entropy, distortion, per-point rgb, and TV scaled by the view count)
+through the generator into the voxel grids. The encoder's groups take a
+MaskedAdam step (only the patch's grid window where the step takes the
+window), then the generator's own MaskedAdam over ``{"srnet": ...}``.
+With a GAN weight, the discriminator step follows on the same patch: the
+truth, then the detached SR output, each updating the spectral-norm
+vectors, and the discriminator's MaskedAdam over ``{"d": ...}``. The
+generator's GAN term reads the discriminator before its step, without
+updating its vectors, and no gradient of the generator's loss reaches it.
 
 The patch render is the JAX step's choice (``make_sr_train_step``): the
 footprint window of the plane sweep when the mask has the grid's
@@ -22,9 +28,9 @@ shuffled over (view x origin) by numpy ``default_rng((seed, epoch))`` and
 indexed by step, so both packages draw the same patches and a resumed run
 replays the stream. Joint checkpoints are the JAX package's files: the
 generator under ``params/__sr__`` in flax's names and HWIO layout, the
-optimizers under ``opt/{enc,sr}`` with an int32 ``step`` each. The GAN,
-perceptual and style terms (a discriminator, VGG) are not ported: a
-config that sets them raises up front.
+discriminator under ``params/__disc__`` and its vectors under
+``params/__disc_state__``, the optimizers under ``opt/{enc,sr,d}`` with an
+int32 ``step`` each.
 """
 
 from __future__ import annotations
@@ -39,21 +45,12 @@ import torch
 
 from fourk_nerf_torch import pipeline, weights
 from fourk_nerf_torch.device import fp32_precision, resolve_device
-from fourk_nerf_torch.models import dmpigo, sr_esrnet
+from fourk_nerf_torch.models import dmpigo, sr_esrnet, sr_unetdisc
 from fourk_nerf_torch.ops import grid_sample, plane_sweep, rays as ray_ops, \
     render
-from fourk_nerf_torch.train import checkpoints, losses, optim, trainer
+from fourk_nerf_torch.train import checkpoints, losses, optim, sr_losses, \
+    trainer
 from fourk_nerf_torch.utils import metrics, stats as stats_mod
-
-
-def check_supported(cfg_train) -> None:
-    """Raise for the objectives that are not ported: the GAN, perceptual
-    and style terms."""
-    for k in ("weight_gan", "weight_pcp", "weight_style"):
-        if cfg_train.get(k, 0) > 0:
-            raise NotImplementedError(
-                f"{k} > 0 (the discriminators, GAN, perceptual and style "
-                "losses) is not ported yet: ROADMAP.md Queue A item 3b")
 
 
 # ---------------------------------------------------------------------------
@@ -155,17 +152,31 @@ class SRTrainStep:
     scaling phase): the encoder's patch render (window, sweep or gather,
     chosen as the JAX step chooses), the generator, the loss and its
     gradients by autograd, the TV gradients, then the encoder's and the
-    generator's MaskedAdam in place. Runs in full float32 (no TF32)."""
+    generator's MaskedAdam in place, then, with a GAN weight, the
+    discriminator's step. Runs in full float32 (no TF32).
+
+    ``perceptual``: a :class:`~fourk_nerf_torch.train.sr_losses.
+    PerceptualLoss` (the perceptual and style terms) or None;
+    ``d_model``: the discriminator (``models.sr_unetdisc``), required when
+    ``cfg_train.weight_gan > 0``."""
 
     def __init__(self, model_mod, model_cfg, cfg_train, cfg_model, *,
                  render_kwargs: dict, skip_zero_grad, sr_model, n_views: int,
                  patch: int, sr_ratio: int, sweep_patch: int | None = None,
-                 grid_window: int | None = None):
+                 grid_window: int | None = None, perceptual=None,
+                 d_model=None):
         self.model_mod, self.model_cfg = model_mod, model_cfg
         self.cfg_train = cfg_train
         self.skip_zero_grad = frozenset(skip_zero_grad)
         self.sr_model = sr_model
         self.sr_params = weights.sftnet_params(sr_model)
+        self.perceptual = perceptual
+        self.use_gan = cfg_train.get("weight_gan", 0) > 0
+        if self.use_gan and d_model is None:
+            raise ValueError("weight_gan > 0 needs a discriminator")
+        self.d_model = d_model if self.use_gan else None
+        self.d_params = (sr_unetdisc.disc_params(d_model) if self.use_gan
+                         else None)
         self.n_views, self.patch, self.sr_ratio = n_views, patch, sr_ratio
         self.sweep_patch, self.grid_window = sweep_patch, grid_window
         self.num_cond = int(cfg_model.get("num_cond", 1))
@@ -247,11 +258,19 @@ class SRTrainStep:
             is_train=True, bg_noise=bg_noise, render_depth=True,
             ndc_planes=bool(self.rk.get("ndc_planes", False)))
 
+    def d_condition(self, batch):
+        """The discriminator's condition for ``batch`` (None for ``Unet``;
+        ``Unet_pose`` reads the view's ``w2c``, the batch's sixth item)."""
+        return sr_unetdisc.d_condition(
+            self.d_model.kind, batch[2], batch[5], self.patch)
+
     def loss(self, out, batch):
-        """(loss, terms, psnr_sr) of a patch render ``out`` (run_sr.py:
-        884-1011): photometric L1, the generator's L1, the encoder's
+        """(loss, terms, psnr_sr, rgb_sr, rgb_hr) of a patch render ``out``
+        (run_sr.py:884-1011): photometric L1, the generator's L1, the
+        perceptual and style terms, the generator's GAN term (the
+        discriminator as it is, its vectors left alone), the encoder's
         regularisers."""
-        _, _, viewdirs, target, target_hr = batch
+        viewdirs, target, target_hr = batch[2:5]
         ct = self.cfg_train
         n_rays = target.shape[0]
         p, r = self.patch, self.sr_ratio
@@ -266,6 +285,17 @@ class SRTrainStep:
         loss = loss + loss_sr
         psnr_sr = -10.0 * torch.log10(
             ((rgb_sr.detach().clamp(0, 1) - rgb_hr) ** 2).mean())
+        if self.perceptual is not None:
+            loss_pcp, loss_style = self.perceptual(rgb_sr, rgb_hr)
+            terms["loss_pcp"], terms["loss_style"] = loss_pcp, loss_style
+            loss = loss + loss_pcp + loss_style
+        if self.use_gan:
+            fake_g = sr_unetdisc.apply(self.d_model, rgb_sr,
+                                       self.d_condition(batch), False)
+            loss_g = sr_losses.gan_loss(fake_g, True, is_disc=False,
+                                        loss_weight=ct.weight_gan)
+            terms["loss_g"] = loss_g
+            loss = loss + loss_g
         if ct.weight_entropy_last > 0:
             ent = ct.weight_entropy_last * losses.entropy_last_loss(
                 out["alphainv_last"])
@@ -281,15 +311,16 @@ class SRTrainStep:
                 out["raw_rgb"], out["weights"], target, n_rays)
             terms["loss_rgbper"] = lr_
             loss = loss + lr_
-        return loss, terms, psnr_sr
+        return loss, terms, psnr_sr, rgb_sr, rgb_hr
 
     def loss_and_grads(self, params, buffers, batch, groups, bg_noise=None, *,
                        apply_tv: bool = False, origin=None):
-        """(loss, terms, psnr_sr, encoder grads, generator grads, path) of
-        one batch ``(rays_o, rays_d, viewdirs, target, target_hr)``. The
-        encoder's grads hold the groups named in ``groups`` (the density
-        and k0 windows on the window path); the generator's are a tree of
-        the flax names (kernels OIHW)."""
+        """(loss, terms, psnr_sr, encoder grads, generator grads, path,
+        (rgb_sr, rgb_hr)) of one batch ``(rays_o, rays_d, viewdirs, target,
+        target_hr[, w2c])``. The encoder's grads hold the groups named in
+        ``groups`` (the density and k0 windows on the window path); the
+        generator's are a tree of the flax names (kernels OIHW). The SR
+        output comes back detached, for the discriminator's step."""
         rays_o, rays_d, viewdirs = batch[:3]
         path = self.path(params, buffers, apply_tv)
         if path == "window" and origin is None:
@@ -303,7 +334,7 @@ class SRTrainStep:
         live = {k: trainer._detached_leaves(view[k]) for k in groups}
         out = self.render({**view, **live}, buffers, rays_o, rays_d, viewdirs,
                           path=path, bg_noise=bg_noise, origin=origin)
-        loss, terms, psnr_sr = self.loss(out, batch)
+        loss, terms, psnr_sr, rgb_sr, rgb_hr = self.loss(out, batch)
         enc_leaves = trainer._flatten(live, [])
         sr_leaves = trainer._flatten(self.sr_params, [])
         grads = torch.autograd.grad(loss, enc_leaves + sr_leaves,
@@ -314,7 +345,29 @@ class SRTrainStep:
         return (loss.detach(), {k: v.detach() for k, v in terms.items()},
                 psnr_sr, trainer._unflatten(live, iter(grads[:n])),
                 trainer._unflatten(self.sr_params, iter(grads[n:])),
-                (path, origin))
+                (path, origin), (rgb_sr.detach(), rgb_hr))
+
+    def d_loss_and_grads(self, rgb_sr, rgb_hr, cond):
+        """The discriminator's loss on the truth and on the (detached) SR
+        output, each call updating the spectral-norm vectors, the second
+        from the vectors the first left (run_sr.py:1017-1047). Returns
+        (loss_d_real, loss_d_fake, grads as a tree of the flax names)."""
+        real = sr_unetdisc.apply(self.d_model, rgb_hr, cond, True)
+        l_real = sr_losses.gan_loss(real, True, is_disc=True)
+        fake = sr_unetdisc.apply(self.d_model, rgb_sr.detach(), cond, True)
+        l_fake = sr_losses.gan_loss(fake, False, is_disc=True)
+        grads = torch.autograd.grad(l_real + l_fake,
+                                    trainer._flatten(self.d_params, []))
+        return (l_real.detach(), l_fake.detach(),
+                trainer._unflatten(self.d_params, iter(grads)))
+
+    def d_step(self, rgb_sr, rgb_hr, cond, d_opt, lr) -> dict:
+        """The discriminator's step: its loss and gradients, then its
+        MaskedAdam over ``{"d": ...}`` in place. Returns its terms."""
+        l_real, l_fake, grads = self.d_loss_and_grads(rgb_sr, rgb_hr, cond)
+        optim.apply_updates({"d": self.d_params}, {"d": grads}, d_opt,
+                            {"d": lr})
+        return {"loss_d_real": l_real, "loss_d_fake": l_fake}
 
     @torch.no_grad()
     def add_tv(self, params, grads, tv_dense: bool) -> None:
@@ -346,12 +399,13 @@ class SRTrainStep:
 
     def __call__(self, params, buffers, enc_opt, sr_opt, batch, lrs,
                  bg_noise=None, *, apply_tv: bool, tv_dense: bool,
-                 origin=None):
-        """One step; updates ``params``, the generator and both optimizer
-        states in place. Returns (loss, psnr_sr, terms) as device
-        scalars."""
+                 origin=None, d_opt=None):
+        """One step; updates ``params``, the generator, the discriminator
+        (with a GAN weight: ``d_opt`` its optimizer state, ``lrs["d"]`` its
+        lr) and the optimizer states in place. Returns (loss, psnr_sr,
+        terms) as device scalars."""
         with fp32_precision(), torch.profiler.record_function("sr_step"):
-            loss, terms, psnr_sr, enc_grads, sr_grads, window = \
+            loss, terms, psnr_sr, enc_grads, sr_grads, window, sr_hr = \
                 self.loss_and_grads(params, buffers, batch, lrs["enc"].keys(),
                                     bg_noise, apply_tv=apply_tv,
                                     origin=origin)
@@ -359,6 +413,10 @@ class SRTrainStep:
                 self.add_tv(params, enc_grads, tv_dense)
             self.update(params, enc_grads, enc_opt, sr_grads, sr_opt, lrs,
                         window)
+            if self.use_gan:
+                with torch.profiler.record_function("d_step"):
+                    terms.update(self.d_step(*sr_hr, self.d_condition(batch),
+                                             d_opt, lrs["d"]))
         return loss, psnr_sr, terms
 
 
@@ -366,39 +424,41 @@ class SRTrainStep:
 # checkpoints
 # ---------------------------------------------------------------------------
 
-def _flax_opt(state: dict) -> dict:
-    """The generator's optimizer state with HWIO kernels (a file's layout)."""
-    return {"exp_avg": weights.flax_kernels(state["exp_avg"]),
-            "exp_avg_sq": weights.flax_kernels(state["exp_avg_sq"]),
-            "step": state["step"]}
-
-
 def save_joint(path, model_mod, model_cfg, params, buffers, sr_model,
                global_step, opt_states: dict | None = None,
                steps_since_reset: int | None = None,
-               saver: checkpoints.AsyncSaver | None = None) -> None:
+               saver: checkpoints.AsyncSaver | None = None,
+               d_model=None) -> None:
     """Write a joint checkpoint in the JAX package's layout (the JAX
     ``_save_joint``): the encoder's params, the generator under ``__sr__``
-    (flax names, HWIO), ``opt/enc`` and ``opt/sr`` when given; with
-    ``saver`` in the background."""
+    (flax names, HWIO), with ``d_model`` the discriminator under
+    ``__disc__`` and its vectors under ``__disc_state__``, and the
+    optimizer states given (``enc``, ``sr`` and ``d``; None entries left
+    out); with ``saver`` in the background."""
     extra = {"pipeline": "joint_sr"}
     if steps_since_reset is not None:
         extra["steps_since_reset"] = int(steps_since_reset)
     tree = dict(params)
     tree["__sr__"] = weights.flax_kernels(weights.sftnet_params(sr_model))
-    opt = None
-    if opt_states:
-        opt = {"enc": opt_states["enc"], "sr": _flax_opt(opt_states["sr"])}
+    if d_model is not None:
+        tree["__disc__"] = weights.flax_kernels(
+            sr_unetdisc.disc_params(d_model))
+        tree["__disc_state__"] = weights.flax_kernels(
+            sr_unetdisc.disc_spectral(d_model))
+    opt = {k: v if k == "enc" else weights.opt_state_to_flax(v)
+           for k, v in (opt_states or {}).items() if v is not None} or None
     checkpoints.save_checkpoint(
         path, model_mod.get_kwargs(model_cfg), tree, buffers, opt_state=opt,
         global_step=global_step, extra_meta=extra, saver=saver)
 
 
 def load_joint(path: str, ndc: bool, device=None):
-    """(model_mod, model_cfg, params, buffers, sr_params, opt_states,
-    global_step, meta) of a joint checkpoint: the generator's params as a
-    flax tree of tensors (``weights.sftnet_from_flax`` builds the module),
-    the optimizer states in the port's layout or None."""
+    """(model_mod, model_cfg, params, buffers, sr_params, d_params,
+    d_state, opt_states, global_step, meta) of a joint checkpoint: the
+    generator's and the discriminator's params as flax trees of tensors
+    (``weights.sftnet_from_flax`` and ``weights.disc_from_flax`` build the
+    modules; ``d_params`` None and ``d_state`` empty without a
+    discriminator), the optimizer states in the port's layout or None."""
     if not ndc:
         raise trainer._later("the joint trainer's DirectVoxGO branch",
                              "2 (the bounded run.py path)")
@@ -406,23 +466,19 @@ def load_joint(path: str, ndc: bool, device=None):
     kwargs, tree, buffers, opt, step, meta = checkpoints.load_checkpoint(
         path, device=dev)
     sr_params = tree.pop("__sr__", None)
-    if "__disc__" in tree:
-        raise NotImplementedError(
-            "a joint checkpoint with a discriminator (the GAN path) is not "
-            "ported yet: ROADMAP.md Queue A item 3b")
+    d_params = tree.pop("__disc__", None)
+    d_state = tree.pop("__disc_state__", {})
     return (dmpigo, dmpigo.make_config(**kwargs), tree, buffers, sr_params,
-            _port_opt(opt, dev), step, meta)
+            d_params, d_state, _port_opt(opt, dev), step, meta)
 
 
 def _port_opt(opt, device):
-    """A joint file's optimizer states with the generator's moments in the
-    module's layout (kernels OIHW)."""
-    if not opt or "sr" not in opt:
+    """A joint file's optimizer states with the generator's and the
+    discriminator's moments in the modules' layout (conv kernels OIHW)."""
+    if not opt:
         return opt
-    return {**opt, "sr": {
-        "exp_avg": weights.torch_kernels(opt["sr"]["exp_avg"], device),
-        "exp_avg_sq": weights.torch_kernels(opt["sr"]["exp_avg_sq"], device),
-        "step": opt["sr"]["step"]}}
+    return {k: weights.sr_opt_state_from_numpy(v, device)
+            if k in ("sr", "d") else v for k, v in opt.items()}
 
 
 def _periodic_step(path: str, stage: str):
@@ -547,6 +603,56 @@ _PATH_NAMES = {"window": "grid-window sweep", "sweep": "full-grid sweep",
                "gather": "gather forward"}
 
 
+def build_perceptual(cfg_train, stage: str = "fine", device=None):
+    """The perceptual and style loss of a config with ``weight_pcp > 0``,
+    else None. It needs pretrained VGG19 weights (a torchvision
+    ``vgg19*.pth`` where :func:`sr_losses.find_vgg19_weights` looks):
+    training another objective than the config declares is worse than
+    refusing to start (the reference wires basicsr's PerceptualLoss
+    whenever ``weight_pcp > 0``, run_sr.py:670-678). Two explicit escape
+    hatches: ``allow_missing_vgg`` drops the term, ``allow_random_vgg``
+    runs it on the fixed-seed random tower (not the published VGG)."""
+    if not cfg_train.get("weight_pcp", 0) > 0:
+        return None
+    try:
+        perceptual = sr_losses.PerceptualLoss(
+            perceptual_weight=cfg_train.weight_pcp,
+            style_weight=cfg_train.get("weight_style", 0),
+            allow_random_vgg=cfg_train.get("allow_random_vgg", False),
+            device=device)
+        if (cfg_train.get("allow_random_vgg", False)
+                and sr_losses.find_vgg19_weights() is None):
+            print(f"sr ({stage}): WARNING perceptual/style loss running on "
+                  "the fixed-seed RANDOM VGG tower (allow_random_vgg; no "
+                  "pretrained weights found)")
+        return perceptual
+    except FileNotFoundError as e:
+        if cfg_train.get("allow_missing_vgg", False):
+            print(f"sr ({stage}): WARNING perceptual loss DISABLED by "
+                  f"allow_missing_vgg; objective differs from config ({e})")
+            return None
+        raise RuntimeError(
+            f"config sets weight_pcp={cfg_train.weight_pcp} but no "
+            "pretrained VGG19 weights were found. Provide a torchvision "
+            "vgg19 .pth (see README 'VGG19 weights contract') or set "
+            "fine_train.allow_missing_vgg=True to train without the "
+            "perceptual term.") from e
+
+
+def build_discriminator(cfg_model, hr_patch: int, seed: int, device=None):
+    """The discriminator a config names (``d_model``: ``Unet``,
+    ``Unet_pose`` or ``Unet_viewdir``, run_sr.py:681-686) at 64 features
+    for ``hr_patch``-pixel patches, drawn by flax's initialisers from a
+    ``torch.Generator`` seeded with ``seed + 1`` (the generator's draws
+    take ``seed``)."""
+    d_model = sr_unetdisc.build(
+        str(cfg_model.get("d_model", "Unet")), 64,
+        sr_unetdisc.fc_in_for(64, (hr_patch, hr_patch)))
+    sr_unetdisc.init_like_flax(d_model, torch.Generator().manual_seed(
+        seed + 1))
+    return d_model.to(resolve_device(device))
+
+
 def _inmask_patches(model_cfg, buffers, flat, patch: int, stepsize: float):
     """[n_combos] bool: whether any ray of a sampler patch meets the
     occupancy cache (the 'patch_inmask' filter, lib/dvgo.py:786-820)."""
@@ -577,9 +683,9 @@ def _inmask_patches(model_cfg, buffers, flat, patch: int, stepsize: float):
 def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                                       xyz_min, xyz_max, data_dict,
                                       stage: str, writer=None, device=None):
-    """Train the encoder and the generator jointly on ``device`` (default
-    ``cuda``). Returns (model_mod, model_cfg, params, buffers, sr_model)."""
-    check_supported(cfg_train)
+    """Train the encoder and the generator (and, with a GAN weight, the
+    discriminator) jointly on ``device`` (default ``cuda``). Returns
+    (model_mod, model_cfg, params, buffers, sr_model)."""
     dev = resolve_device(device)
     model_mod = trainer._select_model_mod(cfg)
     if abs(cfg_model.world_bound_scale - 1) > 1e-9:
@@ -594,7 +700,8 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     last_ckpt_path = os.path.join(rundir, f"{stage}_last.npz")
 
     # --- encoder: reload (pretrained / joint resume) or new -----------------
-    start, loaded_sr, opt_l, meta_l = 0, None, {}, {}
+    start, loaded_sr, loaded_d, loaded_d_state = 0, None, None, None
+    opt_l, meta_l = {}, {}
     reload_path = find_reload_path(args, rundir, stage)
     if reload_path:
         print(f"sr ({stage}): reload encoder from {reload_path}")
@@ -606,12 +713,11 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
             kwargs_l, params, buffers, opt_raw, start, meta_l = \
                 checkpoints.load_checkpoint(reload_path, device=dev)
             if meta_l.get("pipeline") == "joint_sr":
-                # the generator rides in the encoder's tree of a joint file
+                # the generator and the discriminator ride in the encoder's
+                # tree of a joint file
                 loaded_sr = params.pop("__sr__", None)
-                if "__disc__" in params:
-                    raise NotImplementedError(
-                        "a joint checkpoint with a discriminator (the GAN "
-                        "path) is not ported yet: ROADMAP.md Queue A item 3b")
+                loaded_d = params.pop("__disc__", None)
+                loaded_d_state = params.pop("__disc_state__", None)
                 opt_l = _port_opt(opt_raw, dev) or {}
         model_cfg = model_mod.make_config(**kwargs_l)
     else:
@@ -643,6 +749,16 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                 break
         sr_esrnet.load_reference_state_dict(sr_model, sd)
         print(f"sr ({stage}): imported SR init from {args.ftsr_path}")
+
+    # --- losses and the discriminator ---------------------------------------
+    perceptual = build_perceptual(cfg_train, stage, dev)
+    d_model = None
+    if cfg_train.get("weight_gan", 0) > 0:
+        d_model = build_discriminator(cfg_model, patch * sr_ratio, seed, dev)
+        if loaded_d is not None:
+            weights.load_disc_flax(d_model, loaded_d, loaded_d_state)
+            print(f"sr ({stage}): restored discriminator from joint "
+                  "checkpoint")
 
     render_kwargs = {
         "near": float(data_dict["near"]), "far": float(data_dict["far"]),
@@ -696,7 +812,8 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                          render_kwargs=render_kwargs,
                          skip_zero_grad=skip_zero, sr_model=sr_model,
                          n_views=V, patch=patch, sr_ratio=sr_ratio,
-                         sweep_patch=sp, grid_window=gw)
+                         sweep_patch=sp, grid_window=gw,
+                         perceptual=perceptual, d_model=d_model)
         mask = tuple(buffers["mask_cache"].shape)
         print(f"sr: steps without TV take the "
               f"{_PATH_NAMES[st.path(params, buffers, apply_tv=False)]}, the "
@@ -710,11 +827,16 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     skip_zero = frozenset(cfg_train.skip_zero_grad_fields)
     enc_opt = optim.init_state(params)
     sr_opt = optim.init_state({"srnet": weights.sftnet_params(sr_model)})
+    d_opt = (optim.init_state({"d": sr_unetdisc.disc_params(d_model)})
+             if d_model is not None else None)
     if not getattr(args, "no_reload_optimizer", False) and opt_l:
         enc_opt, r1 = optim.restore_state(opt_l.get("enc"), enc_opt,
                                           label="encoder opt")
         sr_opt, r2 = optim.restore_state(opt_l.get("sr"), sr_opt,
                                          label="srnet opt")
+        if d_opt is not None:
+            d_opt, _ = optim.restore_state(opt_l.get("d"), d_opt,
+                                           label="disc opt")
         if r1 or r2:
             print(f"sr ({stage}): restored optimizer state from joint "
                   "checkpoint")
@@ -722,13 +844,18 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     lr_srnet0 = float(cfg_train.get("lrate_srnet", 2e-4))
     step_fn, ab = make_step(model_cfg)
 
+    # the views' w2c rotations, the pose discriminator's condition
+    w2c_train = torch.as_tensor(np.asarray(data_dict.get(
+        "w2c", np.zeros((len(data_dict["poses"]), 3, 3))))[i_train],
+        dtype=torch.float32, device=dev)
+
     def gather(v: int, r: int, c: int):
         def sl(t):
             return t[v, r:r + patch, c:c + patch].reshape(-1, 3)
         hr = dev_hr[v, r * sr_ratio:(r + patch) * sr_ratio,
                     c * sr_ratio:(c + patch) * sr_ratio].reshape(-1, 3)
         return (sl(flat["rays_o"]), sl(flat["rays_d"]), sl(flat["viewdirs"]),
-                sl(flat["rgb"]), hr)
+                sl(flat["rgb"]), hr, w2c_train[v])
 
     def window_origin(v: int, r: int, c: int):
         X, Y, Z = model_cfg.world_size
@@ -775,7 +902,7 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                                       cfg_train.lrate_decay)
 
             lrs = {"enc": {k: decayed(v0) for k, v0 in base_lrs.items()},
-                   "srnet": decayed(lr_srnet0)}
+                   "srnet": decayed(lr_srnet0), "d": decayed(lr_srnet0)}
             noise = (trainer.bkgd_noise(seed, global_step, patch * patch, dev)
                      if render_kwargs["rand_bkgd"] else None)
             apply_tv = (cfg_train.tv_after < global_step < cfg_train.tv_before
@@ -786,7 +913,7 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                 params, buffers, enc_opt, sr_opt, batch, lrs, noise,
                 apply_tv=bool(apply_tv),
                 tv_dense=bool(global_step < cfg_train.tv_dense_before),
-                origin=origin)
+                origin=origin, d_opt=d_opt)
             steps_since_reset += 1
             collector.report("train/psnr_sr", stats_mod.moments(psnr_sr))
             for k, t in terms.items():
@@ -835,7 +962,8 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                     save_joint(os.path.join(rundir, "render_val",
                                             "best_joint.npz"),
                                model_mod, model_cfg, params, buffers,
-                               sr_model, global_step, saver=saver)
+                               sr_model, global_step, saver=saver,
+                               d_model=d_model)
                 del val
 
             if args.i_weights and global_step % args.i_weights == 0:
@@ -843,8 +971,10 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                                         f"{stage}_{global_step:06d}.npz"),
                            model_mod, model_cfg, params, buffers, sr_model,
                            global_step,
-                           opt_states={"enc": enc_opt, "sr": sr_opt},
-                           steps_since_reset=steps_since_reset, saver=saver)
+                           opt_states={"enc": enc_opt, "sr": sr_opt,
+                                       "d": d_opt},
+                           steps_since_reset=steps_since_reset, saver=saver,
+                           d_model=d_model)
                 print(f"sr ({stage}): async checkpoint dispatched at iter "
                       f"{global_step}", flush=True)
 
@@ -852,8 +982,9 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
         if cfg_train.N_iters > start:
             save_joint(last_ckpt_path, model_mod, model_cfg, params, buffers,
                        sr_model, cfg_train.N_iters,
-                       opt_states={"enc": enc_opt, "sr": sr_opt},
-                       steps_since_reset=steps_since_reset)
+                       opt_states={"enc": enc_opt, "sr": sr_opt,
+                                   "d": d_opt},
+                       steps_since_reset=steps_since_reset, d_model=d_model)
             print(f"sr ({stage}): saved checkpoint at {last_ckpt_path}")
     finally:
         saver.close()

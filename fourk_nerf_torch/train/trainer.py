@@ -85,7 +85,8 @@ def frame_path(model_mod, model_cfg, params, buffers, data: DataFlags,
 def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
                       HW, Ks, *, data: DataFlags, render_kwargs: dict,
                       gt_imgs=None, chunk: int = 8192, eval_ssim: bool = True,
-                      render_factor: int = 0,
+                      eval_lpips_vgg: bool = False,
+                      eval_lpips_alex: bool = False, render_factor: int = 0,
                       render_video_flipy: bool = False,
                       render_video_rot90: int = 0, verbose: bool = True,
                       device=None) -> dict:
@@ -96,9 +97,12 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
     bounded scenes, ``near`` and ``far``. ``render_factor`` divides the
     resolution and the intrinsics for previews and skips the metrics;
     ``render_video_flipy`` / ``render_video_rot90`` flip or rotate the
-    finished frames. Returns ``rgbs [N,H,W,3]``, ``rgb_features``,
-    ``depths [N,H,W]``, ``bgmaps`` as tensors on the device, the per-frame
-    ``psnrs`` / ``ssims`` and ``frame_times`` (seconds, host clock), and the
+    finished frames. ``eval_lpips_vgg`` / ``eval_lpips_alex`` score LPIPS
+    with the ``lpips`` package's network of that name, where the package
+    is installed (else no value). Returns ``rgbs [N,H,W,3]``,
+    ``rgb_features``, ``depths [N,H,W]``, ``bgmaps`` as tensors on the
+    device, the per-frame ``psnrs`` / ``ssims`` / ``lpips_vgg`` /
+    ``lpips_alex`` and ``frame_times`` (seconds, host clock), and the
     ``path`` the frames took."""
     dev = resolve_device(device)
     HW = np.asarray(HW)
@@ -143,6 +147,8 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
 
     rgbs, feats, depths, bgmaps = [], [], [], []
     psnrs, ssims, frame_times = [], [], []
+    lpips = {"vgg": [], "alex": []}
+    lpips_on = {"vgg": eval_lpips_vgg, "alex": eval_lpips_alex}
     for fi, pose in enumerate(render_poses):
         H, W = int(HW[fi][0]), int(HW[fi][1])
         c2w = np.asarray(pose, dtype=np.float32)[:3, :4]
@@ -170,9 +176,15 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
             psnrs.append(metrics.psnr(rgb, gt))
             if eval_ssim:
                 ssims.append(metrics.rgb_ssim(rgb, gt))
+            for net, on in lpips_on.items():
+                lp = metrics.rgb_lpips(gt, rgb, net) if on else None
+                if lp is not None:
+                    lpips[net].append(lp)
     if verbose and psnrs:
         print(f"render_viewpoints: psnr {np.mean(psnrs):.2f}"
-              + (f" ssim {np.mean(ssims):.4f}" if ssims else ""))
+              + (f" ssim {np.mean(ssims):.4f}" if ssims else "")
+              + "".join(f" lpips({net}) {np.mean(v):.4f}"
+                        for net, v in lpips.items() if v))
     maps = [rgbs, feats, depths, bgmaps]
     if render_video_flipy:
         maps = [[x.flip(0) for x in m] for m in maps]
@@ -182,6 +194,7 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
     rgbs, feats, depths, bgmaps = (torch.stack(m) for m in maps)
     return {"rgbs": rgbs, "rgb_features": feats, "depths": depths,
             "bgmaps": bgmaps, "psnrs": psnrs, "ssims": ssims,
+            "lpips_vgg": lpips["vgg"], "lpips_alex": lpips["alex"],
             "frame_times": frame_times, "path": path}
 
 

@@ -1,4 +1,5 @@
-"""Evaluation metrics: PSNR, SSIM, 8-bit conversion, LPIPS and its proxy.
+"""Evaluation metrics: PSNR, SSIM, 8-bit conversion, depth colouring,
+LPIPS and its proxy.
 
 PSNR and the gaussian-window SSIM (the mip-NeRF form) give the numbers of
 the JAX package's ``utils/metrics.py``; SSIM and the LPIPS proxy (the JAX
@@ -71,6 +72,25 @@ def rgb_ssim(img0, img1, max_val=1.0, filter_size=11, filter_sigma=1.5,
     if return_map:
         return ssim_map if tensors else ssim_map.cpu().numpy()
     return float(ssim_map.mean())
+
+
+def visualize_depth(depth, minmax=None) -> np.ndarray:
+    """A depth map as a JET-coloured ``uint8`` image (reference
+    lib/utils.py:68-83): scaled from the least positive depth (or
+    ``minmax[0]``) to the largest (or ``minmax[1]``). Needs ``cv2``."""
+    import cv2
+
+    x = np.nan_to_num(depth.cpu().numpy() if isinstance(depth, torch.Tensor)
+                      else np.asarray(depth))
+    if minmax is None:
+        positive = x[x > 0]
+        mi = positive.min() if positive.size else 0.0
+        ma = x.max()
+    else:
+        mi, ma = minmax
+    x = (x - mi) / (ma - mi + 1e-8)
+    x = (255 * np.clip(x, 0, 1)).astype(np.uint8)
+    return cv2.applyColorMap(x, cv2.COLORMAP_JET)
 
 
 _LPIPS_PROXY_FILTERS: dict = {}

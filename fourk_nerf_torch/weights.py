@@ -1,5 +1,6 @@
 """Parameters into the port: numpy trees of the JAX package's layout, the
-SFTNet and RRDBNetBPS flax trees, and the trained-content anchor asset.
+SFTNet, RRDBNetBPS, discriminator and VGG19 flax trees, and the
+trained-content anchor asset.
 
 The dmpigo ``params``/``buffers`` dicts keep their layout (grids
 ``[X,Y,Z,C]``, rgbnet ``{w0,b0,...}`` with ``w [Cin,W]``) and only become
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.models import dmpigo, sr_esrnet
+from fourk_nerf_torch.models import dmpigo, sr_esrnet, sr_unetdisc
 from fourk_nerf_torch.ops import grid_sample
 
 ANCHOR_ASSET = os.path.join(os.path.dirname(os.path.dirname(
@@ -120,23 +121,26 @@ def sftnet_params(model) -> dict:
 
 
 def flax_kernels(tree):
-    """A tree of the flax names with its ``kernel`` leaves taken from the
-    module's OIHW layout to flax's HWIO (new tensors; the other tensors
-    detached)."""
+    """A tree of the flax names with its conv ``kernel`` leaves taken from
+    the module's OIHW layout to flax's HWIO (new tensors; the other
+    tensors, dense kernels ``[in, out]`` among them, detached)."""
     if not isinstance(tree, dict):
         return tree.detach() if isinstance(tree, torch.Tensor) else tree
     return {k: v.detach().permute(2, 3, 1, 0).contiguous()
-            if k == "kernel" else flax_kernels(v) for k, v in tree.items()}
+            if k == "kernel" and v.dim() == 4 else flax_kernels(v)
+            for k, v in tree.items()}
 
 
 def torch_kernels(tree, device=None):
     """The inverse of :func:`flax_kernels`: arrays or tensors of flax's
-    layout as float32 tensors on ``device`` (default ``cuda``), kernels
-    OIHW."""
+    layout as float32 tensors on ``device`` (default ``cuda``), conv
+    kernels OIHW."""
     if isinstance(tree, dict):
-        return {k: torch_kernels(v, device).permute(3, 2, 0, 1).contiguous()
-                if k == "kernel" else torch_kernels(v, device)
-                for k, v in tree.items()}
+        out = {k: torch_kernels(v, device) for k, v in tree.items()}
+        for k, v in out.items():
+            if k == "kernel" and v.dim() == 4:
+                out[k] = v.permute(3, 2, 0, 1).contiguous()
+        return out
     return _as_float(tree).to(resolve_device(device))
 
 
@@ -152,13 +156,22 @@ def sftnet_to_flax(model) -> dict:
 
 
 def sr_opt_state_from_numpy(state, device=None) -> dict:
-    """The generator's MaskedAdam state in the JAX package's layout
-    (``init_state({"srnet": params})``: moments under ``srnet`` with HWIO
-    kernels, an int32 ``step``) -> the port's (tensors on ``device``,
-    kernels OIHW, the step a host int)."""
+    """The generator's or the discriminator's MaskedAdam state in the JAX
+    package's layout (``init_state({"srnet": params})`` or ``{"d": ...}``:
+    moments with HWIO conv kernels, an int32 ``step``) -> the port's
+    (tensors on ``device``, conv kernels OIHW, the step a host int)."""
     return {"exp_avg": torch_kernels(state["exp_avg"], device),
             "exp_avg_sq": torch_kernels(state["exp_avg_sq"], device),
             "step": int(np.asarray(state["step"]))}
+
+
+def opt_state_to_flax(state: dict) -> dict:
+    """The inverse of :func:`sr_opt_state_from_numpy` for the generator's
+    or the discriminator's state: conv kernels of the moments HWIO (new
+    tensors), the step a host int."""
+    return {"exp_avg": flax_kernels(state["exp_avg"]),
+            "exp_avg_sq": flax_kernels(state["exp_avg_sq"]),
+            "step": state["step"]}
 
 
 def joint_opt_state_from_numpy(states: dict, device=None) -> dict:
@@ -166,6 +179,73 @@ def joint_opt_state_from_numpy(states: dict, device=None) -> dict:
     encoder's ``enc``, the generator's ``sr``) -> the port's."""
     return {"enc": opt_state_from_numpy(states["enc"], device),
             "sr": sr_opt_state_from_numpy(states["sr"], device)}
+
+
+# ---------------------------------------------------------------------------
+# the discriminators and the VGG19 tower
+# ---------------------------------------------------------------------------
+
+def disc_from_flax(params: dict, spectral: dict | None = None, *,
+                   device=None):
+    """Build a discriminator from the JAX package's ``params`` and
+    ``spectral`` trees (arrays or tensors; conv kernels HWIO): the plain
+    ``Unet``, or, with a ``feat`` subtree, ``Unet_pose`` (a dense
+    ``mapping``) or ``Unet_viewdir`` (a 1x1 conv ``mapping``); widths
+    from the kernels. ``spectral`` None
+    leaves every ``u`` zero."""
+    dev = resolve_device(device)
+    kind = "Unet" if "feat" not in params else (
+        "Unet_pose" if np.ndim(params["mapping"]["kernel"]) == 2
+        else "Unet_viewdir")
+    trunk = params.get("feat", params)
+    num_feat = int(tuple(trunk["conv0"]["kernel"].shape)[3])
+    fc_in = (int(tuple(params["epilogue"]["fc"]["kernel"].shape)[0])
+             if kind != "Unet" else None)
+    model = sr_unetdisc.build(kind, num_feat, fc_in=fc_in).to(dev)
+    load_disc_flax(model, params, spectral)
+    return model
+
+
+@torch.no_grad()
+def load_disc_flax(model, params: dict, spectral: dict | None = None):
+    """Copy the JAX package's discriminator trees into ``model`` in place:
+    every parameter from the leaf of ``params`` at its path (conv kernels
+    HWIO -> OIHW), every ``u`` from ``spectral`` where given. Returns
+    ``model``."""
+    dev = next(model.parameters()).device
+    tp = torch_kernels(params, dev)
+    for path, p in model.named_parameters():
+        p.copy_(_at_path(tp, path))
+    if spectral:
+        ts = torch_kernels(spectral, dev)
+        for path, b in model.named_buffers():
+            b.copy_(_at_path(ts, path))
+    return model
+
+
+def disc_to_flax(model) -> tuple[dict, dict]:
+    """The inverse of :func:`disc_from_flax`: (``params``, ``spectral``)
+    as numpy trees of the JAX layout (conv kernels HWIO)."""
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        return t.detach().cpu().numpy()
+
+    return (np_tree(flax_kernels(sr_unetdisc.disc_params(model))),
+            np_tree(sr_unetdisc.disc_spectral(model)))
+
+
+def vgg19_from_flax(tree: dict, device=None) -> dict:
+    """The JAX package's VGG19 params (``{conv_name: {"kernel": HWIO,
+    "bias"}}``) -> the port's (kernels OIHW, float32 tensors on
+    ``device``, default ``cuda``)."""
+    return torch_kernels(tree, device)
+
+
+def _at_path(tree, path: str):
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
 
 
 def rrdbnet_bps_from_flax(tree: dict, device=None) -> sr_esrnet.RRDBNetBPS:

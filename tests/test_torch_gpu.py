@@ -592,3 +592,52 @@ def test_joint_steps_cuda_match_cpu(cuda, tmp_path):
         assert len(want) == 6
         np.testing.assert_allclose(out["cuda"][k], want, rtol=1e-4,
                                    err_msg=k)
+
+
+def test_gan_joint_steps_cuda_match_cpu(cuda, tmp_path):
+    """Six steps of the tiny joint scene on the GAN config (the
+    discriminator, the perceptual and style terms on the fixed-seed random
+    VGG19 tower) on the card and on the CPU: every loss term at every step,
+    the discriminator's included, within 1e-4 relative, or 1e-8 absolute
+    for a term near zero: the style term (~1e-6 here) is the L1 between
+    two nearly equal Gram matrices, so float32 rounding of the Grams is
+    ~1e-4 of it by step 5 (1.5e-4, 1.3e-10 absolute, on the card)."""
+    import os
+    import types
+
+    from fourk_nerf_torch import config
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import sr_trainer
+
+    class W:
+        def __init__(self):
+            self.rows = {}
+
+        def scalar(self, tag, value, step):
+            self.rows.setdefault(tag, []).append(value)
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = tiny_scene.apply_overrides(config.load_config(os.path.join(
+            root, "fourk_nerf_torch", "configs", "llff",
+            "fern_lg_joint_l1_gan.py")), str(tmp_path), dev,
+            tiny_scene.JOINT_OVERRIDES)
+        cfg.fine_train.allow_random_vgg = True
+        w = W()
+        args = types.SimpleNamespace(seed=0, no_reload=True, ftdv_path="",
+                                     ftsr_path="", no_reload_optimizer=False,
+                                     i_print=1, i_val=0, i_weights=0,
+                                     test_tile=0)
+        sr_trainer.scene_rep_reconstruction_sr_patch(
+            args, cfg, cfg.fine_model_and_render, cfg.fine_train,
+            *(np.array(v) for v in tiny_scene.SR_BOX), tiny_scene.sr_scene(),
+            stage="fine", writer=w, device=dev)
+        out[dev] = w.rows
+    assert set(out["cuda"]) == set(out["cpu"])
+    assert {"train/loss_g", "train/loss_pcp", "train/loss_style",
+            "train/loss_d_real", "train/loss_d_fake"} <= set(out["cpu"])
+    for k, want in out["cpu"].items():
+        assert len(want) == 6
+        np.testing.assert_allclose(out["cuda"][k], want, rtol=1e-4,
+                                   atol=1e-8, err_msg=k)

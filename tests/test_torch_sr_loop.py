@@ -155,8 +155,9 @@ def test_port_joint_files_load_in_jax(runs, name):
         np.testing.assert_array_equal(np.asarray(flat[k]), v, err_msg=k)
     assert meta["pipeline"] == "joint_sr" and meta["steps_since_reset"] == 6
     # and in the port: the generator's moments in the module's layout
-    *_, tsr, topt, tstep, _ = tst.load_joint(path, True, "cpu")
+    *_, tsr, td, tds, topt, tstep, _ = tst.load_joint(path, True, "cpu")
     assert tstep == N_ITERS and topt["enc"]["step"] == N_ITERS
+    assert td is None and tds == {}
     np.testing.assert_array_equal(
         tsr["conv_first"]["kernel"].numpy(),
         raw["params/__sr__/conv_first/kernel"])

@@ -1,8 +1,9 @@
 """The joint trainer's pieces against the JAX package: the patch sampler,
 the sweep's slice and window sizes, the LPIPS proxy, the generator's
 weights in and out (reference state dicts, flax trees, the JAX init's
-distributions), resume by the parsed step, the objectives and flags that
-raise, and full float32 (no TF32) in every entry point.
+distributions), resume by the parsed step, the flags that raise, depth
+colouring, LPIPS of the renders by network, and full float32 (no TF32) in
+every entry point.
 
 Tolerances: the LPIPS proxy 1e-5 relative; weights exactly; the init's
 standard deviations within 5% of the JAX initialisers' (about 2,000 to
@@ -223,14 +224,6 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
     assert tst.find_reload_path(args, rundir, "fine") is None
 
 
-@pytest.mark.parametrize("key", ["weight_gan", "weight_pcp",
-                                 "weight_style"])
-def test_gan_and_perceptual_objectives_raise(key):
-    from fourk_nerf_torch.config import ConfigDict
-    with pytest.raises(NotImplementedError, match="Queue A item 3b"):
-        tst.check_supported(ConfigDict({key: 0.1}))
-
-
 @pytest.mark.parametrize("flag,item", [("--multihost", "item 6"),
                                        ("--ftdvcoa_path=x.npz", "item 2")])
 def test_run_sr_unported_flags_raise(tmp_path, flag, item):
@@ -413,3 +406,47 @@ def test_native_mask_render_matches_the_jax_xla_sweep():
     for k in ("rgb_marched", "rgb_feature", "depth", "alphainv_last"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("minmax", [None, (0.2, 0.9)])
+def test_visualize_depth_matches_jax(minmax):
+    depth = np.random.default_rng(5).uniform(0, 1, (9, 11)).astype(
+        np.float32)
+    depth[0, :3] = 0.0  # the least positive depth, not 0, is the low end
+    depth[1, 1] = np.nan
+    want = jm.visualize_depth(depth, minmax)
+    np.testing.assert_array_equal(tm.visualize_depth(depth, minmax), want)
+    np.testing.assert_array_equal(
+        tm.visualize_depth(torch.tensor(depth), minmax), want)
+    assert want.shape == (9, 11, 3) and want.dtype == np.uint8
+
+
+def test_render_viewpoints_scores_lpips_by_network(monkeypatch):
+    """``eval_lpips_vgg`` / ``eval_lpips_alex`` score each view with the
+    ``lpips`` package's network of that name (stubbed here: the package is
+    not installed), and give no value where it returns None."""
+    from fourk_nerf_torch.train import trainer
+    cfg, params, buffers, K, c2w = _tiny_frame_scene()
+    calls = []
+
+    def fake(gt, im, net):
+        calls.append(net)
+        return {"vgg": 0.25, "alex": 0.5}[net]
+
+    kw = dict(data=trainer.DataFlags(ndc=True),
+              render_kwargs={"stepsize": 1.0, "bg": 0.0},
+              gt_imgs=[np.zeros((12, 16, 3), np.float32)] * 2,
+              eval_ssim=False, device="cpu")
+    poses, hw, ks = np.stack([c2w] * 2), np.array([[12, 16]] * 2), \
+        np.stack([K] * 2)
+    monkeypatch.setattr(tm, "rgb_lpips", fake)
+    res = trainer.render_viewpoints(td, cfg, params, buffers, poses, hw, ks,
+                                    eval_lpips_vgg=True,
+                                    eval_lpips_alex=True, **kw)
+    assert res["lpips_vgg"] == [0.25, 0.25]
+    assert res["lpips_alex"] == [0.5, 0.5]
+    assert calls == ["vgg", "alex", "vgg", "alex"]
+    monkeypatch.setattr(tm, "rgb_lpips", lambda gt, im, net: None)
+    res = trainer.render_viewpoints(td, cfg, params, buffers, poses, hw, ks,
+                                    eval_lpips_vgg=True, **kw)
+    assert res["lpips_vgg"] == [] and res["lpips_alex"] == []
