@@ -99,7 +99,31 @@ Phases (any failure raises and the script exits non-zero):
      peak memory; then ``fern_lg_joint_1x_l1_gan.py`` (the scale-1 SFTNet,
      the discriminator on the 64x64 LR truth) for 10 steps, its step
      time; one ``{"joint_gan": ...}`` JSON line;
- 16. one JSON line with the seven kernels' summary, then the result line.
+ 16. the bounded-scene path at full width: phase 8's scene (160^3,
+     rgbnet 3x128) rendered on white through the box kernel from 24
+     poses of the Blender sphere (``tiny_scene.bounded_poses``) at
+     800x800 and the Blender field of view, as the Blender loader's
+     ``data_dict`` (20 train, 2 val, 2 test); ``configs/syn/
+     syn_default.py`` as published (coarse 1024000 voxels with the
+     per-voxel lr, fine 160^3 with ``in_maskcache``, N_rand 8192, step
+     0.5) cut to 100 coarse and 100 fine steps, the fine grid doubling at
+     20, 40, 60, 80 (``BOUNDED_OVERRIDES``), an ``i_val`` render of each
+     stage through the box kernel; checks: both losses fall, the i_val
+     renders take the box kernel, the box kernel vs its plain version on
+     the coarse model (no rgbnet) and the fine model; then
+     ``run --export_coarse_only`` and ``run --render_only --render_test``
+     (the box kernel, the held-out PSNR above a white frame's); timings:
+     the coarse step and the fine step at 160^3 by parts beside their
+     bounds (the larger of bytes and FP32 operations), ``voxel_count_views``, a profiled fine step, peak
+     memory; then ``configs/syn/chair_joint_1x_l1_gan.py`` from the fine
+     checkpoint (``--ftdv_path``) and the coarse one (``--ftdvcoa_path``)
+     for 40 steps at 64x64 patches (``allow_random_vgg``, phase 15's one
+     deviation), the SR L1 falling; its step timed beside its bound; then
+     ``run_sr --render_only --render_test --render_video`` serves one
+     800x800 frame through ``serve_joint`` (the box kernel, 15 dense-block
+     launches, the decode's kernel chain vs its plain chain); one
+     ``{"bounded": ...}`` JSON line;
+ 17. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -157,6 +181,29 @@ GAN_OVERRIDES = {
     "fine_train": {**JOINT_OVERRIDES["fine_train"],
                    "allow_random_vgg": True},
     "args": JOINT_OVERRIDES["args"],
+}
+
+BOUNDED_HW = 800           # phase 16: the Blender frame
+BOUNDED_VIEWS = 24         # phase 16: 20 train, 2 val, 2 test
+BOUNDED_TEACHER_G = 160    # phase 16: phase 8's scene, the teacher
+BOUNDED_JOINT_STEPS = 40   # phase 16: chair joint steps after the pretrain
+#: phase 16: what is set over the published configs/syn/syn_default.py (the
+#: run directory goes under build/ and is deleted at the phase's end): 100
+#: coarse and 100 fine steps, the fine grid doubling every 20; and one
+#: deviation, the coarse alpha_init 1e-4 for the published 1e-6: at 1e-6
+#: the density's gradients sit under MaskedAdam's eps (1e-8), and the coarse
+#: loss stays flat for a few hundred of its 5000 steps
+BOUNDED_OVERRIDES = {
+    "coarse_model_and_render": {"alpha_init": 1e-4},
+    "coarse_train": {"N_iters": 100},
+    "fine_train": {"N_iters": 100, "pg_scale": [20, 40, 60, 80]},
+    "args": {"i_print": 10, "i_val": 100, "i_weights": 50},
+}
+#: phase 16: over configs/syn/chair_joint_1x_l1_gan.py (N_iters is the
+#: pretrain's last step + BOUNDED_JOINT_STEPS): phase 15's one deviation
+BOUNDED_JOINT_OVERRIDES = {
+    "fine_train": {"allow_random_vgg": True},
+    "args": {"i_print": 10, "i_val": 40, "i_weights": 30},
 }
 
 
@@ -1497,23 +1544,26 @@ class SkippedWrites:
         log(f"  image write skipped (no imageio): {os.path.basename(path)}")
 
 
-def serve_joint(dev, cfg_path, basedir, expname, last, data):
+def serve_joint(dev, cfg_path, basedir, expname, last, data, *,
+                render="sweep", frame_hw=(H * SCALE, W * SCALE)):
     """``run_sr --render_only --render_test --render_video --eval_lpips_vgg``
-    from the joint file ``last``: the held-out views scored and one 4K
-    frame served (its video write logged and skipped where imageio is not
-    installed); checks the launches (the sweep kernel for each scored view
-    and the frame, 15 dense-block launches) and holds the frame's decode,
-    kernel chain vs plain chain, within ``SR_TOL``. Returns
-    (``evaluate_sr``'s seconds, the serve record, the launches)."""
+    from the joint file ``last``: the held-out views scored and one frame
+    of ``frame_hw`` served (its video write logged and skipped where imageio
+    is not installed); checks the launches (the ``render`` kernel, ``sweep``
+    or ``box``, for each scored view and the frame, 15 dense-block launches)
+    and holds the frame's decode, kernel chain vs plain chain, within
+    ``SR_TOL``. Returns (``evaluate_sr``'s seconds, the serve record, the
+    launches)."""
     import torch
     from fourk_nerf_torch import config as config_mod, run_sr
-    from fourk_nerf_torch.ops import cuda_sr, cuda_sweep
+    from fourk_nerf_torch.ops import cuda_box, cuda_sr, cuda_sweep
 
+    kernel = {"sweep": cuda_sweep.sweep, "box": cuda_box.sweep_box}[render]
     one = dict(data, render_poses=data["poses"][data["i_test"][:1]])
     rargs = run_sr.config_parser().parse_args(
         ["--config", os.path.join(HERE, cfg_path), "--render_only",
-         "--render_video", "--eval_lpips_vgg", "--ft_path", last,
-         "--device", dev.type])
+         "--render_test", "--render_video", "--eval_lpips_vgg", "--ft_path",
+         last, "--device", dev.type])
     cfg_r = config_mod.load_config(os.path.join(HERE, cfg_path))
     cfg_r.basedir, cfg_r.expname = basedir, expname
     real_imageio = run_sr._imageio
@@ -1521,15 +1571,14 @@ def serve_joint(dev, cfg_path, basedir, expname, last, data):
         import imageio.v2  # noqa: F401
     except ImportError:
         run_sr._imageio = SkippedWrites
-    cuda_sweep.sweep.launches = 0
+    kernel.launches = 0
     cuda_sr.rdb_apply.launches = 0
     try:
         res = run_sr.run(rargs, cfg_r, one)
     finally:
         run_sr._imageio = real_imageio
     sync()
-    launches = {"sweep": cuda_sweep.sweep.launches,
-                "rdb": cuda_sr.rdb_apply.launches}
+    launches = {render: kernel.launches, "rdb": cuda_sr.rdb_apply.launches}
     video, test = res["video"], res["test"]
     enc_s = video["encoder"]["frame_times"][0]
     sr_s = video["sr_times"][0]
@@ -1537,19 +1586,22 @@ def serve_joint(dev, cfg_path, basedir, expname, last, data):
         f"{test['seconds']} (host clock)")
     serve = {"launches": launches, "encoder_s": enc_s, "decoder_s": sr_s,
              "frame_s": enc_s + sr_s, "psnr_sr_test": test["psnr_sr"],
-             "ssim_sr_test": test["ssim_sr"], "psnr_lr_test": test["psnr_lr"]}
-    log(f"  served 4K frame (first call, host clock): encoder "
+             "ssim_sr_test": test["ssim_sr"], "psnr_lr_test": test["psnr_lr"],
+             "encoder_path": video["encoder"]["path"]}
+    log(f"  served {frame_hw[0]}x{frame_hw[1]} frame through the "
+        f"{serve['encoder_path']} path (first call, host clock): encoder "
         f"{enc_s * 1e3:.1f} ms, decoder {sr_s * 1e3:.1f} ms, frame "
         f"{(enc_s + sr_s) * 1e3:.1f} ms; launches {launches}; "
         f"--render_test held-out views: PSNR_SR {test['psnr_sr']:.3f}, "
         f"SSIM {test['ssim_sr']:.4f}, LR PSNR {test['psnr_lr']}")
     n_test = len(data["i_test"])
-    if launches != {"sweep": 1 + n_test, "rdb": 15}:
+    if launches != {render: 1 + n_test, "rdb": 15}:
         raise AssertionError(f"serving launches {launches}")
     frame = video["frames"][0]
-    if tuple(frame.shape) != (H * SCALE, W * SCALE, 3) \
+    if tuple(frame.shape) != (*frame_hw, 3) \
             or not bool(torch.isfinite(frame).all()):
-        raise AssertionError("the served frame is not a finite 4K frame")
+        raise AssertionError(f"the served frame {tuple(frame.shape)} is not "
+                             f"a finite {frame_hw} frame")
     prep = cuda_sr.prepare_sftnet(res["model"][4])
     feat = video["encoder"]["rgb_features"][0][None]
     depth = video["encoder"]["depths"][0][None, ..., None]
@@ -2152,6 +2204,454 @@ def run_joint_gan(dev, pre):
     return rec, launches
 
 
+def bounded_views(dev):
+    """The scene of phase 16: phase 8's bounded scene (``box_synthetic``)
+    rendered on white through ``render_viewpoints`` (the box kernel, bf16
+    path) from ``BOUNDED_VIEWS`` poses of the Blender sphere
+    (``tiny_scene.bounded_poses``) at the Blender field of view, as the
+    Blender loader's ``data_dict``: the first 20 views train, then 2 val,
+    then 2 test; ``srgt`` the images (the 1x chair config's truth)."""
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import trainer
+    hw, n = BOUNDED_HW, BOUNDED_VIEWS
+    cfg, params, buffers = box_synthetic(dev, G=BOUNDED_TEACHER_G)
+    f = tiny_scene.blender_focal(hw)
+    K = np.array([[f, 0, 0.5 * hw], [0, f, 0.5 * hw], [0, 0, 1]])
+    poses = tiny_scene.bounded_poses(n)
+    res = trainer.render_viewpoints(
+        dvgo, cfg, params, buffers, poses, np.array([[hw, hw]] * n),
+        np.stack([K] * n), data=trainer.DataFlags(),
+        render_kwargs={**BOX_RENDER}, verbose=False, device=dev)
+    images = res["rgbs"].float().clamp(0, 1).cpu().numpy()
+    i_split = np.split(np.arange(n), [n - 4, n - 2])
+    return dict(hwf=[hw, hw, f], HW=np.array([[hw, hw]] * n),
+                Ks=np.stack([K] * n), near=2.0, far=6.0, near_clip=None,
+                i_train=i_split[0], i_val=i_split[1], i_test=i_split[2],
+                poses=poses, render_poses=poses[i_split[2][:1]],
+                images=images, irregular_shape=False, srgt=images, w2c=0)
+
+
+def valid_samples(mcfg, buffers, rays_o, rays_d, stepsize, near):
+    """The samples of the rays that the gather forward reads voxels for:
+    inside the box, within the ray's own count and in the mask."""
+    import torch
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import grid_sample
+    n = 0
+    for s in range(0, rays_o.shape[0], 4096):
+        pts, valid, _ = dvgo.sample_ray(mcfg, rays_o[s:s + 4096],
+                                        rays_d[s:s + 4096], near=near,
+                                        far=1e9, stepsize=stepsize)
+        mn = torch.tensor(mcfg.xyz_min, device=pts.device)
+        mx = torch.tensor(mcfg.xyz_max, device=pts.device)
+        n += int((valid & grid_sample.nearest_mask_lookup(
+            buffers["mask_cache"], pts, mn, mx)).sum())
+    return n
+
+
+def bounded_step_parts(dev, cfg_train, mcfg, params, buffers, batch,
+                       per_lr, rk):
+    """A bounded training step at full width split into the gather
+    forward + backward and MaskedAdam, each by CUDA events (median of 5)
+    beside its bound, the larger of its bytes and its FP32 operations.
+    Bytes: the voxels of this batch's valid samples read (8 corners,
+    density and k0) forward and scattered backward, the dense gradients
+    written; Adam reading p, g, m, v and writing p, m, v. Operations: the
+    rgbnet on the valid samples, forward and backward (6 a multiply-add:
+    the product, its input gradient, its weight gradient)."""
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.train import optim, trainer
+    lrs = {k: optim.group_lr(v, 10, cfg_train.lrate_decay) for k, v in
+           optim.build_group_lrs(cfg_train, params).items()}
+    skip = frozenset(cfg_train.skip_zero_grad_fields)
+    st = trainer.TrainStep(dvgo, mcfg, cfg_train, render_kwargs=rk,
+                           skip_zero_grad=skip)
+    opt = optim.init_state(params)
+
+    def step():
+        st(params, buffers, opt, batch, lrs, per_lr, None, apply_tv=False,
+           tv_dense=False)
+
+    full = event_ms(step)
+    _, _, grads = st.loss_and_grads(params, buffers, batch, lrs.keys())
+    split = {"fwd_bwd": event_ms(lambda: st.loss_and_grads(
+                 params, buffers, batch, lrs.keys())),
+             "adam": event_ms(lambda: optim.apply_updates(
+                 params, grads, opt, lrs, skip_zero_grad=skip,
+                 per_lr=per_lr))}
+    n_valid = valid_samples(mcfg, buffers, batch[0], batch[1],
+                            rk["stepsize"], rk["near"])
+    param_bytes = tree_bytes(params)
+    bound_bytes = {"fwd_bwd": 2 * n_valid * 8 * (1 + mcfg.k0_dim) * 4
+                   + param_bytes, "adam": 7 * param_bytes}
+    rgbnet_macs = sum(w.shape[0] * w.shape[1] for k, w in
+                      params.get("rgbnet", {}).items() if k.startswith("w"))
+    bound_flops = {"fwd_bwd": 6 * rgbnet_macs * n_valid, "adam": 0}
+    bound_by = {k: "bytes" if bound_bytes[k] / HBM_BYTES_PER_S
+                >= bound_flops[k] / FP32_FLOPS else "operations"
+                for k in bound_bytes}
+    bound = {k: max(bound_bytes[k] / HBM_BYTES_PER_S,
+                    bound_flops[k] / FP32_FLOPS) * 1e3 for k in bound_bytes}
+    bound["step"] = sum(bound.values())
+    return dict(step_ms=full, split_ms=split, split_bound_ms=bound,
+                split_bound_bytes=bound_bytes, split_bound_flops=bound_flops,
+                split_bound_by=bound_by, valid_samples=n_valid,
+                rays=int(batch[0].shape[0]), params=param_bytes // 4), step
+
+
+def check_box_models(dev, data, models):
+    """The box kernel against its plain version on each trained model
+    (float32 and bf16 paths) on the first test view; returns the worst
+    max abs."""
+    from fourk_nerf_torch.ops import box_sweep, cuda_box
+    i = int(data["i_test"][0])
+    hw = BOUNDED_HW
+    worst = 0.0
+    for name, (mcfg, params, buffers) in models.items():
+        for use_bf16 in (False, True):
+            kw = dict(stepsize=0.5, near=2.0, bg=1.0, use_bf16=use_bf16,
+                      device=dev)
+            c2w = data["poses"][i][:3, :4]
+            ref = box_sweep.render_frame_box(mcfg, params, buffers, hw, hw,
+                                             data["Ks"][i], c2w, **kw)
+            got = cuda_box.render_frame_box_cuda(
+                mcfg, params, buffers, hw, hw, data["Ks"][i], c2w, **kw)
+            sync()
+            worst = max(worst, check_sweep(
+                f"{name} model (grid {mcfg.world_size}, rgbnet_dim "
+                f"{mcfg.rgbnet_dim}) {'bf16' if use_bf16 else 'f32'}", got,
+                ref))
+    return worst
+
+
+def run_bounded(dev):
+    """Phase 16 (see the module docstring). Returns the ``bounded`` record
+    and the launch counts of its path."""
+    import shutil
+    import types
+
+    import torch
+    from fourk_nerf_torch import config as config_mod, run as run_mod, \
+        weights
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import cuda_box, render
+    from fourk_nerf_torch.train import checkpoints, optim, sr_trainer, \
+        trainer
+
+    t_phase = time.perf_counter()
+    basedir = os.path.join(HERE, "build", "phase16_bounded")
+    shutil.rmtree(basedir, ignore_errors=True)
+    cfg_path = os.path.join("fourk_nerf_torch", "configs", "syn",
+                            "syn_default.py")
+    joint_path = os.path.join("fourk_nerf_torch", "configs", "syn",
+                              "chair_joint_1x_l1_gan.py")
+    rec: dict = {"config": cfg_path, "overrides": BOUNDED_OVERRIDES,
+                 "joint_config": joint_path,
+                 "joint_overrides": BOUNDED_JOINT_OVERRIDES,
+                 "deviations": [
+                     "coarse_model_and_render.alpha_init=1e-4 (published "
+                     "1e-6): 100 coarse steps of 5000",
+                     "the joint run's fine_train.allow_random_vgg=True, as "
+                     "phase 15's"]}
+    for d in rec["deviations"]:
+        log(f"  deviation from the published config: {d}")
+    launches: dict = {}
+
+    # --- the scene ------------------------------------------------------------
+    cuda_box.sweep_box.launches = 0
+    data = bounded_views(dev)
+    sync()
+    launches["teacher"] = cuda_box.sweep_box.launches
+    log(f"  teacher: {BOUNDED_VIEWS} views of {BOUNDED_HW}x{BOUNDED_HW} of "
+        f"phase 8's scene ({BOUNDED_TEACHER_G}^3) through the box kernel "
+        f"({launches['teacher']} launches); train "
+        f"{data['i_train'].tolist()}, val {data['i_val'].tolist()}, test "
+        f"{data['i_test'].tolist()}")
+    if launches["teacher"] != BOUNDED_VIEWS:
+        raise AssertionError(f"teacher views: {launches['teacher']} box "
+                             "launches")
+
+    # --- 1. the pretrain, coarse then fine ------------------------------------
+    cfg = config_mod.load_config(os.path.join(HERE, cfg_path))
+    cfg.basedir, cfg.expname = basedir, "syn_pretrain"
+    for section in ("coarse_model_and_render", "coarse_train",
+                    "fine_train"):
+        for k, v in BOUNDED_OVERRIDES[section].items():
+            cfg[section][k] = v
+    args = types.SimpleNamespace(seed=777, no_reload=True,
+                                 no_reload_optimizer=False, ft_path="",
+                                 **BOUNDED_OVERRIDES["args"])
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_box.sweep_box.launches = 0
+    t0 = time.perf_counter()
+    _, mcfg, params, buffers = trainer.train(args, cfg, data, writer=writer,
+                                             device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["i_val"] = cuda_box.sweep_box.launches
+    rundir = os.path.join(basedir, "syn_pretrain")
+    losses = writer.values("train/loss")
+    n_c = cfg.coarse_train.N_iters // args.i_print
+    rec.update(world_size=list(mcfg.world_size),
+               xyz_min=list(mcfg.xyz_min), xyz_max=list(mcfg.xyz_max),
+               train_s=train_s, coarse_losses=losses[:n_c],
+               fine_losses=losses[n_c:], train_psnr=writer.values(
+                   "train/psnr"), val_psnr=writer.values("val/psnr"),
+               max_memory_allocated_bytes=peak)
+    log(f"  coarse {cfg.coarse_train.N_iters} + fine "
+        f"{cfg.fine_train.N_iters} steps in {train_s:.1f} s (host clock, "
+        f"view counts, hit tests, eval renders and saves included): fine "
+        f"world size {mcfg.world_size} over {mcfg.xyz_min}..{mcfg.xyz_max};"
+        f" loss at each print coarse {['%.5g' % x for x in losses[:n_c]]}, "
+        f"fine {['%.5g' % x for x in losses[n_c:]]}; val psnr (coarse, "
+        f"fine) {rec['val_psnr']}; i_val box launches "
+        f"{launches['i_val']}; peak memory {peak / 2**30:.2f} GiB")
+    n_val = sum(c.N_iters // args.i_val for c in (cfg.coarse_train,
+                                                   cfg.fine_train))
+    if launches["i_val"] != n_val * len(data["i_val"]):
+        raise AssertionError(f"i_val renders: {launches['i_val']} box "
+                             "launches (a model left the box path)")
+    # the coarse alphas start small and show late in its 100 steps: its
+    # last three prints against its first three
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[n_c]
+            and np.mean(losses[n_c - 3:n_c]) < np.mean(losses[:3])):
+        raise AssertionError(f"a stage's loss did not fall: {losses}")
+    if not (int(np.prod(mcfg.world_size))
+            > 0.9 * cfg.fine_model_and_render.num_voxels
+            and tuple(buffers["mask_cache"].shape) == mcfg.world_size):
+        raise AssertionError(f"the fine run ended at {mcfg.world_size}, "
+                             f"mask {tuple(buffers['mask_cache'].shape)}")
+    for k, v in checkpoints.tree_to_flat_dict(params).items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite parameter {k}")
+    coarse_last = os.path.join(rundir, "coarse_last.npz")
+    fine_last = os.path.join(rundir, "fine_last.npz")
+    ckw, cp, cb, _, _, _ = checkpoints.load_checkpoint(coarse_last,
+                                                       device=dev)
+    ccfg = dvgo.make_config(**ckw)
+
+    # --- the box kernel vs plain on both models -----------------------------
+    rec["box_vs_plain_max_abs"] = check_box_models(
+        dev, data, {"coarse": (ccfg, cp, cb), "fine": (mcfg, params,
+                                                       buffers)})
+
+    # --- 2. --export_coarse_only; 3. --render_only --render_test ------------
+    def cli(argv):
+        a = run_mod.config_parser().parse_args(
+            ["--config", os.path.join(HERE, cfg_path), "--device", dev.type]
+            + argv)
+        c = config_mod.load_config(os.path.join(HERE, cfg_path))
+        c.basedir, c.expname = basedir, "syn_pretrain"
+        return a, c
+
+    export = os.path.join(basedir, "coarse_alpha.npz")
+    run_mod.run(*cli(["--export_coarse_only", export]), data)
+    with np.load(export) as z:
+        alpha = z["alpha"]
+    thres = cfg.fine_model_and_render.bbox_thres
+    want = render.raw2alpha(cp["density"][..., 0], ccfg.act_shift,
+                            ccfg.voxel_size_ratio).cpu().numpy()
+    rec["export_coarse"] = {"shape": list(alpha.shape),
+                            "max": float(alpha.max()),
+                            "share_above_bbox_thres": float(
+                                (alpha > thres).mean())}
+    log(f"  --export_coarse_only: alpha {alpha.shape}, max "
+        f"{alpha.max():.4g}, share above bbox_thres {thres} "
+        f"{(alpha > thres).mean():.4f}")
+    if not (alpha.shape == want.shape and np.array_equal(alpha, want)
+            and alpha.max() > thres):
+        raise AssertionError("the exported coarse volume is not the coarse "
+                             "model's")
+    cuda_box.sweep_box.launches = 0
+    res = run_mod.run(*cli(["--render_only", "--render_test"]),
+                      data)["test"]
+    sync()
+    launches["render_only"] = cuda_box.sweep_box.launches
+    rec["test_psnr"], rec["test_path"] = res["psnrs"], res["path"]
+    log(f"  --render_only --render_test: held-out psnr {res['psnrs']}, the "
+        f"{res['path']} path, {launches['render_only']} box launches")
+    if res["path"] != "box" or launches["render_only"] != len(
+            data["i_test"]):
+        raise AssertionError("the held-out views did not take the box "
+                             "kernel")
+    # the trained model beats a flat white frame on the held-out views
+    white = [float(-10 * np.log10(np.mean((1.0 - data["images"][i]) ** 2)))
+             for i in data["i_test"]]
+    if not np.mean(res["psnrs"]) > np.mean(white) + 1.0:
+        raise AssertionError(f"held-out psnr {res['psnrs']} vs white {white}")
+    del res
+
+    # --- the coarse step, the fine step at full width -----------------------
+    rk = {"near": 2.0, "far": 6.0, "bg": 1.0, "rand_bkgd": False,
+          "stepsize": 0.5}
+    ct, ft = cfg.coarse_train, cfg.fine_train
+    flat_c, lists_c = trainer.gather_training_rays(cfg, ct, data, dev)
+    cnt = dvgo.voxel_count_views(ccfg, lists_c["rays_o"], lists_c["rays_d"],
+                                 2.0, 0.5)
+    t_cnt = event_ms(lambda: dvgo.voxel_count_views(
+        ccfg, lists_c["rays_o"], lists_c["rays_d"], 2.0, 0.5), reps=1)
+    per_lr = {"density": cnt / cnt.max().clamp_min(1.0)}
+    sample = trainer.make_batch_sampler("random", flat_c, ct.N_rand, 777)
+    coarse, _ = bounded_step_parts(
+        dev, ct, ccfg, cp, cb, trainer.gather_batch(flat_c, *sample(5)),
+        per_lr, rk)
+    coarse["voxel_count_views_ms"] = t_cnt
+    del flat_c, lists_c, cnt, per_lr
+    flat_f, _ = trainer.gather_training_rays(
+        cfg, ft, data, dev, model=(dvgo, mcfg, buffers), render_kwargs=rk)
+    sample = trainer.make_batch_sampler("in_maskcache", flat_f, ft.N_rand,
+                                        777)
+    fine, fine_step = bounded_step_parts(
+        dev, ft, mcfg, params, buffers,
+        trainer.gather_batch(flat_f, *sample(5)), None, rk)
+    fine["in_maskcache_rays"] = int(flat_f["rgb"].shape[0])
+    fine["profile"] = profile_call(fine_step, "fine step", top=10)
+    del flat_f
+    rec.update(coarse_step=coarse, fine_step=fine)
+    for name, r in (("coarse", coarse), ("fine", fine)):
+        log(f"  {name} step at {r['rays']} rays, {r['valid_samples']} valid "
+            f"samples, {r['params']} parameters: {r['step_ms']:.2f} ms (CUDA "
+            f"events, median of 5; bound {r['split_bound_ms']['step']:.3g} "
+            "ms); " + ", ".join(f"{k} {v:.4g} ms (bound "
+                               f"{r['split_bound_ms'][k]:.4g}, by "
+                               f"{r['split_bound_by'][k]})"
+                               for k, v in r["split_ms"].items()))
+    log(f"  voxel_count_views over {len(data['i_train'])} views of "
+        f"{BOUNDED_HW}x{BOUNDED_HW} rays on the coarse grid "
+        f"{ccfg.world_size}: {t_cnt:.1f} ms (CUDA events, one call); "
+        f"in_maskcache keeps {fine['in_maskcache_rays']} rays")
+    del params, buffers, cp, cb
+    torch.cuda.empty_cache()
+
+    # --- 4. the chair joint config from fine_last and coarse_last -----------
+    with np.load(fine_last) as z:
+        start = int(json.loads(bytes(z["__meta__"]).decode())["global_step"])
+    jcfg = config_mod.load_config(os.path.join(HERE, joint_path))
+    jcfg.basedir, jcfg.expname = basedir, "chair_joint"
+    for k, v in BOUNDED_JOINT_OVERRIDES["fine_train"].items():
+        jcfg.fine_train[k] = v
+    jcfg.fine_train.N_iters = start + BOUNDED_JOINT_STEPS
+    jargs = types.SimpleNamespace(
+        seed=777, no_reload=False, no_reload_optimizer=False, ft_path="",
+        ftdv_path=fine_last, ftdvcoa_path=coarse_last, ftsr_path="",
+        test_tile=0, **BOUNDED_JOINT_OVERRIDES["args"])
+    jw = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_box.sweep_box.launches = 0
+    t0 = time.perf_counter()
+    _, jmcfg, jp, jb, sr_model = sr_trainer.train_sr(jargs, jcfg, data,
+                                                     writer=jw, device=dev)
+    sync()
+    joint_s = time.perf_counter() - t0
+    launches["joint_i_val"] = cuda_box.sweep_box.launches
+    jvals = {k: jw.values(f"train/{k}") for k in (
+        "loss_l1", "loss_photo", "loss_pcp", "loss_style", "loss_g",
+        "loss_d_real", "loss_d_fake", "psnr_sr")}
+    jvals.update(val_psnr_sr=jw.values("val/psnr_sr"))
+    rec["joint"] = dict(start=start, steps=BOUNDED_JOINT_STEPS,
+                        train_s=joint_s, max_memory_allocated_bytes=
+                        torch.cuda.max_memory_allocated(), **jvals)
+    log(f"  chair joint steps {start + 1}..{start + BOUNDED_JOINT_STEPS} in "
+        f"{joint_s:.1f} s (host clock, eval and saves included), box "
+        f"launches of its i_val {launches['joint_i_val']}; at each print "
+        + "; ".join(f"{k} {['%.5g' % x for x in v]}"
+                    for k, v in jvals.items()))
+    l1 = jvals["loss_l1"]
+    if not (l1 and all(np.isfinite(l1)) and l1[-1] < l1[0]) or \
+            launches["joint_i_val"] != len(data["i_val"]):
+        raise AssertionError(f"the joint run: SR L1 {l1}, i_val launches "
+                             f"{launches['joint_i_val']}")
+    for k in ("loss_d_real", "loss_d_fake", "loss_g", "loss_pcp"):
+        if not all(np.isfinite(jvals[k])):
+            raise AssertionError(f"{k} is not finite: {jvals[k]}")
+
+    # --- the joint step at full width ------------------------------------------
+    jft = jcfg.fine_train
+    patch = int(jft.N_patch)
+    perceptual = sr_trainer.build_perceptual(jft, device=dev)
+    jlast = os.path.join(basedir, "chair_joint", "fine_last.npz")
+    *_, d_params, d_state, _, _, _ = sr_trainer.load_joint(jlast, False,
+                                                           device=dev)
+    d_model = weights.disc_from_flax(d_params, d_state, device=dev)
+    st = sr_trainer.SRTrainStep(
+        dvgo, jmcfg, jft, jcfg.fine_model_and_render, render_kwargs=rk,
+        skip_zero_grad=frozenset(jft.skip_zero_grad_fields),
+        sr_model=sr_model, n_views=len(data["i_train"]), patch=patch,
+        sr_ratio=1, perceptual=perceptual, d_model=d_model)
+    flat_j, _ = trainer.gather_training_rays(
+        jcfg, sr_trainer._force_image_sampler(jft), data, dev)
+    sampler = sr_trainer.make_patch_sampler(len(data["i_train"]),
+                                            BOUNDED_HW, BOUNDED_HW, patch, 7)
+    counter = [0]
+
+    def jbatch():
+        counter[0] += 1
+        v, r, c = sampler(counter[0])
+        sl = [flat_j[k][v, r:r + patch, c:c + patch].reshape(-1, 3)
+              for k in trainer._RAY_KEYS]
+        return (*sl, sl[3], torch.zeros((3, 3), device=dev))
+
+    lr_sr = optim.group_lr(jft.lrate_srnet, 100, jft.lrate_decay)
+    jlrs = {"enc": {k: optim.group_lr(v, 100, jft.lrate_decay) for k, v in
+                    optim.build_group_lrs(jft, jp).items()},
+            "srnet": lr_sr, "d": lr_sr}
+    opts = (optim.init_state(jp), optim.init_state({"srnet": st.sr_params}),
+            optim.init_state({"d": st.d_params}))
+
+    def joint_step():
+        st(jp, jb, opts[0], opts[1], jbatch(), jlrs, apply_tv=False,
+           tv_dense=False, d_opt=opts[2])
+
+    n0 = counter[0]
+    jstep = event_ms(joint_step)
+    # the bound's render bytes: the mean valid samples of the timed draws
+    n_valid = 0
+    for i in range(n0 + 1, counter[0] + 1):
+        v, r, c = sampler(i)
+        n_valid += valid_samples(
+            jmcfg, jb, flat_j["rays_o"][v, r:r + patch, c:c + patch]
+            .reshape(-1, 3), flat_j["rays_d"][v, r:r + patch, c:c + patch]
+            .reshape(-1, 3), 0.5, 2.0)
+    n_valid //= counter[0] - n0
+    bt = jbatch()
+    g_flops = flops_of(lambda: st.loss_and_grads(jp, jb, bt,
+                                                 jlrs["enc"].keys()))
+    *_, (rgb_sr, rgb_hr) = st.loss_and_grads(jp, jb, bt, jlrs["enc"].keys())
+    d_flops = flops_of(lambda: st.d_loss_and_grads(rgb_sr, rgb_hr, None))
+    adam_bytes = 7 * (tree_bytes(jp) + tree_bytes(st.sr_params)
+                      + tree_bytes(st.d_params))
+    render_bytes = 2 * n_valid * 8 * (1 + jmcfg.k0_dim) * 4 + tree_bytes(jp)
+    jbound = {"render_bytes_ms": render_bytes / HBM_BYTES_PER_S * 1e3,
+              "adam_bytes_ms": adam_bytes / HBM_BYTES_PER_S * 1e3,
+              "g_d_flops_ms": (g_flops + d_flops) / FP32_FLOPS * 1e3}
+    jbound["step"] = sum(jbound.values())
+    rec["joint"].update(step_ms=jstep, step_bound_ms=jbound,
+                        g_flops=g_flops, d_flops=d_flops,
+                        valid_samples=n_valid, patch=patch,
+                        step_path=st.path(jp, jb, False))
+    log(f"  chair joint step at {patch}x{patch} patches ({n_valid} valid "
+        f"samples a patch, the {st.path(jp, jb, False)} path): {jstep:.2f} ms (CUDA "
+        f"events, median of 5); bound {jbound['step']:.3g} ms = render "
+        f"bytes {jbound['render_bytes_ms']:.3g} + three Adams' bytes "
+        f"{jbound['adam_bytes_ms']:.3g} + G and D float32 operations "
+        f"({(g_flops + d_flops) / 1e9:.1f} GFLOP, torch's flop counter) "
+        f"{jbound['g_d_flops_ms']:.3g}")
+    del flat_j, st, opts, rgb_sr, rgb_hr, jp, jb, d_model, perceptual
+    torch.cuda.empty_cache()
+
+    # --- 5. run_sr --render_only --render_test --render_video ---------------
+    rec["evaluate_sr_s"], rec["serve"], launches["serve"] = serve_joint(
+        dev, joint_path, basedir, "chair_joint", jlast, data, render="box",
+        frame_hw=(BOUNDED_HW, BOUNDED_HW))
+    shutil.rmtree(basedir)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 16: {rec['phase_s']:.1f} s")
+    return rec, launches
+
+
 def run_probes(dev):
     """Phase 12: both probe suites as their users run them, counted."""
     from fourk_nerf_torch.tools import probe_floor, probe_ops
@@ -2255,6 +2755,11 @@ def main() -> int:
     joint_gan, gan_launches = run_joint_gan(dev, pre)
     del pre
     torch.cuda.empty_cache()
+    log("[16] the bounded-scene path at full width: syn_default coarse -> "
+        "fine, --export_coarse_only, --render_only, the chair joint config "
+        "with --ftdvcoa_path, then its served frame")
+    bounded, bounded_launches = run_bounded(dev)
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "sweep", "route": "cuda",
@@ -2278,7 +2783,8 @@ def main() -> int:
          "bound_by": syn["rdb_bound_by"], "library_ms": None,
          "conv_chain_ms": syn["conv_chain_ms"],
          "launches_joint": {"serve": joint_launches["serve"]["rdb"]},
-         "launches_joint_gan": {"serve": gan_launches["serve"]["rdb"]}},
+         "launches_joint_gan": {"serve": gan_launches["serve"]["rdb"]},
+         "launches_bounded": {"serve": bounded_launches["serve"]["rdb"]}},
         # library_ms is null for the sweep, the dense block, the box sweep
         # and the RRDB: no single PyTorch call computes any of them
         # (conv_chain_ms: the block's five convs alone as cuDNN calls)
@@ -2289,7 +2795,10 @@ def main() -> int:
          "max_abs_err": fly["box_err"], "ms": fly["box_ms"],
          "plain_ms": fly["box_plain_ms"], "bound_ms": fly["box_bound"],
          "bound_by": fly["box_bound_by"], "library_ms": None,
-         "registers": fly["box_registers"], "samples": fly["box_samples"]},
+         "registers": fly["box_registers"], "samples": fly["box_samples"],
+         "launches_bounded": {k: bounded_launches[k] for k in (
+             "teacher", "i_val", "render_only", "joint_i_val")}
+         | {"serve": bounded_launches["serve"]["box"]}},
         {"name": "rrdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rrdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:428",
@@ -2336,6 +2845,7 @@ def main() -> int:
     log(json.dumps({"training": training}))
     log(json.dumps({"joint": joint}))
     log(json.dumps({"joint_gan": joint_gan}))
+    log(json.dumps({"bounded": bounded}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ near_clip, i_train / i_val / i_test, poses, render_poses, images, depths,
 irregular_shape, srgt (high-resolution SR ground truth), w2c. Numpy only;
 the trainer moves what it needs to the device.
 
-The port reads LLFF forward-facing scenes (``data/llff.py``). The other
-loaders of the JAX package come with the slices whose models use them.
+The port reads LLFF forward-facing scenes (``data/llff.py``) and Blender
+synthetic scenes (``data/blender.py``). The other loaders of the JAX
+package come with the slices whose models use them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import numpy as np
 
 #: where each loader that is not ported yet stands in ROADMAP.md
 _LATER = {
-    "blender": "Queue A item 2 (the bounded run.py path)",
     "nsvf": "Queue A item 4 (the other loaders)",
     "blendedmvs": "Queue A item 4 (the other loaders)",
     "tankstemple": "Queue A item 4 (the other loaders)",
@@ -57,6 +57,17 @@ def load_data(args) -> dict:
             near_clip = max(np.min(bds) * 0.9, 0)
             near = 0
             far = inward_nearfar_heuristic(poses[i_train, :3, 3])[1]
+    elif args.dataset_type == "blender":
+        from fourk_nerf_torch.data import blender
+
+        images, poses, render_poses, hwf, i_split = blender.load_blender_data(
+            args.datadir, args.half_res, args.testskip)
+        i_train, i_val, i_test = i_split
+        near, far = 2.0, 6.0
+        if images.shape[-1] == 4:
+            rgb, a = images[..., :3], images[..., -1:]
+            images = rgb * a + (1.0 - a) if args.white_bkgd else rgb * a
+        srgt_pack = [images, 0]
     elif args.dataset_type in _LATER:
         raise NotImplementedError(
             f"the {args.dataset_type} loader is not ported yet: ROADMAP.md "

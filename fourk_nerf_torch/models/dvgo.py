@@ -1,13 +1,16 @@
 """DirectVoxGO: the dense-grid radiance field of bounded inward-facing
-scenes (torch), eval side.
+scenes (torch).
 
 A model is (static :class:`Config`, params dict, buffers dict), as in the
 JAX package: params hold ``density [X,Y,Z,1]``, ``k0 [X,Y,Z,C]`` and, with
 ``rgbnet_dim > 0``, the ``rgbnet`` dict; buffers hold the bool
 ``mask_cache``. Every ray gets a static sample count K (the bbox-diagonal
 bound); samples past a ray's own count or outside the box carry alpha 0.
-Only dense grids are ported; grid scaling, the near-camera mask-out, the
-view counts and the TV gradients belong to the trainer.
+Only dense grids are ported. The training forms follow the forward pass:
+progressive grid scaling, the near-camera mask-out, the per-voxel view
+counts of the per-voxel lr, the occupancy renewal and the TV gradients;
+gradients come from torch autograd of the same forward (the training
+background is ``bg``: the JAX forward takes no random one).
 """
 
 from __future__ import annotations
@@ -168,7 +171,9 @@ def init(cfg: Config, *, generator: torch.Generator | None = None,
         dims = [cfg.dim0] + [cfg.rgbnet_width] * (cfg.rgbnet_depth - 1) + [3]
         params["rgbnet"] = common.mlp_init(dims, generator=generator,
                                            device=dev)
-    if init_mask is not None:
+    if isinstance(init_mask, torch.Tensor):
+        mask = init_mask.to(device=dev, dtype=torch.bool)
+    elif init_mask is not None:
         mask = torch.as_tensor(np.asarray(init_mask, dtype=bool), device=dev)
     else:
         mask = torch.ones(cfg.mask_cache_world_size, dtype=torch.bool,
@@ -253,7 +258,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         "s": s,
     }
     if render_depth:
-        out["depth"] = render.composite(weights, s)
+        out["depth"] = render.composite(weights, s).detach()
     return out
 
 
@@ -291,3 +296,161 @@ def update_occupancy_cache(cfg: Config, params: dict, buffers: dict) -> dict:
             dens, cfg.act_shift, cfg.voxel_size_ratio)
     alpha = grid_sample.max_pool3d_same(alpha)
     return {**buffers, "mask_cache": mask & (alpha > cfg.fast_color_thres)}
+
+
+def _grid_xyz(cfg: Config, shape, device, x_slice=slice(None)):
+    """World coordinates ``[x, Y, Z, 3]`` of the voxels of a ``shape`` grid
+    over the box (the rows ``x_slice`` of the first axis)."""
+    axes = [torch.linspace(cfg.xyz_min[d], cfg.xyz_max[d], int(shape[d]),
+                           dtype=torch.float32, device=device)
+            for d in range(3)]
+    return torch.stack(torch.meshgrid(axes[0][x_slice], axes[1], axes[2],
+                                      indexing="ij"), -1)
+
+
+_CAM_CHUNK = 64  # cameras a pass of the near-camera distance
+
+
+@torch.no_grad()
+def maskout_near_cam_vox(cfg: Config, params: dict, cam_o, near: float
+                         ) -> dict:
+    """Density -100 at the voxels within ``near`` of a camera centre
+    ``cam_o [n, 3]`` (frozoul/4K-NeRF lib/dvgo.py:186-198). The nearest
+    squared distance is kept as a running minimum over x-slabs and chunks
+    of cameras, so no ``[X, Y, Z, n]`` tensor forms."""
+    dens = params["density"]
+    dev = dens.device
+    cam = torch.as_tensor(np.asarray(cam_o, dtype=np.float32), device=dev)
+    X = cfg.world_size[0]
+    out = dens.clone()
+    for x0 in range(0, X, _OCC_X_CHUNK):
+        xyz = _grid_xyz(cfg, cfg.world_size, dev,
+                        slice(x0, x0 + _OCC_X_CHUNK))
+        d2 = None
+        for c0 in range(0, cam.shape[0], _CAM_CHUNK):
+            c = cam[c0:c0 + _CAM_CHUNK]
+            m = ((xyz[..., None, :] - c) ** 2).sum(-1).amin(-1)
+            d2 = m if d2 is None else torch.minimum(d2, m)
+        near_mask = (torch.sqrt(d2) <= near)[..., None]
+        out[x0:x0 + _OCC_X_CHUNK].masked_fill_(near_mask, -100.0)
+    return {**params, "density": out}
+
+
+@torch.no_grad()
+def scale_volume_grid(cfg: Config, params: dict, buffers: dict,
+                      num_voxels: int):
+    """Progressive scaling (frozoul/4K-NeRF lib/dvgo.py:200-221): the grids
+    resampled trilinearly onto the world size of ``num_voxels``. Up to
+    256^3 voxels the mask is rebuilt at the new resolution (the old mask
+    at the new voxels, AND the dilated alpha of the new density); above,
+    it keeps its resolution. Returns (new_cfg, new_params, new_buffers);
+    the grids are new tensors."""
+    _dense_only(cfg)
+    world_size, voxel_size = common.dvgo_grid_resolution(
+        cfg.xyz_min, cfg.xyz_max, num_voxels)
+    new_cfg = dataclasses.replace(cfg, num_voxels=int(num_voxels),
+                                  world_size=tuple(world_size),
+                                  voxel_size=voxel_size)
+    new_params = dict(params)
+    for k in ("density", "k0"):
+        new_params[k] = grid_sample.resize_trilinear_chunked(
+            params[k], new_cfg.world_size).contiguous()
+    new_buffers = dict(buffers)
+    if int(np.prod(new_cfg.world_size)) <= 256 ** 3:
+        dev = params["density"].device
+        xyz_min, xyz_max = _xyz_minmax(new_cfg, dev)
+        old_mask_at_new = grid_sample.nearest_mask_lookup(
+            buffers["mask_cache"], _grid_xyz(new_cfg, new_cfg.world_size, dev),
+            xyz_min, xyz_max)
+        alpha = render.raw2alpha(new_params["density"][..., 0],
+                                 new_cfg.act_shift, new_cfg.voxel_size_ratio)
+        alpha = grid_sample.max_pool3d_same(alpha)
+        new_buffers["mask_cache"] = old_mask_at_new & (
+            alpha > new_cfg.fast_color_thres)
+        new_cfg = dataclasses.replace(
+            new_cfg, mask_cache_world_size=new_cfg.world_size)
+    return new_cfg, new_params, new_buffers
+
+
+def _corner_splat(grid_flat, sizes, pos):
+    """Add the trilinear weights of the points ``pos [n, 3]`` (voxel
+    units) to ``grid_flat [X*Y*Z]``: what the gradient of a ones-grid
+    query summed over the points is. Corners outside the grid add
+    nothing (zeros padding), so only the corners inside are added."""
+    X, Y, Z = sizes
+    i0f = torch.floor(pos)
+    frac = pos - i0f
+    i0 = i0f.long()
+    lim = torch.tensor(sizes, dtype=torch.long, device=pos.device)
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                corner = torch.tensor([cx, cy, cz], device=pos.device)
+                idx = i0 + corner
+                valid = ((idx >= 0) & (idx < lim)).all(-1)
+                w = torch.where(corner == 1, frac, 1.0 - frac).prod(-1)
+                idx, w = idx[valid], w[valid]
+                grid_flat.index_add_(0, (idx[:, 0] * Y + idx[:, 1]) * Z
+                                     + idx[:, 2], w)
+
+
+@torch.no_grad()
+def voxel_count_views(cfg: Config, rays_o_views, rays_d_views, near,
+                      stepsize: float, downrate: int = 1,
+                      chunk: int = 10000) -> torch.Tensor:
+    """``[X, Y, Z, 1]`` per-voxel count of the training views that touch a
+    voxel, the per-voxel lr's scale (frozoul/4K-NeRF lib/dvgo.py:235-266):
+    every ray (every ``downrate``-th pixel of a view ``[H, W, 3]``) takes
+    the diagonal bound of samples from its box entry, clamped at
+    ``near``, with no far limit; a view touches a voxel where the
+    trilinear weights of its samples sum above 1. The weights are
+    splatted by ``index_add_`` in chunks of ``chunk`` rays."""
+    dev = rays_o_views[0].device
+    X, Y, Z = cfg.world_size
+    K = cfg.n_samples(stepsize)
+    xyz_min, xyz_max = _xyz_minmax(cfg, dev)
+    span = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32,
+                        device=dev)
+    steps = stepsize * cfg.voxel_size * torch.arange(K, dtype=torch.float32,
+                                                     device=dev)
+    count = torch.zeros((X, Y, Z, 1), device=dev)
+    for ro_v, rd_v in zip(rays_o_views, rays_d_views):
+        ro = ro_v[::downrate, ::downrate].reshape(-1, 3)
+        rd = rd_v[::downrate, ::downrate].reshape(-1, 3)
+        g = torch.zeros(X * Y * Z, device=dev)
+        for s in range(0, ro.shape[0], chunk):
+            o, d = ro[s:s + chunk], rd[s:s + chunk]
+            t_min, _ = render.ray_aabb(o, d, xyz_min, xyz_max, near, 1e9)
+            t = t_min[:, None] + steps[None, :] / torch.linalg.norm(
+                d, dim=-1, keepdim=True)
+            pts = o[:, None, :] + d[:, None, :] * t[..., None]
+            gc = torch.zeros_like(g)
+            ind01 = grid_sample.world_to_ind01(pts, xyz_min, xyz_max)
+            _corner_splat(gc, (X, Y, Z), (ind01 * span).reshape(-1, 3))
+            g += gc
+        count += (g > 1).float().reshape(X, Y, Z, 1)
+    return count
+
+
+def _tv_weight(cfg: Config, weight: float, n_rays: int) -> float:
+    # frozoul/4K-NeRF lib/dvgo.py:268-270: the same weight on every axis
+    return weight / n_rays * max(cfg.world_size) / 128.0
+
+
+def density_tv_grad(cfg: Config, params: dict, weight: float,
+                    dense_mode: bool, n_rays: int, density_grad):
+    """TV gradient of the density grid; in sparse mode (``dense_mode``
+    false) only where ``density_grad`` is non-zero."""
+    _dense_only(cfg)
+    w = _tv_weight(cfg, weight, n_rays)
+    return render.total_variation_grad(
+        params["density"], w, w, w, None if dense_mode else density_grad)
+
+
+def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
+               n_rays: int, k0_grad):
+    """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
+    _dense_only(cfg)
+    w = _tv_weight(cfg, weight, n_rays)
+    return render.total_variation_grad(
+        params["k0"], w, w, w, None if dense_mode else k0_grad)

@@ -4,10 +4,14 @@ after frozoul/4K-NeRF run.py):
     python -m fourk_nerf_torch.run \
         --config fourk_nerf_torch/configs/llff/fern_lg_pretrain.py --render_test
 
-Trains the fine stage of a forward-facing scene on the card (``--device
-cpu`` for the plain versions of the kernels), then renders what the flags
-ask for. :func:`main` is :func:`load_everything` then :func:`run`; a
-caller with a scene in memory calls :func:`run` with its ``data_dict``.
+Trains a scene on the card (``--device cpu`` for the plain versions of the
+kernels): a Blender scene's DirectVoxGO coarse then fine
+(``configs/syn/syn_default.py``), a forward-facing scene's DirectMPIGO
+(``configs/llff/``), then renders what the flags ask for.
+``--export_coarse_only PATH`` writes the coarse stage's alpha volume;
+``--render_only`` renders from the run's ``fine_last.npz``. :func:`main`
+is :func:`load_everything` then :func:`run`; a caller with a scene in
+memory calls :func:`run` with its ``data_dict``.
 """
 
 from __future__ import annotations
@@ -87,6 +91,26 @@ def _write_images(outdir: str, rgbs) -> None:
                         to8b(rgb.cpu().numpy()))
 
 
+@torch.no_grad()
+def export_coarse(ckpt: str, out: str, device) -> None:
+    """The coarse DirectVoxGO's alpha volume for volume viewers
+    (run.py:726-739): ``alpha [X, Y, Z]`` of the checkpoint's density
+    (its ``alpha_init`` shift, its voxel size ratio), computed on
+    ``device``, and the box, into the compressed npz ``out``."""
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import render
+    from fourk_nerf_torch.train import checkpoints
+
+    kwargs, params, *_ = checkpoints.load_checkpoint(ckpt, device=device)
+    cfg = dvgo.make_config(**kwargs)
+    alpha = render.raw2alpha(params["density"][..., 0], cfg.act_shift,
+                             cfg.voxel_size_ratio)
+    np.savez_compressed(out, alpha=alpha.cpu().numpy(),
+                        xyz_min=np.asarray(cfg.xyz_min),
+                        xyz_max=np.asarray(cfg.xyz_max))
+    print(f"wrote {out}")
+
+
 @fp32_precision()
 def run(args, cfg, data_dict) -> dict:
     """Train (or reload) and render on ``args.device``, in full float32
@@ -98,15 +122,15 @@ def run(args, cfg, data_dict) -> dict:
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet: ROADMAP.md "
                                   "Queue A item 6 (parallel/)")
-    if args.export_coarse_only:
-        raise NotImplementedError("--export_coarse_only is not ported yet: "
-                                  "ROADMAP.md Queue A item 2 (the coarse "
-                                  "stage)")
     dev = resolve_device(args.device)
     rundir = os.path.join(cfg.basedir, cfg.expname)
     dump_provenance(cfg, args, rundir)
     writer = ScalarWriter(os.path.join(rundir, "tb"))
     try:
+        if args.export_coarse_only:
+            export_coarse(os.path.join(rundir, "coarse_last.npz"),
+                          args.export_coarse_only, dev)
+            return {}
         if args.export_bbox_and_cams_only:
             xyz_min, xyz_max = trainer.compute_bbox_by_cam_frustrm(
                 cfg, data_dict["HW"], data_dict["Ks"], data_dict["poses"],

@@ -132,11 +132,6 @@ def run(args, cfg, data_dict) -> dict:
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet: ROADMAP.md "
                                   "Queue A item 6 (parallel/)")
-    if args.ftdvcoa_path:
-        raise NotImplementedError("--ftdvcoa_path (the coarse checkpoint's "
-                                  "box and mask) is not ported yet: "
-                                  "ROADMAP.md Queue A item 2 (the coarse "
-                                  "stage)")
     if args.dump_images or args.render_video:
         _imageio()
     dev = resolve_device(args.device)

@@ -1,5 +1,5 @@
-"""Tiny forward-facing scenes and the fern configs cut to their size, for
-the CPU tests of the trainers and the card's CPU-vs-CUDA checks.
+"""Tiny scenes and the configs cut to their size, for the CPU tests of
+the trainers and the card's CPU-vs-CUDA checks.
 
 :func:`scene` builds an LLFF-shaped ``data_dict`` in memory from a seed
 (smooth colour fields seen by NDC cameras shifted a few hundredths in x
@@ -7,6 +7,9 @@ and y); :data:`OVERRIDES` and :func:`apply_overrides` cut a loaded config
 (of this package or of the JAX package: the same keys) to that scene.
 :func:`sr_scene` adds the x4 ground truth of the joint trainer, and
 :data:`JOINT_OVERRIDES` cuts ``configs/llff/fern_lg_joint_l1.py`` to it.
+:func:`bounded_scene` is a Blender-shaped bounded scene (a density blob
+seen from a sphere of cameras, :func:`bounded_poses`) and
+:data:`BOUNDED_OVERRIDES` cuts ``configs/syn/syn_default.py`` to it.
 """
 
 from __future__ import annotations
@@ -123,3 +126,94 @@ def sr_scene(seed: int = 0, n_views: int = 3, h: int = 32,
                 poses=c2w, render_poses=c2w.copy(), images=lr,
                 irregular_shape=False, srgt=np.moveaxis(hr, -1, 1).copy(),
                 w2c=np.stack([np.eye(3, dtype=np.float32)] * n_views))
+
+
+#: section -> key -> value, set over ``configs/syn/syn_default.py`` for
+#: :func:`bounded_scene`: coarse 60 steps on a 12^3 grid (per-voxel lr,
+#: a learnable alpha_init), fine 40 steps on 16^3 with one grid doubling
+#: at step 20 (``in_maskcache``), a 16-wide rgbnet
+BOUNDED_OVERRIDES = {
+    "coarse_train": {"N_iters": 60, "N_rand": 256, "pervoxel_lr": True,
+                     "pg_scale": []},
+    "fine_train": {"N_iters": 40, "N_rand": 256, "pg_scale": [20],
+                   "ray_sampler": "in_maskcache"},
+    "coarse_model_and_render": {"num_voxels": 12 ** 3,
+                                "num_voxels_base": 12 ** 3,
+                                "alpha_init": 1e-2},
+    "fine_model_and_render": {"num_voxels": 16 ** 3,
+                              "num_voxels_base": 16 ** 3, "rgbnet_dim": 6,
+                              "rgbnet_width": 16, "world_bound_scale": 1.05},
+}
+#: the field of view of the published Blender scenes (``nerf_synthetic``'s
+#: ``camera_angle_x``)
+CAMERA_ANGLE_X = 0.6911112070083618
+
+
+def blender_focal(w: int) -> float:
+    """The focal length of a ``w``-pixel-wide Blender frame."""
+    return float(0.5 * w / np.tan(0.5 * CAMERA_ANGLE_X))
+
+
+def bounded_poses(n: int) -> np.ndarray:
+    """``[n, 4, 4]`` camera-to-world of the Blender scenes' sphere: radius
+    4, azimuth 15 degrees apart, elevation -30, -40 or -50 degrees."""
+    from fourk_nerf_torch.data.blender import pose_spherical
+    return np.stack([pose_spherical(15.0 * i, -30.0 - 10.0 * (i % 3), 4.0)
+                     for i in range(n)]).astype(np.float32)
+
+
+def bounded_teacher(device="cpu"):
+    """(cfg, params, buffers) of a DirectVoxGO that the bounded scene's
+    views are rendered from: a 16^3 grid over [-1.5, 1.5]^3 holding a
+    Gaussian density blob coloured by its radius, no rgbnet."""
+    import torch
+
+    from fourk_nerf_torch.models import dvgo
+    cfg = dvgo.make_config(xyz_min=[-1.5] * 3, xyz_max=[1.5] * 3,
+                           num_voxels=16 ** 3, num_voxels_base=16 ** 3,
+                           alpha_init=1e-2, rgbnet_dim=0,
+                           fast_color_thres=1e-4)
+    params, buffers = dvgo.init(cfg, device=device)
+    X, Y, Z = cfg.world_size
+    g = np.stack(np.meshgrid(np.linspace(-1.5, 1.5, X),
+                             np.linspace(-1.5, 1.5, Y),
+                             np.linspace(-1.5, 1.5, Z), indexing="ij"), -1)
+    r2 = np.sum(g ** 2, -1)
+    dens = 20.0 * np.exp(-r2 / 0.3) - 2.0
+    k0 = np.stack([2.0 - 4.0 * r2, 4.0 * g[..., 2], -2.0 + 4.0 * r2], -1)
+    params["density"] = torch.as_tensor(dens[..., None].astype(np.float32),
+                                        device=device)
+    params["k0"] = torch.as_tensor(k0.astype(np.float32), device=device)
+    return cfg, params, buffers
+
+
+def bounded_scene(h: int = 16, w: int = 16, n_train: int = 6,
+                  n_val: int = 1, n_test: int = 2) -> dict:
+    """The ``data_dict`` of the Blender loader (white background, near 2,
+    far 6, ``srgt`` the images) for views of :func:`bounded_teacher` at
+    :func:`bounded_poses`, rendered on the CPU by ``dvgo.forward``."""
+    import torch
+
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import rays as ray_ops
+    n = n_train + n_val + n_test
+    c2w = bounded_poses(n)
+    f = blender_focal(w)
+    K = np.array([[f, 0, 0.5 * w], [0, f, 0.5 * h], [0, 0, 1]])
+    cfg, params, buffers = bounded_teacher()
+    images = []
+    for v in range(n):
+        ro, rd, vd = (t.reshape(-1, 3) for t in ray_ops.get_rays_of_a_view(
+            h, w, K, c2w[v], ndc=False, inverse_y=False, flip_x=False,
+            flip_y=False, device="cpu"))
+        with torch.no_grad():
+            out = dvgo.forward(cfg, params, buffers, ro, rd, vd, stepsize=0.5,
+                               near=2.0, far=6.0, bg=1.0)
+        images.append(out["rgb_marched"].clamp(0, 1).reshape(h, w, 3).numpy())
+    images = np.stack(images).astype(np.float32)
+    i_split = np.split(np.arange(n), [n_train, n_train + n_val])
+    return dict(hwf=[h, w, f], HW=np.array([[h, w]] * n),
+                Ks=K[None].repeat(n, 0), near=2.0, far=6.0, near_clip=None,
+                i_train=i_split[0], i_val=i_split[1], i_test=i_split[2],
+                poses=c2w, render_poses=c2w.copy(), images=images,
+                irregular_shape=False, srgt=images, w2c=0)

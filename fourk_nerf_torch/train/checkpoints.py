@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from fourk_nerf_torch.device import resolve_device
+from fourk_nerf_torch.ops import grid_sample, render
 
 
 def tree_to_flat_dict(tree, prefix: str = "") -> dict:
@@ -235,3 +236,41 @@ def import_torch_encoder_checkpoint(path: str):
         buffers["mask_cache"] = np.asarray(sd["mask_cache.mask"].numpy(),
                                            dtype=bool)
     return kwargs, params, buffers, int(ckpt.get("global_step", 0))
+
+
+def _coarse_mask(density, act_shift, ratio, thres: float):
+    """``alpha >= thres`` of the 3x3x3 max-pooled density ``[X, Y, Z]``
+    (frozoul/4K-NeRF lib/grid.py:277-284)."""
+    dens = grid_sample.max_pool3d_same(density)
+    return render.raw2alpha(dens, act_shift, ratio) >= thres
+
+
+@torch.no_grad()
+def mask_from_coarse_checkpoint(path: str, mask_cache_thres: float,
+                                device=None):
+    """The free-space mask of a coarse DirectVoxGO ``.npz`` checkpoint:
+    its density max-pooled 3x3x3, then alpha (the scalar act_shift of its
+    ``alpha_init``) at or above ``mask_cache_thres``. Returns (mask
+    ``[X, Y, Z]`` bool on ``device``, default ``cuda``; xyz_min; xyz_max),
+    the box as float64 numpy."""
+    kwargs, params, _, _, _, _ = load_checkpoint(path, device=device)
+    act_shift = float(np.log(1.0 / (1.0 - kwargs["alpha_init"]) - 1.0))
+    mask = _coarse_mask(params["density"][..., 0], act_shift,
+                        kwargs["voxel_size_ratio"], mask_cache_thres)
+    return mask, np.asarray(kwargs["xyz_min"]), np.asarray(kwargs["xyz_max"])
+
+
+@torch.no_grad()
+def mask_from_coarse_torch_checkpoint(path: str, mask_cache_thres: float,
+                                      device=None):
+    """:func:`mask_from_coarse_checkpoint` of a reference coarse ``.tar``
+    (its ``density.grid [1, 1, X, Y, Z]`` and ``act_shift``)."""
+    st = _torch_load(path)
+    dev = resolve_device(device)
+    sd, kwargs = st["model_state_dict"], st["model_kwargs"]
+    density = sd["density.grid"].to(device=dev, dtype=torch.float32)[0, 0]
+    act_shift = sd["act_shift"].to(device=dev, dtype=torch.float32)
+    mask = _coarse_mask(density, act_shift.reshape(()),
+                        kwargs["voxel_size_ratio"], mask_cache_thres)
+    return (mask, np.asarray(kwargs["xyz_min"]),
+            np.asarray(kwargs["xyz_max"]))

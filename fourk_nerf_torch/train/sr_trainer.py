@@ -45,7 +45,7 @@ import torch
 
 from fourk_nerf_torch import pipeline, weights
 from fourk_nerf_torch.device import fp32_precision, resolve_device
-from fourk_nerf_torch.models import dmpigo, sr_esrnet, sr_unetdisc
+from fourk_nerf_torch.models import dmpigo, dvgo, sr_esrnet, sr_unetdisc
 from fourk_nerf_torch.ops import grid_sample, plane_sweep, rays as ray_ops, \
     render
 from fourk_nerf_torch.train import checkpoints, losses, optim, sr_losses, \
@@ -252,11 +252,13 @@ class SRTrainStep:
                 self.model_cfg, params, buffers, rays_o, rays_d, viewdirs,
                 stepsize=stepsize, bg=bg, bg_noise=noise,
                 patch=self.sweep_patch, check=False)
+        kw = (dict(near=self.rk["near"], far=self.rk["far"])
+              if self.model_mod is dvgo else {})
         return self.model_mod.forward(
             self.model_cfg, params, buffers, rays_o, rays_d, viewdirs,
             stepsize=stepsize, bg=bg, rand_bkgd=self.rand_bkgd,
             is_train=True, bg_noise=bg_noise, render_depth=True,
-            ndc_planes=bool(self.rk.get("ndc_planes", False)))
+            ndc_planes=bool(self.rk.get("ndc_planes", False)), **kw)
 
     def d_condition(self, batch):
         """The discriminator's condition for ``batch`` (None for ``Unet``;
@@ -458,18 +460,17 @@ def load_joint(path: str, ndc: bool, device=None):
     generator's and the discriminator's params as flax trees of tensors
     (``weights.sftnet_from_flax`` and ``weights.disc_from_flax`` build the
     modules; ``d_params`` None and ``d_state`` empty without a
-    discriminator), the optimizer states in the port's layout or None."""
-    if not ndc:
-        raise trainer._later("the joint trainer's DirectVoxGO branch",
-                             "2 (the bounded run.py path)")
+    discriminator), the optimizer states in the port's layout or None.
+    ``ndc`` picks the encoder's family: DirectMPIGO, else DirectVoxGO."""
+    model_mod = dmpigo if ndc else dvgo
     dev = resolve_device(device)
     kwargs, tree, buffers, opt, step, meta = checkpoints.load_checkpoint(
         path, device=dev)
     sr_params = tree.pop("__sr__", None)
     d_params = tree.pop("__disc__", None)
     d_state = tree.pop("__disc_state__", {})
-    return (dmpigo, dmpigo.make_config(**kwargs), tree, buffers, sr_params,
-            d_params, d_state, _port_opt(opt, dev), step, meta)
+    return (model_mod, model_mod.make_config(**kwargs), tree, buffers,
+            sr_params, d_params, d_state, _port_opt(opt, dev), step, meta)
 
 
 def _port_opt(opt, device):
@@ -682,10 +683,13 @@ def _inmask_patches(model_cfg, buffers, flat, patch: int, stepsize: float):
 
 def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                                       xyz_min, xyz_max, data_dict,
-                                      stage: str, writer=None, device=None):
+                                      stage: str, writer=None, device=None,
+                                      coarse_ckpt_path: str | None = None):
     """Train the encoder and the generator (and, with a GAN weight, the
-    discriminator) jointly on ``device`` (default ``cuda``). Returns
-    (model_mod, model_cfg, params, buffers, sr_model)."""
+    discriminator) jointly on ``device`` (default ``cuda``). A new
+    DirectVoxGO encoder starts from the free-space mask of
+    ``coarse_ckpt_path``. Returns (model_mod, model_cfg, params, buffers,
+    sr_model)."""
     dev = resolve_device(device)
     model_mod = trainer._select_model_mod(cfg)
     if abs(cfg_model.world_bound_scale - 1) > 1e-9:
@@ -708,7 +712,8 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
         if reload_path.endswith(".tar"):
             kwargs_l, p_np, b_np, start = \
                 checkpoints.import_torch_encoder_checkpoint(reload_path)
-            params, buffers = weights.dmpigo_from_numpy(p_np, b_np, dev)
+            params, buffers = (weights.to_torch(t, dev)
+                               for t in (p_np, b_np))
         else:
             kwargs_l, params, buffers, opt_raw, start, meta_l = \
                 checkpoints.load_checkpoint(reload_path, device=dev)
@@ -727,9 +732,15 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
             num_voxels = int(num_voxels / (2 ** len(cfg_train.pg_scale)))
         model_cfg = trainer._make_cfg(model_mod, xyz_min, xyz_max, num_voxels,
                                       model_kwargs)
+        mask_kw = {}
+        if model_mod is dvgo and coarse_ckpt_path:
+            # the free-space mask of the coarse stage (--ftdvcoa_path)
+            mask_kw["init_mask"] = trainer.coarse_mask_on_grid(
+                model_cfg, coarse_ckpt_path, cfg_model.mask_cache_thres, dev)
+            print(f"sr ({stage}): mask bootstrapped from {coarse_ckpt_path}")
         params, buffers = model_mod.init(
             model_cfg, generator=torch.Generator().manual_seed(seed),
-            device=dev)
+            device=dev, **mask_kw)
 
     # --- the generator -------------------------------------------------------
     num_cond = int(cfg_model.get("num_cond", 1))
@@ -766,8 +777,9 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
         "rand_bkgd": bool(cfg.data.rand_bkgd),
         "stepsize": float(cfg_model.stepsize),
     }
-    render_kwargs["ndc_planes"] = dmpigo.plane_aligned_ok(
-        model_cfg, render_kwargs["stepsize"], cfg.data.ndc)
+    if model_mod is dmpigo:
+        render_kwargs["ndc_planes"] = dmpigo.plane_aligned_ok(
+            model_cfg, render_kwargs["stepsize"], cfg.data.ndc)
 
     # --- rays (image layout) and the aligned HR targets ----------------------
     flat, _ = trainer.gather_training_rays(
@@ -777,7 +789,8 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
         np.ascontiguousarray(_nhwc(data_dict["srgt"])[i_train]),
         dtype=torch.float32, device=dev)  # [V, H*r, W*r, 3]
     inmask = None
-    if str(cfg_train.get("ray_sampler", "")) == "patch_inmask":
+    if (str(cfg_train.get("ray_sampler", "")) == "patch_inmask"
+            and model_mod is dmpigo):
         inmask = _inmask_patches(model_cfg, buffers, flat, patch,
                                  render_kwargs["stepsize"])
         print(f"sr: patch_inmask keeps {int(inmask.sum())}/{len(inmask)} "
@@ -788,7 +801,7 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
         """The sweep's slice size and grid window at the current grid size
         (None where they do not fit), and the host copies of the rays'
         affine coefficients that the window origins come from."""
-        if not render_kwargs["ndc_planes"]:
+        if not render_kwargs.get("ndc_planes"):
             return None, None, None
         X, Y, Z = mcfg.world_size
         sizes = torch.tensor([X, Y], dtype=torch.float32, device=dev)
@@ -844,10 +857,14 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     lr_srnet0 = float(cfg_train.get("lrate_srnet", 2e-4))
     step_fn, ab = make_step(model_cfg)
 
-    # the views' w2c rotations, the pose discriminator's condition
-    w2c_train = torch.as_tensor(np.asarray(data_dict.get(
-        "w2c", np.zeros((len(data_dict["poses"]), 3, 3))))[i_train],
-        dtype=torch.float32, device=dev)
+    # the views' w2c rotations, the pose discriminator's condition; the
+    # Blender loader gives none (w2c 0): zeros, where the JAX package's
+    # loop fails to index the scalar
+    w2c_all = np.asarray(data_dict.get("w2c", 0))
+    if w2c_all.ndim != 3:
+        w2c_all = np.zeros((len(data_dict["poses"]), 3, 3), np.float32)
+    w2c_train = torch.as_tensor(w2c_all[i_train], dtype=torch.float32,
+                                device=dev)
 
     def gather(v: int, r: int, c: int):
         def sl(t):
@@ -883,11 +900,9 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                           - cfg_train.pg_scale.index(global_step) - 1)
                 cur_voxels = int(cfg_model.num_voxels / (2 ** n_rest))
                 enc_opt = None  # the old moments go before the grids grow
-                model_cfg, params, buffers = dmpigo.scale_volume_grid(
-                    model_cfg, params, buffers, cur_voxels,
-                    model_cfg.mpi_depth)
-                buffers = dmpigo.decay_act_shift(buffers,
-                                                 cfg_train.decay_after_scale)
+                model_cfg, params, buffers = trainer.scale_grids(
+                    model_mod, model_cfg, params, buffers, cur_voxels,
+                    cfg_train.decay_after_scale)
                 enc_opt = optim.init_state(params)
                 steps_since_reset = 0
                 # the grid grew: re-derive the slice and the window (a stale
@@ -993,13 +1008,24 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
 
 def train_sr(args, cfg, data_dict, writer=None, device=None):
     """Fit a scene jointly (run_sr.py): the box from the training cameras'
-    frustums, then :func:`scene_rep_reconstruction_sr_patch` of the fine
-    stage on ``device`` (default ``cuda``)."""
+    frustums (with ``args.ftdvcoa_path`` and a config with a coarse stage,
+    tightened to that coarse checkpoint's geometry, whose mask a new
+    bounded encoder starts from: run_sr.py:1197-1225), then
+    :func:`scene_rep_reconstruction_sr_patch` of the fine stage on
+    ``device`` (default ``cuda``)."""
     os.makedirs(os.path.join(cfg.basedir, cfg.expname), exist_ok=True)
     xyz_min, xyz_max = trainer.compute_bbox_by_cam_frustrm(
         cfg, data_dict["HW"], data_dict["Ks"], data_dict["poses"],
         data_dict["i_train"], data_dict["near"], data_dict["far"],
         near_clip=data_dict.get("near_clip"), device=device)
+    coarse_ckpt_path = None
+    if getattr(args, "ftdvcoa_path", "") and cfg.coarse_train.N_iters > 0:
+        coarse_ckpt_path = args.ftdvcoa_path
+        xyz_min, xyz_max = trainer.compute_bbox_by_coarse_geo(
+            dvgo, coarse_ckpt_path, cfg.fine_model_and_render.bbox_thres,
+            device=device)
+        print(f"ftdvcoa_path: bbox tightened to {xyz_min} .. {xyz_max}")
     return scene_rep_reconstruction_sr_patch(
         args, cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min,
-        xyz_max, data_dict, stage="fine", writer=writer, device=device)
+        xyz_max, data_dict, stage="fine", writer=writer, device=device,
+        coarse_ckpt_path=coarse_ckpt_path)

@@ -1,17 +1,22 @@
 """Encoder training and evaluation rendering.
 
-Training (the JAX package's ``train/trainer.py`` for the NDC DirectMPIGO,
-after frozoul/4K-NeRF run.py:335-633): :func:`train` fits the fine stage
-of a forward-facing scene from its ``data_dict``. :func:`scene_rep_reconstruction`
-is the loop: progressive grid scaling with an optimizer reset, the
-act_shift decay, occupancy renewal, dense-then-sparse TV, an eval render at
-``i_val`` with a best-PSNR save, periodic background saves, the final save,
-and resume. Rays of every training view live on the device; the batch
-stream is the JAX package's (numpy ``default_rng((seed, epoch))``, indexed
-by step), so the same run draws the same rays in both packages and a
-resumed run draws what the unbroken one would. :class:`TrainStep` is one
-step: autograd of the forward and the losses, the TV gradients, MaskedAdam
-in place. Other model families and the coarse stage raise up front.
+Training (the JAX package's ``train/trainer.py``, after frozoul/4K-NeRF
+run.py:335-685): :func:`train` fits a scene from its ``data_dict``: with
+a coarse stage, the coarse model, the box tightened to its geometry, then
+the fine stage on its mask (a bounded scene's DirectVoxGO); without, the
+fine stage alone (a forward-facing scene's NDC DirectMPIGO).
+:func:`scene_rep_reconstruction` is the loop of one stage: the
+near-camera mask-out, the per-voxel lr from the views' counts,
+progressive grid scaling with an optimizer reset, the act_shift decay,
+occupancy renewal, dense-then-sparse TV, an eval render at ``i_val`` with
+a best-PSNR save, periodic background saves, the final save, and resume.
+Rays of every training view live on the device; the batch stream is the
+JAX package's (numpy ``default_rng((seed, epoch))``, indexed by step), so
+the same run draws the same rays, pixels or patches in both packages and
+a resumed run draws what the unbroken one would. :class:`TrainStep` is
+one step: autograd of the forward and the losses, the TV gradients,
+MaskedAdam in place. The slab-sweep training forward (``patch_box``) and
+the other model families raise up front.
 
 Evaluation (:func:`render_viewpoints`): full frames of a trained model for
 a list of poses, with PSNR / SSIM against ground truth when it is given. A
@@ -38,7 +43,8 @@ import torch
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.device import resolve_device
 from fourk_nerf_torch.models import dmpigo, dvgo
-from fourk_nerf_torch.ops import cuda_box, cuda_sweep, rays as ray_ops
+from fourk_nerf_torch.ops import cuda_box, cuda_sweep, grid_sample, \
+    rays as ray_ops, render
 from fourk_nerf_torch.train import checkpoints, losses, optim
 from fourk_nerf_torch.utils import metrics, stats as stats_mod
 
@@ -234,18 +240,81 @@ def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
     return xyz_min, xyz_max
 
 
-def gather_training_rays(cfg, cfg_train, data_dict, device=None):
+@torch.no_grad()
+def compute_bbox_by_coarse_geo(model_mod, ckpt_path: str, thres: float,
+                               device=None):
+    """The box of the voxels of a coarse checkpoint whose alpha exceeds
+    ``thres`` (frozoul/4K-NeRF run.py:257-278), the alphas computed on
+    ``device`` (default ``cuda``) at the grid's voxel centres in x-slabs.
+    Returns (xyz_min, xyz_max) as float64 numpy: the linspace coordinates
+    of the first and last such voxel on each axis; the checkpoint's own box
+    when no voxel qualifies."""
+    dev = resolve_device(device)
+    kwargs, params, _, _, _, _ = checkpoints.load_checkpoint(ckpt_path,
+                                                             device=dev)
+    cfg = model_mod.make_config(**kwargs)
+    axes = [np.linspace(cfg.xyz_min[d], cfg.xyz_max[d], cfg.world_size[d])
+            for d in range(3)]
+    ax32 = [torch.as_tensor(a.astype(np.float32), device=dev) for a in axes]
+    xyz_min = torch.tensor(cfg.xyz_min, dtype=torch.float32, device=dev)
+    xyz_max = torch.tensor(cfg.xyz_max, dtype=torch.float32, device=dev)
+    shift = getattr(cfg, "act_shift", 0.0)
+    any_x = torch.zeros(cfg.world_size[0], dtype=torch.bool, device=dev)
+    any_yz = torch.zeros(cfg.world_size[1:], dtype=torch.bool, device=dev)
+    for x0 in range(0, cfg.world_size[0], _SLAB):
+        xyz = torch.stack(torch.meshgrid(ax32[0][x0:x0 + _SLAB], ax32[1],
+                                         ax32[2], indexing="ij"), -1)
+        dens = grid_sample.grid_query(params["density"], xyz, xyz_min,
+                                      xyz_max)[..., 0]
+        hit = render.raw2alpha(dens, shift, cfg.voxel_size_ratio) > thres
+        any_x[x0:x0 + _SLAB] = hit.flatten(1).any(1)
+        any_yz |= hit.any(0)
+    if not bool(any_x.any()):
+        # degenerate coarse geometry (a very short run): the full box
+        print("compute_bbox_by_coarse_geo: no voxel above threshold; keeping "
+              "full bbox")
+        return np.asarray(cfg.xyz_min), np.asarray(cfg.xyz_max)
+    idx = [torch.nonzero(a)[:, 0].cpu().numpy()
+           for a in (any_x, any_yz.any(1), any_yz.any(0))]
+    return (np.array([axes[d][idx[d][0]] for d in range(3)]),
+            np.array([axes[d][idx[d][-1]] for d in range(3)]))
+
+
+_SLAB = 16          # x-slab of a full-grid query
+_HIT_CHUNK = 65536  # rays a coarse-geometry hit test takes at once
+_PATCH_SAMPLERS = ("patch_simg", "patch_mimg", "patch_inmask")
+
+
+def _hit_rays(model, ro, rd, render_kwargs):
+    """``[n]`` bool: whether each ray ``ro, rd [n, 3]`` meets the
+    occupancy mask of ``model = (model_mod, model_cfg, buffers)``
+    (``hit_coarse_geo``), in chunks of ``_HIT_CHUNK`` rays."""
+    model_mod, model_cfg, buffers = model
+    kw = {k: render_kwargs[k] for k in ("near", "far", "stepsize")}
+    return torch.cat([model_mod.hit_coarse_geo(
+        model_cfg, buffers, ro[s:s + _HIT_CHUNK], rd[s:s + _HIT_CHUNK], **kw)
+        for s in range(0, ro.shape[0], _HIT_CHUNK)])
+
+
+def gather_training_rays(cfg, cfg_train, data_dict, device=None, *,
+                         model=None, render_kwargs=None):
     """The rays and colours of every training view on the device:
-    ``flat`` (``[n, 3]`` each for the ``flatten`` sampler, ``[V, H, W, 3]``
-    for ``random``) and the per-view ``[H, W, 3]`` lists."""
+    ``flat`` and the per-view ``[H, W, 3]`` lists. ``flat`` holds ``[n, 3]``
+    each for the ``flatten`` sampler, the rays that meet the occupancy mask
+    of ``model`` (``(model_mod, model_cfg, buffers)``) for
+    ``in_maskcache``, and ``[V, H, W, 3]`` for ``random`` and the patch
+    samplers (whose ``make_batch_sampler`` raises for ``patch_box``); for ``patch_inmask`` with a model that has
+    ``hit_coarse_geo`` also ``hit``, the per-view hit maps ``[V, H, W]``
+    (numpy bool). ``render_kwargs`` (``near``, ``far``, ``stepsize``) goes
+    to the hit test."""
     sampler = cfg_train.ray_sampler
-    if sampler in ("in_maskcache", "patch_box"):
-        raise _later(f"the {sampler} sampler", "2 (the bounded run.py path)")
-    if sampler in ("patch_simg", "patch_mimg", "patch_inmask"):
-        raise _later(f"run.py's {sampler} sampler",
-                     "3c (the encoder's patch samplers)")
-    if sampler not in ("flatten", "random"):
+    if sampler not in ("flatten", "random", "in_maskcache", "patch_box") \
+            + _PATCH_SAMPLERS:
         raise NotImplementedError(sampler)
+    hit_test = model is not None and hasattr(model[0], "hit_coarse_geo")
+    if sampler == "in_maskcache" and not hit_test:
+        raise ValueError("the in_maskcache sampler needs a model with an "
+                         "occupancy hit test (DirectVoxGO)")
     dev = resolve_device(device)
     lists = {k: [] for k in _RAY_KEYS}
     for i in data_dict["i_train"]:
@@ -262,8 +331,27 @@ def gather_training_rays(cfg, cfg_train, data_dict, device=None):
     if sampler == "flatten":
         flat = {k: torch.cat([a.reshape(-1, a.shape[-1]) for a in v])
                 for k, v in lists.items()}
+    elif sampler == "in_maskcache":
+        # the rays that meet the coarse geometry (lib/dvgo.py:643-680)
+        kept = {k: [] for k in _RAY_KEYS}
+        for v in range(len(lists["rgb"])):
+            hit = _hit_rays(model, lists["rays_o"][v].reshape(-1, 3),
+                            lists["rays_d"][v].reshape(-1, 3), render_kwargs)
+            for k in _RAY_KEYS:
+                kept[k].append(lists[k][v].reshape(-1, 3)[hit])
+        flat = {k: torch.cat(v) for k, v in kept.items()}
+        if flat["rgb"].shape[0] == 0:
+            raise ValueError("in_maskcache: no training ray meets the "
+                             "occupancy mask (an untrained coarse stage?)")
     else:
         flat = {k: torch.stack(v) for k, v in lists.items()}
+        if sampler == "patch_inmask" and hit_test:
+            # the patches whose rays all miss the occupancy mask leave the
+            # rotation (lib/dvgo.py:786-820)
+            flat["hit"] = np.stack([
+                _hit_rays(model, ro.reshape(-1, 3), rd.reshape(-1, 3),
+                          render_kwargs).reshape(ro.shape[:2]).cpu().numpy()
+                for ro, rd in zip(lists["rays_o"], lists["rays_d"])])
     return flat, lists
 
 
@@ -276,13 +364,23 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t
 
 
-def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int):
+def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int,
+                       hit: np.ndarray | None = None):
     """``sample(step) -> (kind, indices)`` for the 0-based draw ``step``
-    (frozoul/4K-NeRF lib/dvgo.py:761-819). Each epoch's permutation is a
+    (frozoul/4K-NeRF lib/dvgo.py:761-878). Each epoch's permutation is a
     pure function of ``(seed, epoch)`` and each ``random`` draw of
-    ``(seed, step)``, so a resumed run replays the stream."""
+    ``(seed, step)``, so a resumed run replays the stream.
+
+    The patch samplers draw square patches of side ``sample.patch``
+    (``N_rand // 64``, at most the frame, down to a multiple of 8, at least
+    8) at grid-aligned origins clamped to the border, as ``("patch",
+    (view, row, col))`` in host ints: ``patch_simg`` every origin of one
+    view, shuffled, before the next view; ``patch_mimg`` every (view,
+    origin), shuffled per epoch; ``patch_inmask`` the same without the
+    patches whose rays all miss the occupancy mask (``hit [V, H, W]``;
+    never all of them)."""
     dev = flat["rgb"].device
-    if sampler == "flatten":
+    if sampler in ("flatten", "in_maskcache"):
         n = flat["rgb"].shape[0]
         bpe = max(n // n_rand, 1)  # rollover when top + n_rand > n
         cache = {"epoch": -1, "perm": None}
@@ -305,18 +403,52 @@ def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int):
                                 for n in (V, H, W))
 
         return sample
-    if sampler in ("in_maskcache", "patch_box"):
-        raise _later(f"the {sampler} sampler", "2 (the bounded run.py path)")
-    if sampler in ("patch_simg", "patch_mimg", "patch_inmask"):
-        raise _later(f"run.py's {sampler} sampler",
-                     "3c (the encoder's patch samplers)")
-    raise NotImplementedError(sampler)
+    if sampler == "patch_box":
+        raise _later("the patch_box sampler (the slab-sweep training "
+                     "forward)", "2b (patch_box)")
+    if sampler not in _PATCH_SAMPLERS:
+        raise NotImplementedError(sampler)
+    V, H, W = flat["rgb"].shape[:3]
+    P = max((min(n_rand // 64, H, W) // 8) * 8, 8)
+    rows = sorted({min(r, H - P) for r in range(0, H, P)})
+    cols = sorted({min(c, W - P) for c in range(0, W, P)})
+    pos = [(r, c) for r in rows for c in cols]
+    if sampler == "patch_simg":
+        def sample(step: int):
+            block, i = divmod(step, len(pos))
+            r, c = pos[np.random.default_rng((seed, block)).permutation(
+                len(pos))[i]]
+            return "patch", (block % V, r, c)
+    else:
+        combos = [(v, r, c) for v in range(V) for (r, c) in pos]
+        if sampler == "patch_inmask" and hit is not None:
+            kept = [(v, r, c) for (v, r, c) in combos
+                    if hit[v][r:r + P, c:c + P].any()]
+            if kept:  # never filter down to nothing
+                combos = kept
+        cache = {"epoch": -1, "order": None}
+
+        def sample(step: int):
+            epoch, i = divmod(step, len(combos))
+            if cache["epoch"] != epoch:
+                cache["epoch"] = epoch
+                cache["order"] = np.random.default_rng(
+                    (seed, epoch)).permutation(len(combos))
+            return "patch", combos[cache["order"][i]]
+
+    sample.patch = P
+    return sample
 
 
-def gather_batch(flat: dict, kind: str, sel):
-    """(rays_o, rays_d, viewdirs, rgb) of one draw of the sampler."""
+def gather_batch(flat: dict, kind: str, sel, patch: int = 0):
+    """(rays_o, rays_d, viewdirs, rgb) of one draw of the sampler;
+    ``patch``: the side of a ``"patch"`` draw."""
     if kind == "flat":
         return tuple(flat[k][sel] for k in _RAY_KEYS)
+    if kind == "patch":
+        v, r, c = sel
+        return tuple(flat[k][v, r:r + patch, c:c + patch].reshape(-1, 3)
+                     for k in _RAY_KEYS)
     b, r, c = sel
     return tuple(flat[k][b, r, c] for k in _RAY_KEYS)
 
@@ -367,6 +499,9 @@ class TrainStep:
             rand_bkgd=bool(render_kwargs.get("rand_bkgd", False)),
             is_train=True,
             ndc_planes=bool(render_kwargs.get("ndc_planes", False)))
+        if model_mod is dvgo:  # bounded scenes sample between near and far
+            self.fwd_kw.update(near=render_kwargs["near"],
+                               far=render_kwargs["far"])
         self.weight_tv_density = float(cfg_train.weight_tv_density)
         self.weight_tv_k0 = float(cfg_train.weight_tv_k0)
 
@@ -447,22 +582,60 @@ def find_reload_path(args, rundir: str, stage: str):
     return max(steps, key=steps.get) if steps else None
 
 
+def coarse_mask_on_grid(model_cfg, coarse_ckpt_path: str, thres: float,
+                       device=None) -> torch.Tensor:
+    """The free-space mask of a coarse checkpoint (``.npz``, or a reference
+    ``.tar``) resampled by nearest lookup onto the voxels of
+    ``model_cfg.mask_cache_world_size`` over this model's box
+    (run.py:351-362): ``[X, Y, Z]`` bool on ``device``."""
+    dev = resolve_device(device)
+    load = (checkpoints.mask_from_coarse_torch_checkpoint
+            if coarse_ckpt_path.endswith(".tar")
+            else checkpoints.mask_from_coarse_checkpoint)
+    mask, m_min, m_max = load(coarse_ckpt_path, thres, device=dev)
+    axes = [torch.as_tensor(np.linspace(
+        model_cfg.xyz_min[d], model_cfg.xyz_max[d],
+        model_cfg.mask_cache_world_size[d]).astype(np.float32), device=dev)
+        for d in range(3)]
+    xyz = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+    return grid_sample.nearest_mask_lookup(
+        mask, xyz, torch.as_tensor(m_min, dtype=torch.float32, device=dev),
+        torch.as_tensor(m_max, dtype=torch.float32, device=dev))
+
+
+def scale_grids(model_mod, model_cfg, params, buffers, num_voxels: int,
+                decay_after_scale: float):
+    """A progressive-scaling step of either family (run.py:465-476): the
+    grids resampled to ``num_voxels``; DirectMPIGO keeps its depth and
+    lowers its act_shift by ``decay_after_scale``. Returns (model_cfg,
+    params, buffers)."""
+    if model_mod is dvgo:
+        return dvgo.scale_volume_grid(model_cfg, params, buffers, num_voxels)
+    model_cfg, params, buffers = dmpigo.scale_volume_grid(
+        model_cfg, params, buffers, num_voxels, model_cfg.mpi_depth)
+    return model_cfg, params, dmpigo.decay_act_shift(buffers,
+                                                     decay_after_scale)
+
+
 def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
-                             xyz_max, data_dict, stage: str, writer=None,
-                             device=None):
-    """Train one stage on ``device`` (default ``cuda``). Returns
+                             xyz_max, data_dict, stage: str,
+                             coarse_ckpt_path: str | None = None,
+                             writer=None, device=None):
+    """Train one stage on ``device`` (default ``cuda``); a bounded scene's
+    fine stage starts from the mask of ``coarse_ckpt_path``. Returns
     (model_mod, model_cfg, params, buffers)."""
     dev = resolve_device(device)
     model_mod = _select_model_mod(cfg)
     if abs(cfg_model.world_bound_scale - 1) > 1e-9:
         xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
         xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift
-    if cfg_train.pervoxel_lr:
-        raise _later("the per-voxel lr (voxel_count_views)",
-                     "2 (the bounded run.py path)")
+    if cfg_train.pervoxel_lr and model_mod is not dvgo:
+        raise ValueError("the per-voxel lr counts the views of a bounded "
+                         "scene's voxels (DirectVoxGO)")
     seed = int(getattr(args, "seed", 777))
     rundir = os.path.join(cfg.basedir, cfg.expname)
     last_ckpt_path = os.path.join(rundir, f"{stage}_last.npz")
+    near, far = float(data_dict["near"]), float(data_dict["far"])
 
     # --- model: new, or reloaded (run.py:280-332) ---------------------------
     model_kwargs = dict(cfg_model)
@@ -474,35 +647,61 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     if reload_path is None:
         model_cfg = _make_cfg(model_mod, xyz_min, xyz_max, num_voxels,
                               model_kwargs)
+        mask_kw = {}
+        if model_mod is dvgo and coarse_ckpt_path:
+            mask_kw["init_mask"] = coarse_mask_on_grid(
+                model_cfg, coarse_ckpt_path, cfg_model.mask_cache_thres, dev)
         params, buffers = model_mod.init(
             model_cfg, generator=torch.Generator().manual_seed(seed),
-            device=dev)
+            device=dev, **mask_kw)
+        if cfg_model.maskout_near_cam_vox and model_mod is dvgo:
+            params = dvgo.maskout_near_cam_vox(
+                model_cfg, params,
+                np.asarray(data_dict["poses"])[data_dict["i_train"], :3, 3],
+                near)
     else:
         print(f"scene_rep_reconstruction ({stage}): reload from {reload_path}")
         if reload_path.endswith(".tar"):  # a reference torch checkpoint
             kwargs_l, p_np, b_np, start = \
                 checkpoints.import_torch_encoder_checkpoint(reload_path)
-            params, buffers = weights.dmpigo_from_numpy(p_np, b_np, dev)
+            params, buffers = (weights.to_torch(t, dev) for t in (p_np, b_np))
         else:
             kwargs_l, params, buffers, opt_state_l, start, meta_l = \
                 checkpoints.load_checkpoint(reload_path, device=dev)
         model_cfg = model_mod.make_config(**kwargs_l)
 
     render_kwargs = {
-        "near": float(data_dict["near"]), "far": float(data_dict["far"]),
+        "near": near, "far": far,
         "bg": 1.0 if cfg.data.white_bkgd else 0.0,
         "rand_bkgd": bool(cfg.data.rand_bkgd),
         "stepsize": float(cfg_model.stepsize),
     }
-    render_kwargs["ndc_planes"] = dmpigo.plane_aligned_ok(
-        model_cfg, render_kwargs["stepsize"], cfg.data.ndc)
+    if model_mod is dmpigo:
+        render_kwargs["ndc_planes"] = dmpigo.plane_aligned_ok(
+            model_cfg, render_kwargs["stepsize"], cfg.data.ndc)
     data_flags = DataFlags.from_config(cfg.data)
 
     # --- rays and sampler ----------------------------------------------------
-    flat, ray_lists = gather_training_rays(cfg, cfg_train, data_dict, dev)
+    flat, ray_lists = gather_training_rays(
+        cfg, cfg_train, data_dict, dev, model=(model_mod, model_cfg, buffers),
+        render_kwargs=render_kwargs)
     sample_batch = make_batch_sampler(cfg_train.ray_sampler, flat,
-                                      cfg_train.N_rand, seed)
-    if cfg_train.get("maskout_lt_nviews", 0) > 0:
+                                      cfg_train.N_rand, seed,
+                                      hit=flat.pop("hit", None))
+    patch = getattr(sample_batch, "patch", 0)
+
+    # --- per-voxel lr (run.py:438-446) ---------------------------------------
+    per_lr = None
+    if cfg_train.pervoxel_lr:
+        cnt = dvgo.voxel_count_views(
+            model_cfg, ray_lists["rays_o"], ray_lists["rays_d"], near,
+            cfg_model.stepsize, downrate=cfg_train.pervoxel_lr_downrate)
+        per_lr = {"density": cnt / cnt.max().clamp_min(1.0)}
+        if tuple(cnt.shape[:3]) == tuple(buffers["mask_cache"].shape):
+            buffers = {**buffers,
+                       "mask_cache": buffers["mask_cache"] & (cnt[..., 0] > 2)}
+        del cnt
+    if cfg_train.get("maskout_lt_nviews", 0) > 0 and model_mod is dmpigo:
         buffers = dmpigo.update_occupancy_cache_lt_nviews(
             model_cfg, buffers, ray_lists["rays_o"], ray_lists["rays_d"],
             cfg_model.stepsize, cfg_train.maskout_lt_nviews)
@@ -543,11 +742,9 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                           - cfg_train.pg_scale.index(global_step) - 1)
                 cur_voxels = int(cfg_model.num_voxels / (2 ** n_rest))
                 opt_state = None  # the old moments go before the grids grow
-                model_cfg, params, buffers = dmpigo.scale_volume_grid(
-                    model_cfg, params, buffers, cur_voxels,
-                    model_cfg.mpi_depth)
-                buffers = dmpigo.decay_act_shift(buffers,
-                                                 cfg_train.decay_after_scale)
+                model_cfg, params, buffers = scale_grids(
+                    model_mod, model_cfg, params, buffers, cur_voxels,
+                    cfg_train.decay_after_scale)
                 opt_state = optim.init_state(params)
                 steps_since_reset = 0
                 train_step = TrainStep(model_mod, model_cfg, cfg_train,
@@ -555,7 +752,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                                        skip_zero_grad=skip_zero)
 
             kind, sel = sample_batch(global_step - 1)
-            batch = gather_batch(flat, kind, sel)
+            batch = gather_batch(flat, kind, sel, patch)
             lrs = {k: optim.group_lr(v, steps_since_reset,
                                      cfg_train.lrate_decay)
                    for k, v in base_lrs.items()}
@@ -564,7 +761,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             apply_tv = (cfg_train.tv_after < global_step < cfg_train.tv_before
                         and global_step % cfg_train.tv_every == 0)
             loss, psnr = train_step(
-                params, buffers, opt_state, batch, lrs, None, noise,
+                params, buffers, opt_state, batch, lrs, per_lr, noise,
                 apply_tv=bool(apply_tv),
                 tv_dense=bool(global_step < cfg_train.tv_dense_before))
             steps_since_reset += 1
@@ -627,7 +824,8 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
 
 def _select_model_mod(cfg):
     """The model family of a config (run.py:286-313): DirectMPIGO for NDC
-    scenes. The families whose training forms are not ported raise."""
+    scenes, DirectVoxGO for bounded ones. The families whose training
+    forms are not ported raise."""
     if cfg.data.ndc:
         if cfg.fine_model_and_render.get("mode_type") == "adain_vq":
             raise _later("DirectQVGO (mode_type adain_vq) training",
@@ -635,28 +833,51 @@ def _select_model_mod(cfg):
         return dmpigo
     if cfg.data.get("unbounded_inward", False):
         raise _later("DirectContractedVoxGO training", "5 (secondary models)")
-    raise _later("DirectVoxGO training", "2 (the bounded run.py path)")
+    return dvgo
 
 
 def _make_cfg(model_mod, xyz_min, xyz_max, num_voxels, model_kwargs):
     kw = dict(model_kwargs)
-    return model_mod.make_config(xyz_min=xyz_min, xyz_max=xyz_max,
-                                 num_voxels=num_voxels,
-                                 mpi_depth=kw.pop("mpi_depth"), **kw)
+    if model_mod is dmpigo:
+        return dmpigo.make_config(xyz_min=xyz_min, xyz_max=xyz_max,
+                                  num_voxels=num_voxels,
+                                  mpi_depth=kw.pop("mpi_depth"), **kw)
+    kw.pop("mpi_depth", None)
+    return dvgo.make_config(
+        xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
+        num_voxels_base=kw.pop("num_voxels_base"),
+        alpha_init=kw.pop("alpha_init"), **kw)
 
 
 def train(args, cfg, data_dict, writer=None, device=None):
-    """Fit a scene (run.py:636-685): the fine stage of a forward-facing
-    scene on ``device`` (default ``cuda``). Returns (model_mod, model_cfg,
-    params, buffers)."""
-    _select_model_mod(cfg)
-    if cfg.coarse_train.N_iters > 0:
-        raise _later("the coarse stage", "2 (the bounded run.py path)")
-    os.makedirs(os.path.join(cfg.basedir, cfg.expname), exist_ok=True)
+    """Fit a scene (run.py:636-685) on ``device`` (default ``cuda``): the
+    box of the training cameras' frustums; with ``coarse_train.N_iters``
+    the coarse stage, then the box tightened to the coarse geometry; then
+    the fine stage (on the coarse mask, for a bounded scene). Returns
+    (model_mod, model_cfg, params, buffers) of the fine stage."""
+    model_mod = _select_model_mod(cfg)
+    stages = [cfg.fine_train] + ([cfg.coarse_train]
+                                 if cfg.coarse_train.N_iters > 0 else [])
+    if any(c.ray_sampler == "patch_box" for c in stages):
+        raise _later("the patch_box sampler (the slab-sweep training "
+                     "forward)", "2b (patch_box)")
+    rundir = os.path.join(cfg.basedir, cfg.expname)
+    os.makedirs(rundir, exist_ok=True)
     xyz_min, xyz_max = compute_bbox_by_cam_frustrm(
         cfg, data_dict["HW"], data_dict["Ks"], data_dict["poses"],
         data_dict["i_train"], data_dict["near"], data_dict["far"],
         near_clip=data_dict.get("near_clip"), device=device)
+    coarse_ckpt_path = None
+    if cfg.coarse_train.N_iters > 0:
+        scene_rep_reconstruction(
+            args, cfg, cfg.coarse_model_and_render, cfg.coarse_train,
+            xyz_min, xyz_max, data_dict, stage="coarse", writer=writer,
+            device=device)
+        coarse_ckpt_path = os.path.join(rundir, "coarse_last.npz")
+        xyz_min, xyz_max = compute_bbox_by_coarse_geo(
+            model_mod, coarse_ckpt_path,
+            cfg.fine_model_and_render.bbox_thres, device=device)
     return scene_rep_reconstruction(
         args, cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min,
-        xyz_max, data_dict, stage="fine", writer=writer, device=device)
+        xyz_max, data_dict, stage="fine", coarse_ckpt_path=coarse_ckpt_path,
+        writer=writer, device=device)

@@ -105,7 +105,7 @@ def test_llff_loader_matches_jax(tmp_path, ndc):
     assert list(t["i_test"]) == [0, 2, 4] and list(t["i_train"]) == [1, 3]
 
 
-@pytest.mark.parametrize("kind", ["blender", "nsvf", "co3d", "nerfpp"])
+@pytest.mark.parametrize("kind", ["nsvf", "co3d", "nerfpp"])
 def test_other_loaders_name_their_roadmap_item(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         tload_data(types.SimpleNamespace(dataset_type=kind))

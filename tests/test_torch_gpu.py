@@ -199,6 +199,36 @@ def test_box_kernel_every_axis_and_sign(cuda, angle):
     _check_box(cuda, cfg, params, buffers, 16, 24, angle, True)
 
 
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_box_kernel_coarse_model_matches_plain(cuda, use_bf16):
+    """The coarse stage's model (no rgbnet: the sigmoid of a 3-channel k0;
+    the near-camera voxels masked out) rendered by ``render_viewpoints``
+    takes the box kernel, one launch a frame, and agrees with the plain
+    version."""
+    from fourk_nerf_torch.train import trainer
+    cfg, params, buffers = _box_scene(cuda, rgbnet_dim=0,
+                                      rgbnet_direct=False, width=64)
+    params = dvgo.maskout_near_cam_vox(cfg, params, [[0.0, 0.0, 0.9]], 0.5)
+    K, c2w = _look_at(20, 28, (0.4, 0.3))
+    n0 = cuda_box.sweep_box.launches
+    res = trainer.render_viewpoints(
+        dvgo, cfg, params, buffers, np.stack([c2w, c2w]),
+        np.array([[20, 28]] * 2), np.stack([K, K]),
+        data=trainer.DataFlags(), render_kwargs=dict(
+            stepsize=0.5, near=0.2, far=1e9, bg=0.7),
+        gt_imgs=None if use_bf16 else [np.zeros((20, 28, 3))] * 2,
+        verbose=False, device=cuda)
+    assert res["path"] == "box" and cuda_box.sweep_box.launches == n0 + 2
+    ref = box_sweep.render_frame_box(cfg, params, buffers, 20, 28, K, c2w,
+                                     stepsize=0.5, near=0.2, bg=0.7,
+                                     use_bf16=use_bf16, device=cuda)
+    torch.cuda.synchronize()
+    assert float((ref["rgb_marched"] - 0.7).abs().max()) > 0.05
+    err = (res["rgbs"][0] - ref["rgb_marched"]).abs()
+    assert float((err > 2e-4).float().mean()) < 0.02
+    assert float(err.max()) < 0.05
+
+
 def test_box_kernel_frame_smaller_than_a_block(cuda):
     """5x7 rays: one partly filled thread block."""
     cfg, params, buffers = _box_scene(cuda, rgbnet_dim=6, rgbnet_direct=True,

@@ -224,8 +224,7 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
     assert tst.find_reload_path(args, rundir, "fine") is None
 
 
-@pytest.mark.parametrize("flag,item", [("--multihost", "item 6"),
-                                       ("--ftdvcoa_path=x.npz", "item 2")])
+@pytest.mark.parametrize("flag,item", [("--multihost", "item 6")])
 def test_run_sr_unported_flags_raise(tmp_path, flag, item):
     from fourk_nerf_torch import config as tconfig, run_sr
     root = os.path.join(os.path.dirname(__file__), "..")

@@ -266,12 +266,14 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(data=dict(ndc=False)),
     dict(data=dict(unbounded_inward=True, ndc=False)),
     dict(fine_model_and_render=dict(mode_type="adain_vq")),
-    dict(coarse_train=dict(N_iters=5)),
-    dict(fine_train=dict(ray_sampler="in_maskcache")),
-    dict(fine_train=dict(ray_sampler="patch_mimg")),
+    dict(fine_train=dict(ray_sampler="patch_box")),
+    # a bounded run: the raise comes before the coarse stage trains
+    dict(data=dict(ndc=False), coarse_train=dict(N_iters=5),
+         fine_train=dict(ray_sampler="patch_box")),
+    dict(data=dict(ndc=False),
+         coarse_train=dict(N_iters=5, ray_sampler="patch_box")),
 ])
 def test_unported_paths_raise_up_front(tmp_path, change):
     _, t = _cfgs(tmp_path)
@@ -280,6 +282,8 @@ def test_unported_paths_raise_up_front(tmp_path, change):
             t[section][k] = v
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         tt.train(_args(), t, tiny_scene.scene(), device="cpu")
+    rundir = tmp_path / "torch" / "tiny"
+    assert not rundir.exists() or not any(rundir.glob("coarse_*"))
 
 
 def test_cli_trains_and_renders_the_test_views(tmp_path):
