@@ -123,7 +123,30 @@ Phases (any failure raises and the script exits non-zero):
      800x800 frame through ``serve_joint`` (the box kernel, 15 dense-block
      launches, the decode's kernel chain vs its plain chain); one
      ``{"bounded": ...}`` JSON line;
- 17. one JSON line with the seven kernels' summary, then the result line.
+ 17. the unbounded-inward path at full width: phase 8's scene (160^3,
+     rgbnet 3x128) rendered on black through the box kernel from 24
+     poses around the Blender sphere at 800x800, plus each pixel's
+     background share times an environment colour of its direction
+     (``tiny_scene.environment``: the far exterior the contracted shell
+     learns), as the NeRF++ loader's ``data_dict`` (20 train, 2 val, 2
+     test, interleaved; ``near`` 0, ``near_clip`` and ``far`` from the
+     cameras' spread); ``configs/syn/syn_default.py`` with
+     ``tiny_scene.UNBOUNDED_OVERRIDES`` at syn_default's own widths
+     (DirectContractedVoxGO, 160^3 voxels (a 159^3 grid, 532 samples a
+     ray), rgbnet 3x128 on 12 features, N_rand 8192, step 0.5, the
+     near-clip and distortion losses) cut to phase 16's 100 steps, the
+     grid doubling at 20, 40, 60, 80 (``UNBOUNDED_CUT``), an ``i_val``
+     render through the chunked forward; checks: the loss falls, the
+     final grid and sample count; then ``run --render_only
+     --render_test`` (the held-out PSNR above that of the constant frame
+     of the training views' mean colour);
+     a 30-step run of the tiny unbounded CPU-test scene gives the same
+     losses on the card and on the CPU; timings: the step at 159^3 by
+     parts (forward + backward, MaskedAdam) beside their bounds (the
+     larger of bytes and FP32 operations), the spacing filter's loop
+     alone on the host clock, a profiled step, peak memory; one
+     ``{"unbounded": ...}`` JSON line;
+ 18. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -204,6 +227,18 @@ BOUNDED_OVERRIDES = {
 BOUNDED_JOINT_OVERRIDES = {
     "fine_train": {"allow_random_vgg": True},
     "args": {"i_print": 10, "i_val": 40, "i_weights": 30},
+}
+
+
+UNBOUNDED_HW = 800         # phase 17: the frame
+UNBOUNDED_VIEWS = 24       # phase 17: 20 train, 2 val, 2 test, interleaved
+#: phase 17: set over configs/syn/syn_default.py after
+#: tiny_scene.UNBOUNDED_OVERRIDES (the run directory goes under build/ and
+#: is deleted at the phase's end): phase 16's cut, 100 steps with the grid
+#: doubling every 20
+UNBOUNDED_CUT = {
+    "fine_train": {"N_iters": 100, "pg_scale": [20, 40, 60, 80]},
+    "args": {"i_print": 10, "i_val": 100, "i_weights": 0},
 }
 
 
@@ -2652,6 +2687,299 @@ def run_bounded(dev):
     return rec, launches
 
 
+def unbounded_views(dev):
+    """The scene of phase 17: phase 8's bounded scene (``box_synthetic``)
+    rendered on black through ``render_viewpoints`` (the box kernel, bf16
+    path) from ``UNBOUNDED_VIEWS`` poses 15 degrees apart around the
+    Blender sphere, plus each pixel's background share times
+    ``tiny_scene.environment`` of its direction, as the NeRF++ loader's
+    ``data_dict``: held-out views interleaved
+    (``tiny_scene.interleaved_split``), ``near`` 0, ``near_clip`` and
+    ``far`` from the training cameras' spread."""
+    import torch
+    from fourk_nerf_torch.data import inward_nearfar_heuristic
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import rays as ray_ops
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import trainer
+    hw, n = UNBOUNDED_HW, UNBOUNDED_VIEWS
+    cfg, params, buffers = box_synthetic(dev, G=BOUNDED_TEACHER_G)
+    f = tiny_scene.blender_focal(hw)
+    K = np.array([[f, 0, 0.5 * hw], [0, f, 0.5 * hw], [0, 0, 1]])
+    poses = tiny_scene.bounded_poses(n)
+    res = trainer.render_viewpoints(
+        dvgo, cfg, params, buffers, poses, np.array([[hw, hw]] * n),
+        np.stack([K] * n), data=trainer.DataFlags(),
+        render_kwargs={**BOX_RENDER, "bg": 0.0}, verbose=False, device=dev)
+    images = np.empty((n, hw, hw, 3), np.float32)
+    for v in range(n):
+        _, _, vd = ray_ops.get_rays_of_a_view(
+            hw, hw, K, poses[v], ndc=False, inverse_y=False, flip_x=False,
+            flip_y=False, device=dev)
+        env = torch.as_tensor(tiny_scene.environment(vd.cpu().numpy()),
+                              device=dev)
+        images[v] = (res["rgbs"][v].float() + res["bgmaps"][v].float()
+                     [..., None] * env).clamp(0, 1).cpu().numpy()
+    del res
+    i_train, i_val, i_test = tiny_scene.interleaved_split(n, 2, 2)
+    near_clip, far = inward_nearfar_heuristic(poses[i_train, :3, 3],
+                                              ratio=0.02)
+    return dict(hwf=[hw, hw, f], HW=np.array([[hw, hw]] * n),
+                Ks=np.stack([K] * n), near=0, far=far, near_clip=near_clip,
+                i_train=i_train, i_val=i_val, i_test=i_test, poses=poses,
+                render_poses=poses[i_test], images=images,
+                irregular_shape=False)
+
+
+def unbounded_step_parts(dev, cfg_train, mcfg, params, buffers, batch, rk,
+                         near_thres):
+    """A DirectContractedVoxGO training step at full width split into the
+    forward + backward and MaskedAdam, each by CUDA events (median of 5),
+    and the spacing filter's loop alone (sampling and keep mask) on the
+    host clock (median of 5, synchronised), each beside its bound, the
+    larger of its bytes and its FP32 operations. Bytes: the voxels of
+    this batch's valid samples (kept, in the mask) read (8 corners,
+    density and k0) forward and scattered backward, the dense gradients
+    written; Adam reading p, g, m, v and writing p, m, v; the filter
+    reading the rays and writing the ``[N, K]`` mask. Operations: the
+    rgbnet on the valid samples, forward and backward (6 a multiply-add);
+    the filter's few operations a sample are left out (bytes bound it)."""
+    import torch
+    from fourk_nerf_torch.models import dcvgo
+    from fourk_nerf_torch.ops import grid_sample
+    from fourk_nerf_torch.train import optim, trainer
+    lrs = {k: optim.group_lr(v, 10, cfg_train.lrate_decay) for k, v in
+           optim.build_group_lrs(cfg_train, params).items()}
+    skip = frozenset(cfg_train.skip_zero_grad_fields)
+    st = trainer.TrainStep(dcvgo, mcfg, cfg_train, render_kwargs=rk,
+                           skip_zero_grad=skip, near_thres=near_thres)
+    opt = optim.init_state(params)
+
+    def step():
+        st(params, buffers, opt, batch, lrs, None, None, apply_tv=False,
+           tv_dense=False)
+
+    full = event_ms(step)
+    _, _, grads = st.loss_and_grads(params, buffers, batch, lrs.keys())
+    split = {"fwd_bwd": event_ms(lambda: st.loss_and_grads(
+                 params, buffers, batch, lrs.keys())),
+             "adam": event_ms(lambda: optim.apply_updates(
+                 params, grads, opt, lrs, skip_zero_grad=skip))}
+    del grads
+    stepsize = rk["stepsize"]
+
+    def keep():
+        pts, inner, _ = dcvgo.sample_ray(mcfg, batch[0], batch[1],
+                                         stepsize=stepsize)
+        return pts, dcvgo.keep_mask(mcfg, pts, inner, stepsize)
+
+    keep()
+    sync()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        keep()
+        sync()
+        host.append((time.perf_counter() - t0) * 1e3)
+    keep_ms = statistics.median(host)
+    pts, kept = keep()
+    mn, mx = (torch.tensor(v, device=pts.device) for v in (mcfg.xyz_min,
+                                                          mcfg.xyz_max))
+    n_valid = int((kept & grid_sample.nearest_mask_lookup(
+        buffers["mask_cache"], pts, mn, mx)).sum())
+    n_rays, K = (int(v) for v in kept.shape)
+    del pts, kept
+    param_bytes = tree_bytes(params)
+    bound_bytes = {"fwd_bwd": 2 * n_valid * 8 * (1 + mcfg.k0_dim) * 4
+                   + param_bytes, "adam": 7 * param_bytes,
+                   "keep": n_rays * (6 * 4 + K)}
+    rgbnet_macs = sum(w.shape[0] * w.shape[1] for k, w in
+                      params.get("rgbnet", {}).items() if k.startswith("w"))
+    bound_flops = {"fwd_bwd": 6 * rgbnet_macs * n_valid, "adam": 0,
+                   "keep": 0}
+    bound_by = {k: "bytes" if bound_bytes[k] / HBM_BYTES_PER_S
+                >= bound_flops[k] / FP32_FLOPS else "operations"
+                for k in bound_bytes}
+    bound = {k: max(bound_bytes[k] / HBM_BYTES_PER_S,
+                    bound_flops[k] / FP32_FLOPS) * 1e3 for k in bound_bytes}
+    bound["step"] = bound["fwd_bwd"] + bound["adam"]
+    return dict(step_ms=full, split_ms=split, keep_host_ms=keep_ms,
+                keep_share_of_step=keep_ms / full, split_bound_ms=bound,
+                split_bound_bytes=bound_bytes, split_bound_flops=bound_flops,
+                split_bound_by=bound_by, valid_samples=n_valid,
+                samples=n_rays * K, rays=n_rays, samples_per_ray=K,
+                params=param_bytes // 4), step
+
+
+def run_unbounded(dev):
+    """Phase 17 (see the module docstring). Returns the ``unbounded``
+    record and the launch counts of its path."""
+    import shutil
+    import types
+
+    import torch
+    from fourk_nerf_torch import config as config_mod, run as run_mod
+    from fourk_nerf_torch.models import dcvgo
+    from fourk_nerf_torch.ops import cuda_box
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import checkpoints, trainer
+
+    t_phase = time.perf_counter()
+    basedir = os.path.join(HERE, "build", "phase17_unbounded")
+    shutil.rmtree(basedir, ignore_errors=True)
+    cfg_path = os.path.join("fourk_nerf_torch", "configs", "syn",
+                            "syn_default.py")
+    rec: dict = {"config": cfg_path,
+                 "overrides": tiny_scene.UNBOUNDED_OVERRIDES,
+                 "cut": UNBOUNDED_CUT}
+    launches: dict = {}
+
+    def load_cfg(expname, *overs):
+        c = config_mod.load_config(os.path.join(HERE, cfg_path))
+        for over in (tiny_scene.UNBOUNDED_OVERRIDES,) + overs:
+            tiny_scene.apply_overrides(c, basedir, expname, over)
+        return c
+
+    # --- the scene ------------------------------------------------------------
+    cuda_box.sweep_box.launches = 0
+    data = unbounded_views(dev)
+    sync()
+    launches["teacher"] = cuda_box.sweep_box.launches
+    log(f"  teacher: {UNBOUNDED_VIEWS} views of {UNBOUNDED_HW}x{UNBOUNDED_HW}"
+        f" of phase 8's scene ({BOUNDED_TEACHER_G}^3) on black through the "
+        f"box kernel ({launches['teacher']} launches) before the environment"
+        f"; train {data['i_train'].tolist()}, val {data['i_val'].tolist()}, "
+        f"test {data['i_test'].tolist()}; near_clip {data['near_clip']:.4f},"
+        f" far {data['far']:.4f}")
+    if launches["teacher"] != UNBOUNDED_VIEWS:
+        raise AssertionError(f"teacher views: {launches['teacher']} box "
+                             "launches")
+
+    # --- 1. the pretrain ------------------------------------------------------
+    cfg = load_cfg("unbounded", {"fine_train": UNBOUNDED_CUT["fine_train"]})
+    args = types.SimpleNamespace(seed=777, no_reload=True,
+                                 no_reload_optimizer=False, ft_path="",
+                                 **UNBOUNDED_CUT["args"])
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_box.sweep_box.launches = 0
+    t0 = time.perf_counter()
+    model_mod, mcfg, params, buffers = trainer.train(args, cfg, data,
+                                                     writer=writer,
+                                                     device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["train"] = cuda_box.sweep_box.launches
+    losses = writer.values("train/loss")
+    K = mcfg.n_samples(0.5)
+    rec.update(world_size=list(mcfg.world_size), samples_per_ray=K,
+               scene_center=list(mcfg.scene_center),
+               scene_radius=list(mcfg.scene_radius),
+               near_clip=float(data["near_clip"]), far=float(data["far"]),
+               train_s=train_s, losses=losses,
+               train_psnr=writer.values("train/psnr"),
+               val_psnr=writer.values("val/psnr"),
+               max_memory_allocated_bytes=peak)
+    log(f"  {cfg.fine_train.N_iters} steps in {train_s:.1f} s (host clock, "
+        f"the i_val render and the save included): grid {mcfg.world_size} "
+        f"over the contracted cube, {K} samples a ray, foreground cube "
+        f"centre {np.round(mcfg.scene_center, 3).tolist()} radius "
+        f"{mcfg.scene_radius[0]:.3f}; loss at each print "
+        f"{['%.5g' % x for x in losses]}; val psnr {rec['val_psnr']}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    fm = cfg.fine_model_and_render
+    want = dcvgo.make_config(xyz_min=[-1] * 3, xyz_max=[1] * 3,
+                             num_voxels=fm.num_voxels,
+                             num_voxels_base=fm.num_voxels_base,
+                             alpha_init=fm.alpha_init)
+    if model_mod is not dcvgo or mcfg.world_size != want.world_size:
+        raise AssertionError(f"the run trained {model_mod.__name__} on "
+                             f"{mcfg.world_size}, not {want.world_size}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and launches["train"] == 0 and len(rec["val_psnr"]) == 1):
+        raise AssertionError(f"losses {losses}, val {rec['val_psnr']}, box "
+                             f"launches {launches['train']}")
+    for k, v in checkpoints.tree_to_flat_dict(params).items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite parameter {k}")
+
+    # --- the step at full width --------------------------------------------------
+    rk = {"near": 0.0, "far": float(data["far"]), "bg": 1.0,
+          "rand_bkgd": False, "stepsize": 0.5}
+    ft = cfg.fine_train
+    flat, _ = trainer.gather_training_rays(cfg, ft, data, dev)
+    sample = trainer.make_batch_sampler("flatten", flat, ft.N_rand, 777)
+    batch = trainer.gather_batch(flat, *sample(5))
+    step_rec, step = unbounded_step_parts(
+        dev, ft, mcfg, params, buffers, batch, rk,
+        float(data["near_clip"]) / mcfg.scene_radius[0])
+    step_rec["profile"] = profile_call(step, "unbounded step", top=10)
+    del flat, batch, step
+    rec["step"] = step_rec
+    r = step_rec
+    log(f"  step at {r['rays']} rays x {r['samples_per_ray']} samples "
+        f"({r['valid_samples']} valid), {r['params']} parameters: "
+        f"{r['step_ms']:.2f} ms (CUDA events, median of 5; bound "
+        f"{r['split_bound_ms']['step']:.3g} ms); " + ", ".join(
+            f"{k} {v:.4g} ms (bound {r['split_bound_ms'][k]:.4g}, by "
+            f"{r['split_bound_by'][k]})" for k, v in r["split_ms"].items())
+        + f"; the spacing filter alone {r['keep_host_ms']:.2f} ms (host "
+        f"clock, {100 * r['keep_share_of_step']:.1f}% of the step; bound "
+        f"{r['split_bound_ms']['keep']:.3g} ms)")
+    del params, buffers
+    torch.cuda.empty_cache()
+
+    # --- 2. --render_only --render_test -----------------------------------------
+    argv = ["--config", os.path.join(HERE, cfg_path), "--device", dev.type,
+            "--render_only", "--render_test"]
+    cuda_box.sweep_box.launches = 0
+    res = run_mod.run(run_mod.config_parser().parse_args(argv),
+                      load_cfg("unbounded"), data)["test"]
+    sync()
+    launches["render_only"] = cuda_box.sweep_box.launches
+    # the constant frame: the training views' mean colour
+    const = np.mean([data["images"][i].mean((0, 1))
+                     for i in data["i_train"]], 0)
+    flat_psnr = [float(-10 * np.log10(np.mean((data["images"][i] - const)
+                                               ** 2)))
+                 for i in data["i_test"]]
+    rec.update(test_psnr=res["psnrs"], test_path=res["path"],
+               test_frame_s=res["frame_times"], constant_frame_psnr=flat_psnr)
+    log(f"  --render_only --render_test: held-out psnr {res['psnrs']} (the "
+        f"constant frame {flat_psnr}), the {res['path']} path, "
+        f"{[round(t, 3) for t in res['frame_times']]} s a frame (host clock)")
+    if res["path"] != "chunked" or launches["render_only"]:
+        raise AssertionError("the held-out views left the chunked forward")
+    if not np.mean(res["psnrs"]) > np.mean(flat_psnr):
+        raise AssertionError(f"held-out psnr {res['psnrs']} vs the "
+                             f"constant frame {flat_psnr}")
+    del res
+
+    # --- the tiny unbounded CPU-test scene on the card and on the CPU ----------
+    tiny = {}
+    for name in ("cuda", "cpu"):
+        tcfg = load_cfg(f"tiny_{name}", tiny_scene.UNBOUNDED_TINY)
+        w = Recorder()
+        targs = types.SimpleNamespace(seed=0, no_reload=True,
+                                      no_reload_optimizer=False, ft_path="",
+                                      i_print=1, i_val=0, i_weights=0)
+        trainer.train(targs, tcfg, tiny_scene.unbounded_scene(), writer=w,
+                      device=torch.device(name))
+        tiny[name] = np.array(w.values("train/loss"))
+    rel = float(np.max(np.abs(tiny["cuda"] - tiny["cpu"]) / tiny["cpu"]))
+    rec["tiny_loss_max_rel_diff"] = rel
+    log(f"  tiny unbounded scene, {len(tiny['cpu'])} steps: per-step loss "
+        f"cuda vs cpu max rel {rel:.3e} (limit {TINY_TOL:.0e})")
+    if len(tiny["cpu"]) != 30 or not rel <= TINY_TOL:
+        raise AssertionError("the tiny unbounded run differs between cuda "
+                             "and cpu")
+    shutil.rmtree(basedir)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {rec['phase_s']:.1f} s")
+    return rec, launches
+
+
 def run_probes(dev):
     """Phase 12: both probe suites as their users run them, counted."""
     from fourk_nerf_torch.tools import probe_floor, probe_ops
@@ -2760,6 +3088,10 @@ def main() -> int:
         "with --ftdvcoa_path, then its served frame")
     bounded, bounded_launches = run_bounded(dev)
     torch.cuda.empty_cache()
+    log("[17] the unbounded-inward path at full width: syn_default as "
+        "DirectContractedVoxGO, --render_only, the tiny run on both devices")
+    unbounded, unbounded_launches = run_unbounded(dev)
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "sweep", "route": "cuda",
@@ -2798,7 +3130,8 @@ def main() -> int:
          "registers": fly["box_registers"], "samples": fly["box_samples"],
          "launches_bounded": {k: bounded_launches[k] for k in (
              "teacher", "i_val", "render_only", "joint_i_val")}
-         | {"serve": bounded_launches["serve"]["box"]}},
+         | {"serve": bounded_launches["serve"]["box"]},
+         "launches_unbounded": unbounded_launches},
         {"name": "rrdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rrdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:428",
@@ -2846,6 +3179,7 @@ def main() -> int:
     log(json.dumps({"joint": joint}))
     log(json.dumps({"joint_gan": joint_gan}))
     log(json.dumps({"bounded": bounded}))
+    log(json.dumps({"unbounded": unbounded}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,24 +5,24 @@ near_clip, i_train / i_val / i_test, poses, render_poses, images, depths,
 irregular_shape, srgt (high-resolution SR ground truth), w2c. Numpy only;
 the trainer moves what it needs to the device.
 
-The port reads LLFF forward-facing scenes (``data/llff.py``) and Blender
-synthetic scenes (``data/blender.py``). The other loaders of the JAX
-package come with the slices whose models use them.
+The loaders: LLFF forward-facing scenes (``data/llff.py``), Blender
+synthetic scenes (``data/blender.py``), NSVF, BlendedMVS, Tanks and
+Temples, DeepVoxels, CO3D and the unbounded NeRF++ captures
+(``data/nerfpp.py``: ``near`` 0, ``near_clip`` and ``far`` from the
+cameras' spread, for DirectContractedVoxGO with ``unbounded_inward``).
+Each branch's near / far rule and RGBA or mask compositing are those of
+the JAX package's ``data/__init__.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-#: where each loader that is not ported yet stands in ROADMAP.md
-_LATER = {
-    "nsvf": "Queue A item 4 (the other loaders)",
-    "blendedmvs": "Queue A item 4 (the other loaders)",
-    "tankstemple": "Queue A item 4 (the other loaders)",
-    "deepvoxels": "Queue A item 4 (the other loaders)",
-    "co3d": "Queue A item 4 (the other loaders)",
-    "nerfpp": "Queue A item 4 (the other loaders)",
-}
+
+def _composite(rgba: np.ndarray, white_bkgd: bool) -> np.ndarray:
+    """RGB of an RGBA image on white or on black."""
+    rgb, a = rgba[..., :3], rgba[..., -1:]
+    return rgb * a + (1.0 - a) if white_bkgd else rgb * a
 
 
 def load_data(args) -> dict:
@@ -65,13 +65,64 @@ def load_data(args) -> dict:
         i_train, i_val, i_test = i_split
         near, far = 2.0, 6.0
         if images.shape[-1] == 4:
-            rgb, a = images[..., :3], images[..., -1:]
-            images = rgb * a + (1.0 - a) if args.white_bkgd else rgb * a
+            images = _composite(images, args.white_bkgd)
         srgt_pack = [images, 0]
-    elif args.dataset_type in _LATER:
-        raise NotImplementedError(
-            f"the {args.dataset_type} loader is not ported yet: ROADMAP.md "
-            f"{_LATER[args.dataset_type]}")
+    elif args.dataset_type == "nsvf":
+        from fourk_nerf_torch.data import nsvf
+
+        images, poses, render_poses, hwf, i_split = nsvf.load_nsvf_data(
+            args.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3])
+        if images.shape[-1] == 4:
+            images = _composite(images, args.white_bkgd)
+    elif args.dataset_type == "blendedmvs":
+        from fourk_nerf_torch.data import blendedmvs
+
+        images, poses, render_poses, hwf, K, i_split = \
+            blendedmvs.load_blendedmvs_data(args.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3])
+    elif args.dataset_type == "tankstemple":
+        from fourk_nerf_torch.data import tankstemple
+
+        images, poses, render_poses, hwf, K, i_split = \
+            tankstemple.load_tankstemple_data(
+                args.datadir,
+                movie_render_kwargs=dict(args.movie_render_kwargs))
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3], ratio=0)
+        if images.shape[-1] == 4:
+            images = _composite(images, args.white_bkgd)
+    elif args.dataset_type == "deepvoxels":
+        from fourk_nerf_torch.data import deepvoxels
+
+        images, poses, render_poses, hwf, i_split = deepvoxels.load_dv_data(
+            scene=args.get("scene", "greek"), basedir=args.datadir,
+            testskip=args.testskip)
+        i_train, i_val, i_test = i_split
+        hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+        near, far = hemi_r - 1, hemi_r + 1
+    elif args.dataset_type == "co3d":
+        from fourk_nerf_torch.data import co3d
+
+        images, masks, poses, render_poses, hwf, K, i_split = \
+            co3d.load_co3d_data(args)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3], ratio=0)
+        for i in range(len(images)):
+            m = masks[i][..., None]
+            images[i] = (images[i] * m + (1.0 - m) if args.white_bkgd
+                         else images[i] * m)
+    elif args.dataset_type == "nerfpp":
+        from fourk_nerf_torch.data import nerfpp
+
+        images, poses, render_poses, hwf, K, i_split = \
+            nerfpp.load_nerfpp_data(args.datadir)
+        i_train, i_val, i_test = i_split
+        near_clip, far = inward_nearfar_heuristic(poses[i_train, :3, 3],
+                                                  ratio=0.02)
+        near = 0
     else:
         raise NotImplementedError(f"Unknown dataset type {args.dataset_type}")
 

@@ -404,10 +404,13 @@ def voxel_count_views(cfg: Config, rays_o_views, rays_d_views, near,
     the diagonal bound of samples from its box entry, clamped at
     ``near``, with no far limit; a view touches a voxel where the
     trilinear weights of its samples sum above 1. The weights are
-    splatted by ``index_add_`` in chunks of ``chunk`` rays."""
+    splatted by ``index_add_`` in chunks of ``chunk`` rays. ``cfg`` may be
+    any family's with a box and cubic voxels (a DirectContractedVoxGO's:
+    its contracted cube, as the JAX package counts it); the sample count
+    is the diagonal bound of that grid."""
     dev = rays_o_views[0].device
     X, Y, Z = cfg.world_size
-    K = cfg.n_samples(stepsize)
+    K = int(np.linalg.norm(np.array(cfg.world_size) + 1) / stepsize) + 1
     xyz_min, xyz_max = _xyz_minmax(cfg, dev)
     span = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32,
                         device=dev)

@@ -7,7 +7,10 @@ after frozoul/4K-NeRF run.py):
 Trains a scene on the card (``--device cpu`` for the plain versions of the
 kernels): a Blender scene's DirectVoxGO coarse then fine
 (``configs/syn/syn_default.py``), a forward-facing scene's DirectMPIGO
-(``configs/llff/``), then renders what the flags ask for.
+(``configs/llff/``), an unbounded inward-facing scene's
+DirectContractedVoxGO (``data.unbounded_inward=True`` on a NeRF++ capture,
+``dataset_type='nerfpp'``, or a non-NDC LLFF one), then renders what the
+flags ask for.
 ``--export_coarse_only PATH`` writes the coarse stage's alpha volume;
 ``--render_only`` renders from the run's ``fine_last.npz``. :func:`main`
 is :func:`load_everything` then :func:`run`; a caller with a scene in

@@ -10,6 +10,12 @@ and y); :data:`OVERRIDES` and :func:`apply_overrides` cut a loaded config
 :func:`bounded_scene` is a Blender-shaped bounded scene (a density blob
 seen from a sphere of cameras, :func:`bounded_poses`) and
 :data:`BOUNDED_OVERRIDES` cuts ``configs/syn/syn_default.py`` to it.
+:func:`unbounded_scene` is a 360-degree inward-facing one (the same blob
+on black before an environment that depends on the ray direction,
+:func:`environment`, with the NeRF++ loader's near / far rule);
+:data:`UNBOUNDED_OVERRIDES` turns ``configs/syn/syn_default.py`` into an
+unbounded (DirectContractedVoxGO) config and :data:`UNBOUNDED_TINY` cuts
+it to the tiny scene.
 """
 
 from __future__ import annotations
@@ -154,11 +160,12 @@ def blender_focal(w: int) -> float:
     return float(0.5 * w / np.tan(0.5 * CAMERA_ANGLE_X))
 
 
-def bounded_poses(n: int) -> np.ndarray:
+def bounded_poses(n: int, step: float = 15.0) -> np.ndarray:
     """``[n, 4, 4]`` camera-to-world of the Blender scenes' sphere: radius
-    4, azimuth 15 degrees apart, elevation -30, -40 or -50 degrees."""
+    4, azimuth ``step`` degrees apart, elevation -30, -40 or -50
+    degrees."""
     from fourk_nerf_torch.data.blender import pose_spherical
-    return np.stack([pose_spherical(15.0 * i, -30.0 - 10.0 * (i % 3), 4.0)
+    return np.stack([pose_spherical(step * i, -30.0 - 10.0 * (i % 3), 4.0)
                      for i in range(n)]).astype(np.float32)
 
 
@@ -197,7 +204,8 @@ def bounded_scene(h: int = 16, w: int = 16, n_train: int = 6,
     from fourk_nerf_torch.models import dvgo
     from fourk_nerf_torch.ops import rays as ray_ops
     n = n_train + n_val + n_test
-    c2w = bounded_poses(n)
+    c2w = bounded_poses(n, 360.0 / n)
+    i_split = interleaved_split(n, n_val, n_test)
     f = blender_focal(w)
     K = np.array([[f, 0, 0.5 * w], [0, f, 0.5 * h], [0, 0, 1]])
     cfg, params, buffers = bounded_teacher()
@@ -217,3 +225,86 @@ def bounded_scene(h: int = 16, w: int = 16, n_train: int = 6,
                 i_train=i_split[0], i_val=i_split[1], i_test=i_split[2],
                 poses=c2w, render_poses=c2w.copy(), images=images,
                 irregular_shape=False, srgt=images, w2c=0)
+
+
+#: section -> key -> value, set over ``configs/syn/syn_default.py`` to make
+#: it an unbounded inward-facing config (DirectContractedVoxGO): no coarse
+#: stage, the ``flatten`` sampler, no per-voxel lr, the near-clip and
+#: distortion losses, no near-camera mask-out
+UNBOUNDED_OVERRIDES = {
+    "data": {"unbounded_inward": True, "unbounded_inner_r": 1.0},
+    "coarse_train": {"N_iters": 0},
+    "fine_train": {"ray_sampler": "flatten", "pervoxel_lr": False,
+                   "weight_nearclip": 0.01, "weight_distortion": 0.01},
+    "fine_model_and_render": {"maskout_near_cam_vox": False},
+}
+#: set after :data:`UNBOUNDED_OVERRIDES` for :func:`unbounded_scene`: 30
+#: steps of 256 rays on a 16^3 grid that doubles at step 15, a 16-wide
+#: rgbnet on 6 features
+UNBOUNDED_TINY = {
+    "fine_train": {"N_iters": 30, "N_rand": 256, "pg_scale": [15]},
+    "fine_model_and_render": {"num_voxels": 16 ** 3,
+                              "num_voxels_base": 16 ** 3, "rgbnet_dim": 6,
+                              "rgbnet_width": 16},
+}
+
+
+def environment(viewdirs):
+    """``[..., 3]`` colour of the far surroundings seen along the unit
+    directions ``viewdirs [..., 3]`` (numpy): smooth in the direction, in
+    [0.1, 0.9]."""
+    v = np.asarray(viewdirs, dtype=np.float32)
+    return (0.5 + 0.4 * np.sin(np.stack([2.0 * v[..., 0] + 1.0 * v[..., 2],
+                                         3.0 * v[..., 1] - 1.0,
+                                         2.5 * v[..., 2] + v[..., 0]],
+                                        -1))).astype(np.float32)
+
+
+def interleaved_split(n: int, n_val: int, n_test: int):
+    """[i_train, i_val, i_test] of ``n`` views around a circle, the held-out
+    ones spread evenly between training ones."""
+    k = n_val + n_test
+    held = (np.arange(k) * n) // k + n // (2 * k)
+    return [np.setdiff1d(np.arange(n), held), held[:n_val], held[n_val:]]
+
+
+def unbounded_scene(h: int = 16, w: int = 16, n_train: int = 6,
+                    n_val: int = 1, n_test: int = 2) -> dict:
+    """The ``data_dict`` of the NeRF++ loader for views of
+    :func:`bounded_teacher` from :func:`bounded_poses` spread around the
+    whole circle (held out: :func:`interleaved_split`), rendered on black
+    on
+    the CPU by ``dvgo.forward``, plus the background share of each pixel
+    times :func:`environment` of its direction; ``near`` 0 and
+    ``near_clip``, ``far`` from the spread of the training cameras
+    (``inward_nearfar_heuristic(..., ratio=0.02)``)."""
+    import torch
+
+    from fourk_nerf_torch.data import inward_nearfar_heuristic
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import rays as ray_ops
+    n = n_train + n_val + n_test
+    c2w = bounded_poses(n, 360.0 / n)
+    i_split = interleaved_split(n, n_val, n_test)
+    f = blender_focal(w)
+    K = np.array([[f, 0, 0.5 * w], [0, f, 0.5 * h], [0, 0, 1]])
+    cfg, params, buffers = bounded_teacher()
+    images = []
+    for v in range(n):
+        ro, rd, vd = (t.reshape(-1, 3) for t in ray_ops.get_rays_of_a_view(
+            h, w, K, c2w[v], ndc=False, inverse_y=False, flip_x=False,
+            flip_y=False, device="cpu"))
+        with torch.no_grad():
+            out = dvgo.forward(cfg, params, buffers, ro, rd, vd, stepsize=0.5,
+                               near=0.2, far=1e9, bg=0.0)
+        rgb = (out["rgb_marched"].numpy() + out["alphainv_last"].numpy()
+               [:, None] * environment(vd.numpy()))
+        images.append(np.clip(rgb, 0, 1).reshape(h, w, 3))
+    images = np.stack(images).astype(np.float32)
+    near_clip, far = inward_nearfar_heuristic(c2w[i_split[0], :3, 3],
+                                              ratio=0.02)
+    return dict(hwf=[h, w, f], HW=np.array([[h, w]] * n),
+                Ks=K[None].repeat(n, 0), near=0, far=far,
+                near_clip=near_clip, i_train=i_split[0], i_val=i_split[1],
+                i_test=i_split[2], poses=c2w, render_poses=c2w.copy(),
+                images=images, irregular_shape=False)

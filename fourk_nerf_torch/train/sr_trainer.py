@@ -691,7 +691,10 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     ``coarse_ckpt_path``. Returns (model_mod, model_cfg, params, buffers,
     sr_model)."""
     dev = resolve_device(device)
-    model_mod = trainer._select_model_mod(cfg)
+    # the joint trainer's encoder is DirectMPIGO for NDC scenes, else
+    # DirectVoxGO (an unbounded scene's too: no contraction), as in the
+    # JAX package and load_joint
+    model_mod = dmpigo if cfg.data.ndc else dvgo
     if abs(cfg_model.world_bound_scale - 1) > 1e-9:
         xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
         xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift

@@ -4,7 +4,9 @@ Training (the JAX package's ``train/trainer.py``, after frozoul/4K-NeRF
 run.py:335-685): :func:`train` fits a scene from its ``data_dict``: with
 a coarse stage, the coarse model, the box tightened to its geometry, then
 the fine stage on its mask (a bounded scene's DirectVoxGO); without, the
-fine stage alone (a forward-facing scene's NDC DirectMPIGO).
+fine stage alone (a forward-facing scene's NDC DirectMPIGO, or an
+unbounded inward-facing scene's DirectContractedVoxGO on the cube of its
+cameras' near-clip points, with the near-clip and distortion losses).
 :func:`scene_rep_reconstruction` is the loop of one stage: the
 near-camera mask-out, the per-voxel lr from the views' counts,
 progressive grid scaling with an optimizer reset, the act_shift decay,
@@ -24,10 +26,11 @@ frame goes through the family's kernel where the model fits it:
 ``cuda_sweep.render_frame_cuda`` for a plane-aligned NDC DirectMPIGO,
 ``cuda_box.render_frame_box_cuda`` for a dense DirectVoxGO with its mask at
 grid resolution. With ground truth (published metrics) the kernels run
-their float32 path, without it their bf16 path. Any other model takes the
-chunked ``forward`` of its module. Which path a model takes is decided from
-its configuration before the first frame; a kernel that fails raises, it is
-never replaced by another path.
+their float32 path, without it their bf16 path. Any other model (a
+DirectContractedVoxGO always) takes the chunked ``forward`` of its module.
+Which path a model takes is decided from its configuration before the
+first frame; a kernel that fails raises, it is never replaced by another
+path.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.models import dmpigo, dvgo
+from fourk_nerf_torch.models import dcvgo, dmpigo, dvgo
 from fourk_nerf_torch.ops import cuda_box, cuda_sweep, grid_sample, \
     rays as ray_ops, render
 from fourk_nerf_torch.train import checkpoints, losses, optim
@@ -98,9 +101,10 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
                       device=None) -> dict:
     """Render every pose and, with ``gt_imgs``, score the frames.
 
-    ``model_mod`` is the model's module (``models.dmpigo`` or
-    ``models.dvgo``); ``render_kwargs`` holds ``stepsize``, ``bg`` and, for
-    bounded scenes, ``near`` and ``far``. ``render_factor`` divides the
+    ``model_mod`` is the model's module (``models.dmpigo``,
+    ``models.dvgo`` or ``models.dcvgo``); ``render_kwargs`` holds
+    ``stepsize``, ``bg`` and, for bounded scenes, ``near`` and ``far``.
+    ``render_factor`` divides the
     resolution and the intrinsics for previews and skips the metrics;
     ``render_video_flipy`` / ``render_video_rot90`` flip or rotate the
     finished frames. ``eval_lpips_vgg`` / ``eval_lpips_alex`` score LPIPS
@@ -220,11 +224,14 @@ def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
                                 near_clip=None, device=None):
     """The scene box that holds every training camera's frustum between
     ``near`` and ``far`` (frozoul/4K-NeRF run.py:207-254), float64 on the
-    host."""
-    if cfg.data.get("unbounded_inward", False):
-        raise _later("the unbounded-inward box (DirectContractedVoxGO)",
-                     "5 (secondary models)")
+    host. An unbounded inward-facing scene gets its own rule
+    (:func:`compute_bbox_unbounded`) at ``near_clip`` (``near`` when
+    None)."""
     dev = resolve_device(device)
+    if cfg.data.get("unbounded_inward", False):
+        return compute_bbox_unbounded(
+            cfg, HW, Ks, poses, i_train,
+            near if near_clip is None else near_clip, dev)
     xyz_min = np.full(3, np.inf)
     xyz_max = -xyz_min
     for i in i_train:
@@ -238,6 +245,32 @@ def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
         xyz_min = np.minimum(xyz_min, pts.amin(0).cpu().numpy())
         xyz_max = np.maximum(xyz_max, pts.amax(0).cpu().numpy())
     return xyz_min, xyz_max
+
+
+def compute_bbox_unbounded(cfg, HW, Ks, poses, i_train, near_clip: float,
+                           device=None):
+    """The foreground cube of an unbounded inward-facing scene
+    (frozoul/4K-NeRF run.py:223-239): the box of every training ray's
+    point at ``near_clip`` (along the unnormalised direction), made a cube
+    about its centre with the half-side of its longest axis, times
+    ``data.unbounded_inner_r``; the contraction takes what lies outside.
+    Float64 on the host."""
+    dev = resolve_device(device)
+    xyz_min = np.full(3, np.inf)
+    xyz_max = -xyz_min
+    for i in i_train:
+        H, W = (int(v) for v in HW[i])
+        ro, rd, _ = ray_ops.get_rays_of_a_view(
+            H, W, Ks[i], poses[i], ndc=cfg.data.ndc,
+            inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+            flip_y=cfg.data.flip_y, device=dev)
+        pts = (ro + rd * float(near_clip)).reshape(-1, 3)
+        xyz_min = np.minimum(xyz_min, pts.amin(0).cpu().numpy())
+        xyz_max = np.maximum(xyz_max, pts.amax(0).cpu().numpy())
+    center = (xyz_min + xyz_max) * 0.5
+    radius = float((center - xyz_min).max()) * float(
+        cfg.data.get("unbounded_inner_r", 1.0))
+    return center - radius, center + radius
 
 
 @torch.no_grad()
@@ -487,13 +520,17 @@ def _unflatten(like, it):
 class TrainStep:
     """One encoder training step for a fixed model configuration (one
     progressive-scaling phase): the loss and its gradients by autograd,
-    the TV gradients added, MaskedAdam applied to the params in place."""
+    the TV gradients added, MaskedAdam applied to the params in place.
+    ``near_thres``: the near-clip loss's distance on the normalised
+    lattice (a DirectContractedVoxGO with a ``near_clip``), else None."""
 
     def __init__(self, model_mod, model_cfg, cfg_train, *,
-                 render_kwargs: dict, skip_zero_grad=frozenset()):
+                 render_kwargs: dict, skip_zero_grad=frozenset(),
+                 near_thres: float | None = None):
         self.model_mod, self.model_cfg = model_mod, model_cfg
         self.cfg_train = cfg_train
         self.skip_zero_grad = frozenset(skip_zero_grad)
+        self.near_thres = near_thres
         self.fwd_kw = dict(
             stepsize=render_kwargs["stepsize"], bg=render_kwargs["bg"],
             rand_bkgd=bool(render_kwargs.get("rand_bkgd", False)),
@@ -514,7 +551,8 @@ class TrainStep:
             self.model_cfg, {**params, **live}, buffers, rays_o, rays_d,
             viewdirs, bg_noise=bg_noise, **self.fwd_kw)
         loss, terms = losses.encoder_losses(out, target, self.cfg_train,
-                                            rays_o.shape[0])
+                                            rays_o.shape[0],
+                                            near_thres=self.near_thres)
         leaves = _flatten(live, [])
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
@@ -605,12 +643,13 @@ def coarse_mask_on_grid(model_cfg, coarse_ckpt_path: str, thres: float,
 
 def scale_grids(model_mod, model_cfg, params, buffers, num_voxels: int,
                 decay_after_scale: float):
-    """A progressive-scaling step of either family (run.py:465-476): the
+    """A progressive-scaling step of any family (run.py:465-476): the
     grids resampled to ``num_voxels``; DirectMPIGO keeps its depth and
     lowers its act_shift by ``decay_after_scale``. Returns (model_cfg,
     params, buffers)."""
-    if model_mod is dvgo:
-        return dvgo.scale_volume_grid(model_cfg, params, buffers, num_voxels)
+    if model_mod is not dmpigo:
+        return model_mod.scale_volume_grid(model_cfg, params, buffers,
+                                           num_voxels)
     model_cfg, params, buffers = dmpigo.scale_volume_grid(
         model_cfg, params, buffers, num_voxels, model_cfg.mpi_depth)
     return model_cfg, params, dmpigo.decay_act_shift(buffers,
@@ -621,17 +660,17 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                              xyz_max, data_dict, stage: str,
                              coarse_ckpt_path: str | None = None,
                              writer=None, device=None):
-    """Train one stage on ``device`` (default ``cuda``); a bounded scene's
-    fine stage starts from the mask of ``coarse_ckpt_path``. Returns
+    """Train one stage on ``device`` (default ``cuda``); a fine stage
+    that is not NDC starts from the mask of ``coarse_ckpt_path``. Returns
     (model_mod, model_cfg, params, buffers)."""
     dev = resolve_device(device)
     model_mod = _select_model_mod(cfg)
     if abs(cfg_model.world_bound_scale - 1) > 1e-9:
         xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
         xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift
-    if cfg_train.pervoxel_lr and model_mod is not dvgo:
-        raise ValueError("the per-voxel lr counts the views of a bounded "
-                         "scene's voxels (DirectVoxGO)")
+    if cfg_train.pervoxel_lr and model_mod is dmpigo:
+        raise ValueError("the per-voxel lr counts the views of a box's "
+                         "voxels (DirectVoxGO, DirectContractedVoxGO)")
     seed = int(getattr(args, "seed", 777))
     rundir = os.path.join(cfg.basedir, cfg.expname)
     last_ckpt_path = os.path.join(rundir, f"{stage}_last.npz")
@@ -648,7 +687,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         model_cfg = _make_cfg(model_mod, xyz_min, xyz_max, num_voxels,
                               model_kwargs)
         mask_kw = {}
-        if model_mod is dvgo and coarse_ckpt_path:
+        if not cfg.data.ndc and coarse_ckpt_path:
             mask_kw["init_mask"] = coarse_mask_on_grid(
                 model_cfg, coarse_ckpt_path, cfg_model.mask_cache_thres, dev)
         params, buffers = model_mod.init(
@@ -717,9 +756,14 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             print(f"scene_rep_reconstruction ({stage}): restored optimizer "
                   "state")
     del opt_state_l
+    # the near-clip loss's distance on the normalised lattice (run.py:528)
+    near_thres = None
+    if model_mod is dcvgo and data_dict.get("near_clip") is not None:
+        near_thres = (float(data_dict["near_clip"])
+                      / model_cfg.scene_radius[0])
     train_step = TrainStep(model_mod, model_cfg, cfg_train,
                            render_kwargs=render_kwargs,
-                           skip_zero_grad=skip_zero)
+                           skip_zero_grad=skip_zero, near_thres=near_thres)
 
     # the lr-decay clock restarts at each pg_scale boundary: take it from
     # the checkpoint, where it is kept
@@ -749,7 +793,8 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                 steps_since_reset = 0
                 train_step = TrainStep(model_mod, model_cfg, cfg_train,
                                        render_kwargs=render_kwargs,
-                                       skip_zero_grad=skip_zero)
+                                       skip_zero_grad=skip_zero,
+                                       near_thres=near_thres)
 
             kind, sel = sample_batch(global_step - 1)
             batch = gather_batch(flat, kind, sel, patch)
@@ -824,15 +869,17 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
 
 def _select_model_mod(cfg):
     """The model family of a config (run.py:286-313): DirectMPIGO for NDC
-    scenes, DirectVoxGO for bounded ones. The families whose training
-    forms are not ported raise."""
+    scenes, DirectContractedVoxGO for unbounded inward-facing ones
+    (``data.unbounded_inward``), DirectVoxGO for bounded ones. DirectQVGO
+    (``mode_type`` adain_vq), whose training forms are not ported,
+    raises."""
     if cfg.data.ndc:
         if cfg.fine_model_and_render.get("mode_type") == "adain_vq":
             raise _later("DirectQVGO (mode_type adain_vq) training",
                          "5 (secondary models)")
         return dmpigo
     if cfg.data.get("unbounded_inward", False):
-        raise _later("DirectContractedVoxGO training", "5 (secondary models)")
+        return dcvgo
     return dvgo
 
 
@@ -843,7 +890,7 @@ def _make_cfg(model_mod, xyz_min, xyz_max, num_voxels, model_kwargs):
                                   num_voxels=num_voxels,
                                   mpi_depth=kw.pop("mpi_depth"), **kw)
     kw.pop("mpi_depth", None)
-    return dvgo.make_config(
+    return model_mod.make_config(
         xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
         num_voxels_base=kw.pop("num_voxels_base"),
         alpha_init=kw.pop("alpha_init"), **kw)
@@ -851,16 +898,25 @@ def _make_cfg(model_mod, xyz_min, xyz_max, num_voxels, model_kwargs):
 
 def train(args, cfg, data_dict, writer=None, device=None):
     """Fit a scene (run.py:636-685) on ``device`` (default ``cuda``): the
-    box of the training cameras' frustums; with ``coarse_train.N_iters``
-    the coarse stage, then the box tightened to the coarse geometry; then
-    the fine stage (on the coarse mask, for a bounded scene). Returns
-    (model_mod, model_cfg, params, buffers) of the fine stage."""
+    box of the training cameras' frustums (an unbounded scene's cube of
+    near-clip points); with ``coarse_train.N_iters`` the coarse stage, then
+    the box tightened to the coarse geometry (read as a DirectVoxGO's, or
+    a DirectMPIGO's for NDC, whatever the family, as the JAX package
+    reads it); then the
+    fine stage (on the coarse mask, unless NDC). Returns (model_mod,
+    model_cfg, params, buffers) of the fine stage."""
     model_mod = _select_model_mod(cfg)
     stages = [cfg.fine_train] + ([cfg.coarse_train]
                                  if cfg.coarse_train.N_iters > 0 else [])
     if any(c.ray_sampler == "patch_box" for c in stages):
         raise _later("the patch_box sampler (the slab-sweep training "
                      "forward)", "2b (patch_box)")
+    if model_mod is dcvgo and any(c.ray_sampler == "in_maskcache"
+                                  for c in stages):
+        raise ValueError("the in_maskcache sampler keeps the rays that hit "
+                         "the occupancy mask, and DirectContractedVoxGO has "
+                         "no hit test (its rays all cross the contracted "
+                         "cube): use flatten or random")
     rundir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(rundir, exist_ok=True)
     xyz_min, xyz_max = compute_bbox_by_cam_frustrm(
@@ -875,7 +931,7 @@ def train(args, cfg, data_dict, writer=None, device=None):
             device=device)
         coarse_ckpt_path = os.path.join(rundir, "coarse_last.npz")
         xyz_min, xyz_max = compute_bbox_by_coarse_geo(
-            model_mod, coarse_ckpt_path,
+            dmpigo if cfg.data.ndc else dvgo, coarse_ckpt_path,
             cfg.fine_model_and_render.bbox_thres, device=device)
     return scene_rep_reconstruction(
         args, cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min,

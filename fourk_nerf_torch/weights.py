@@ -61,6 +61,14 @@ def dvgo_from_numpy(params, buffers, device=None):
     return to_torch(params, dev), to_torch(buffers, dev)
 
 
+def dcvgo_from_numpy(params, buffers, device=None):
+    """JAX-layout dcvgo ``params`` (``density``, ``k0``, optional
+    ``rgbnet``) and ``buffers`` (``mask_cache`` over the contracted cube)
+    -> tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return to_torch(params, dev), to_torch(buffers, dev)
+
+
 def _as_float(x) -> torch.Tensor:
     """An array or tensor as a float32 tensor on its own device."""
     if isinstance(x, torch.Tensor):

@@ -105,12 +105,6 @@ def test_llff_loader_matches_jax(tmp_path, ndc):
     assert list(t["i_test"]) == [0, 2, 4] and list(t["i_train"]) == [1, 3]
 
 
-@pytest.mark.parametrize("kind", ["nsvf", "co3d", "nerfpp"])
-def test_other_loaders_name_their_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        tload_data(types.SimpleNamespace(dataset_type=kind))
-
-
 def test_collector_matches_jax_and_keeps_device_sums():
     rng = np.random.default_rng(0)
     jc, tc = jstats.Collector(), tstats.Collector()

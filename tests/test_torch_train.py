@@ -266,7 +266,6 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(data=dict(unbounded_inward=True, ndc=False)),
     dict(fine_model_and_render=dict(mode_type="adain_vq")),
     dict(fine_train=dict(ray_sampler="patch_box")),
     # a bounded run: the raise comes before the coarse stage trains
