@@ -146,7 +146,32 @@ Phases (any failure raises and the script exits non-zero):
      larger of bytes and FP32 operations), the spacing filter's loop
      alone on the host clock, a profiled step, peak memory; one
      ``{"unbounded": ...}`` JSON line;
- 18. one JSON line with the seven kernels' summary, then the result line.
+ 18. the secondary models at full width: (a) DirectQVGO
+     (``mode_type`` adain_vq, 4096 codes) on phase 13's views, the fern
+     pretrain config at 384x384x256 from step 0 (``VQ_OVERRIDES``: 60
+     steps, no pg_scale, the one deviation), an ``i_val`` render, a
+     periodic and a final checkpoint; checks: the loss falls, the EMA
+     codebook learns, ``run --render_only`` renders the held-out views
+     from the final checkpoint bitwise as the trained model did (the
+     chunked forward, no sweep launch), a 10-step run of the tiny CPU-test
+     scene gives the same losses on the card and on the CPU, every VQ
+     index flip a near-tie; timings: the step by parts (forward +
+     backward, the distances and argmin alone, the EMA, TV, MaskedAdam)
+     beside their bounds, a profiled step; (b) TensoRF grids (ranks 16 /
+     48) in DirectMPIGO through phase 13's five grid sizes and in
+     DirectVoxGO (syn_default, 100 dense coarse and 20 fine steps on
+     phase 16's views); checks: the losses fall, every pg_scale step
+     resizes the factors, the ``i_val`` renders take the chunked forward,
+     the checkpoints round-trip; timings: each full-width step by parts
+     beside their bounds; (c) DirectBiVoxGO at 160^3 a field, an
+     8192-ray batch of phase 16's views forward and backward: finite, the
+     constant background weighted by the product of the two fields'
+     transmittances, timed beside its bound; (d) the StyleGAN-heritage ops
+     on the card against CPU copies of their inputs (the FIR ops and
+     ``bias_act`` on ``[4, 256, 128, 128]``, ``hash_encode`` at its
+     defaults on 2^20 points with equal indices, ``topp_masking`` on
+     ``[8192, 256]``); one ``{"secondary": ...}`` JSON line;
+ 19. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -155,6 +180,7 @@ package is not beside it.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -240,6 +266,43 @@ UNBOUNDED_CUT = {
     "fine_train": {"N_iters": 100, "pg_scale": [20, 40, 60, 80]},
     "args": {"i_print": 10, "i_val": 100, "i_weights": 0},
 }
+
+
+FERN_CFG = os.path.join("fourk_nerf_torch", "configs", "llff",
+                        "fern_lg_pretrain.py")
+SYN_CFG = os.path.join("fourk_nerf_torch", "configs", "syn", "syn_default.py")
+#: phase 18 (a): DirectQVGO over the fern pretrain config, phase 13's cut
+#: at full width from step 0: no pg_scale, the one deviation (below)
+VQ_OVERRIDES = {
+    "fine_model_and_render": {"mode_type": "adain_vq"},
+    "fine_train": {"N_iters": 60, "pg_scale": [], "tv_dense_before": 50},
+    "args": {"i_print": 10, "i_val": 60, "i_weights": 31},
+}
+VQ_DEVIATION = ("fine_train.pg_scale=[] (published [2000, 4000, 6000, "
+                "8000]): the JAX package's DirectQVGO has no "
+                "scale_volume_grid, so its loop fails at the first pg_scale "
+                "step, and the port refuses a pg_scale for it up front")
+VQ_TIE_REL = 1e-5          # phase 18 (a): a VQ index flip cuda vs cpu must
+                           # be a near-tie: the two distances this close
+#: phase 18 (b): TensoRF grids at the VM ranks of TensoRF's published
+#: configs/lego.txt (n_lamb_sigma 16, n_lamb_sh 48)
+TENSORF_GRIDS = {"density_type": "TensoRFGrid", "k0_type": "TensoRFGrid",
+                 "density_config": {"n_comp": 16},
+                 "k0_config": {"n_comp": 48}}
+#: phase 18 (b): syn_default with the fine grids TensoRF: phase 16's coarse
+#: cut (100 dense steps) and 20 fine steps through five grid sizes
+TENSORF_BOUNDED = {
+    "coarse_model_and_render": BOUNDED_OVERRIDES["coarse_model_and_render"],
+    "coarse_train": BOUNDED_OVERRIDES["coarse_train"],
+    "fine_model_and_render": TENSORF_GRIDS,
+    "fine_train": {"N_iters": 20, "pg_scale": [4, 8, 12, 16]},
+    "args": {"i_print": 5, "i_val": 20, "i_weights": 0},
+}
+DBVGO_G = 160              # phase 18 (c): voxels a side of each field
+DBVGO_RAYS = 8192          # phase 18 (c): rays a batch
+STYLEGAN_SHAPE = (4, 256, 128, 128)  # phase 18 (d): the FIR ops' input
+HASH_POINTS = 1 << 20      # phase 18 (d): hash_encode points
+TOPP_SHAPE = (8192, 256)   # phase 18 (d): topp_masking weights
 
 
 def log(*a):
@@ -2980,6 +3043,741 @@ def run_unbounded(dev):
     return rec, launches
 
 
+def bounds_of(bound_bytes: dict, bound_flops: dict) -> tuple:
+    """(bound ms, bound by) of each part: the larger of its bytes at the
+    card's memory rate and its operations at the FP32 rate."""
+    by = {k: "bytes" if bound_bytes[k] / HBM_BYTES_PER_S
+          >= bound_flops[k] / FP32_FLOPS else "operations"
+          for k in bound_bytes}
+    ms = {k: max(bound_bytes[k] / HBM_BYTES_PER_S,
+                 bound_flops[k] / FP32_FLOPS) * 1e3 for k in bound_bytes}
+    return ms, by
+
+
+def mlp_macs(mlp: dict) -> int:
+    """Multiply-adds a row of an ``{w0, b0, ...}`` MLP."""
+    return sum(w.shape[0] * w.shape[1] for k, w in mlp.items()
+               if k.startswith("w"))
+
+
+def load_over(cfg_path, basedir, expname, overrides):
+    """A published config with ``overrides`` (section -> key -> value; the
+    ``args`` section is skipped) set over it, its run under ``basedir``."""
+    from fourk_nerf_torch import config as config_mod
+    cfg = config_mod.load_config(os.path.join(HERE, cfg_path))
+    cfg.basedir, cfg.expname = basedir, expname
+    for section, kv in overrides.items():
+        if section != "args":
+            for k, v in kv.items():
+                cfg[section][k] = v
+    return cfg
+
+
+def run_args(overrides, seed=777):
+    import types
+    return types.SimpleNamespace(seed=seed, no_reload=True,
+                                 no_reload_optimizer=False, ft_path="",
+                                 **overrides["args"])
+
+
+def check_finite(tree, what):
+    import torch
+    from fourk_nerf_torch.train import checkpoints
+    for k, v in checkpoints.tree_to_flat_dict(tree).items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: non-finite {k}")
+
+
+def secondary_vq(dev, data, basedir, launches):
+    """Phase 18 (a): DirectQVGO (``mode_type`` adain_vq) on phase 13's
+    views at full width. Returns its record."""
+    import torch
+    from fourk_nerf_torch import run as run_mod
+    from fourk_nerf_torch.models import dvqgo
+    from fourk_nerf_torch.ops import cuda_sweep, vq
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import checkpoints, optim, trainer
+
+    cfg = load_over(FERN_CFG, basedir, "vq", VQ_OVERRIDES)
+    args = run_args(VQ_OVERRIDES)
+    rec: dict = {"config": FERN_CFG, "overrides": VQ_OVERRIDES,
+                 "deviations": [VQ_DEVIATION]}
+    log(f"  (a) deviation from the published config: {VQ_DEVIATION}")
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.sweep.launches = 0
+    t0 = time.perf_counter()
+    model_mod, mcfg, params, buffers = trainer.train(args, cfg, data,
+                                                     writer=writer,
+                                                     device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["vq_i_val"] = cuda_sweep.sweep.launches
+    losses = writer.values("train/loss")
+    state = buffers["vq_state"]
+    _, b0 = dvqgo.init(mcfg, generator=torch.Generator().manual_seed(777),
+                       device=dev)
+    moved = float((state["embed"] - b0["vq_state"]["embed"]).abs().max())
+    del b0
+    rec.update(world_size=list(mcfg.world_size), n_cluster=mcfg.n_cluster,
+               train_s=train_s, losses=losses,
+               val_psnr=writer.values("val/psnr"),
+               cluster_size_sum=float(state["cluster_size"].sum()),
+               codes_used=int((state["cluster_size"] > 1e-3).sum()),
+               embed_max_move=moved, max_memory_allocated_bytes=peak)
+    log(f"  (a) DirectQVGO: {cfg.fine_train.N_iters} steps in {train_s:.1f} "
+        f"s (host clock, the i_val render and saves included): world size "
+        f"{mcfg.world_size}, {mcfg.n_cluster} codes; loss at each print "
+        f"{['%.5g' % x for x in losses]}; val psnr {rec['val_psnr']}; "
+        f"cluster sizes sum {rec['cluster_size_sum']:.4g} over "
+        f"{rec['codes_used']} codes, the codebook moved by up to "
+        f"{moved:.4g}; sweep launches {launches['vq_i_val']}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    full = cfg.fine_model_and_render.num_voxels
+    if model_mod is not dvqgo or not int(np.prod(mcfg.world_size)) > 0.9 * full:
+        raise AssertionError(f"the run trained {model_mod.__name__} at "
+                             f"{mcfg.world_size}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and len(rec["val_psnr"]) == 1 and launches["vq_i_val"] == 0):
+        raise AssertionError(f"losses {losses}, val {rec['val_psnr']}, "
+                             f"sweep launches {launches['vq_i_val']}")
+    if not (rec["cluster_size_sum"] > 0 and moved > 0):
+        raise AssertionError("the EMA codebook did not learn")
+    check_finite(params, "DirectQVGO")
+    rundir = os.path.join(basedir, "vq")
+    if not os.path.isfile(os.path.join(
+            rundir, f"fine_{args.i_weights:06d}.npz")):
+        raise AssertionError("no periodic checkpoint")
+
+    # --- held-out views, then run --render_only from the final checkpoint ----
+    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "stepsize": 1.0}
+    res = trainer.render_viewpoints(
+        dvqgo, mcfg, params, buffers, data["poses"][data["i_test"]],
+        data["HW"][data["i_test"]], data["Ks"][data["i_test"]],
+        data=trainer.DataFlags(ndc=True), render_kwargs=rk,
+        gt_imgs=[data["images"][i] for i in data["i_test"]],
+        eval_ssim=False, device=dev)
+    argv = ["--config", FERN_CFG, "--device", dev.type, "--render_only",
+            "--render_test"]
+    cuda_sweep.sweep.launches = 0
+    res2 = run_mod.run(run_mod.config_parser().parse_args(argv), cfg,
+                       data)["test"]
+    sync()
+    launches["vq_render_only"] = cuda_sweep.sweep.launches
+    rec.update(test_psnr=res["psnrs"], test_path=res2["path"],
+               test_frame_s=res2["frame_times"])
+    log(f"  (a) held-out psnr {res['psnrs']}; --render_only from fine_last: "
+        f"{res2['psnrs']}, the {res2['path']} path, "
+        f"{[round(t, 3) for t in res2['frame_times']]} s a frame (host "
+        f"clock), sweep launches {launches['vq_render_only']}")
+    if res["path"] != "chunked" or res2["path"] != "chunked" \
+            or launches["vq_render_only"]:
+        raise AssertionError("the held-out views left the chunked forward")
+    if not all(torch.equal(a, b) for a, b in zip(res["rgbs"], res2["rgbs"])):
+        raise AssertionError("the final checkpoint does not render the "
+                             "held-out views as the trained model did")
+    del res, res2
+
+    # --- the full-width step by parts ------------------------------------------
+    ft = cfg.fine_train
+    rk_train = {**rk, "rand_bkgd": True}
+    flat, _ = trainer.gather_training_rays(cfg, ft, data, dev)
+    sample = trainer.make_batch_sampler("flatten", flat, ft.N_rand, 777)
+    bt = trainer.gather_batch(flat, *sample(3))
+    del flat
+    noise = trainer.bkgd_noise(777, 1, ft.N_rand, dev)
+    lrs = {k: optim.group_lr(v, 10, ft.lrate_decay) for k, v in
+           optim.build_group_lrs(ft, params).items()}
+    skip = frozenset(ft.skip_zero_grad_fields)
+    st = trainer.TrainStep(dvqgo, mcfg, ft, render_kwargs=rk_train,
+                           skip_zero_grad=skip)
+    opt = optim.init_state(params)
+    seen = {}
+    nearest = vq.nearest_code
+
+    def spy(rows, embed):
+        seen["rows"] = rows.detach()
+        return nearest(rows, embed)
+
+    vq.nearest_code = spy
+    try:
+        _, _, grads = st.loss_and_grads(params, buffers, bt, lrs.keys(),
+                                        noise)
+    finally:
+        vq.nearest_code = nearest
+    rows, embed = seen.pop("rows"), buffers["vq_state"]["embed"]
+    idx = vq.nearest_code(rows, embed)
+    split = {
+        "fwd_bwd": event_ms(lambda: st.loss_and_grads(
+            params, buffers, bt, lrs.keys(), noise)),
+        "vq_argmin": event_ms(lambda: vq.nearest_code(rows, embed)),
+        "ema": event_ms(lambda: vq.ema_update(buffers["vq_state"], rows,
+                                              idx)),
+        "tv": event_ms(lambda: st.add_tv(params, grads, ft.N_rand, True)),
+        "adam": event_ms(lambda: optim.apply_updates(
+            params, grads, opt, lrs, skip_zero_grad=skip)),
+    }
+    step_ms = event_ms(lambda: st(params, buffers, opt, bt, lrs, None, noise,
+                                  apply_tv=True, tv_dense=True))
+    P, dim = (int(v) for v in rows.shape)
+    n = mcfg.n_cluster
+    param_bytes = tree_bytes(params)
+    dens_bytes = tree_bytes({"d": params["density"]})
+    argmin_flops = 2 * P * n * dim + 3 * P * n
+    bound_bytes = {
+        # the density's 8 corners read and scattered, the dense gradient
+        # written; the rest of the params are small
+        "fwd_bwd": 2 * P * 8 * 4 + param_bytes,
+        "vq_argmin": P * dim * 4 + dim * n * 4 + P * 8,
+        "ema": P * (dim * 4 + 8) + 3 * dim * n * 4 + 2 * n * 4,
+        "tv": 3 * dens_bytes,
+        "adam": 7 * param_bytes,
+    }
+    bound_flops = {
+        # the rgbnet and the projection forward and backward (6 a
+        # multiply-add), and the codebook distances and their argmin
+        "fwd_bwd": 6 * P * (mlp_macs(params["rgbnet"])
+                            + mlp_macs(params["k0_vq"]["project"]))
+        + argmin_flops,
+        "vq_argmin": argmin_flops,
+        "ema": P * dim + 5 * dim * n,
+        "tv": 0, "adam": 0,
+    }
+    bound, bound_by = bounds_of(bound_bytes, bound_flops)
+    bound["step"] = sum(bound[k] for k in ("fwd_bwd", "ema", "tv", "adam"))
+    rec["step"] = dict(step_ms=step_ms, split_ms=split, split_bound_ms=bound,
+                       split_bound_bytes=bound_bytes,
+                       split_bound_flops=bound_flops, split_bound_by=bound_by,
+                       rows=P, code_dim=dim, params=param_bytes // 4)
+    log(f"  (a) step at {ft.N_rand} rays ({P} rows against {n} codes of "
+        f"{dim}): {step_ms:.2f} ms (CUDA events, median of 5; bound "
+        f"{bound['step']:.3g}); " + ", ".join(
+            f"{k} {v:.4g} ms (bound {bound[k]:.4g}, by {bound_by[k]})"
+            for k, v in split.items()))
+    rec["step"]["profile"] = profile_call(
+        lambda: st(params, buffers, opt, bt, lrs, None, noise, apply_tv=True,
+                   tv_dense=True), "DirectQVGO step", top=8)
+    del params, buffers, opt, grads, rows, idx, st, bt
+    torch.cuda.empty_cache()
+
+    rec.update(vq_tiny_runs(basedir))
+    return rec
+
+
+def vq_tiny_runs(basedir, devices=("cuda", "cpu")) -> dict:
+    """Phase 18 (a): the tiny CPU-test scene as DirectQVGO for 10 steps on
+    each of ``devices``: the per-step losses within ``TINY_TOL``, every VQ
+    index that differs between the two runs a near-tie (its two distances,
+    in float64 on the second run's rows, within ``VQ_TIE_REL``)."""
+    import torch
+    from fourk_nerf_torch.ops import vq
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import trainer
+
+    nearest = vq.nearest_code
+    tiny, calls = {}, {}
+    over = tiny_scene.OVERRIDES
+    tiny_vq = {**over,
+               "fine_train": {**over["fine_train"], "pg_scale": []},
+               "fine_model_and_render": {**over["fine_model_and_render"],
+                                         "mode_type": "adain_vq"}}
+    rec = {"tiny_overrides": tiny_vq}
+    for name in devices:
+        tcfg = load_over(FERN_CFG, basedir, f"tiny_vq_{name}", tiny_vq)
+        w, log_calls = Recorder(), []
+
+        def spy_all(rows, embed, log_calls=log_calls):
+            got = nearest(rows, embed)
+            log_calls.append((rows.detach().cpu(), embed.cpu(), got.cpu()))
+            return got
+
+        vq.nearest_code = spy_all
+        try:
+            trainer.train(run_args({"args": dict(i_print=1, i_val=0,
+                                                 i_weights=0)}, seed=0),
+                          tcfg, tiny_scene.scene(), writer=w,
+                          device=torch.device(name))
+        finally:
+            vq.nearest_code = nearest
+        tiny[name], calls[name] = np.array(w.values("train/loss")), log_calls
+    a, b = devices
+    rel = float(np.max(np.abs(tiny[a] - tiny[b]) / tiny[b]))
+    flips, worst = 0, 0.0
+    for (_, _, ia), (rows_c, emb_c, ib) in zip(calls[a], calls[b]):
+        diff = torch.nonzero(ia != ib)[:, 0]
+        flips += int(diff.numel())
+        if diff.numel():
+            f = rows_c[diff].double()
+            e = emb_c.double()
+            d = (f ** 2).sum(1, keepdim=True) - 2 * f @ e \
+                + (e ** 2).sum(0, keepdim=True)
+            da = d.gather(1, ia[diff][:, None])[:, 0]
+            db = d.gather(1, ib[diff][:, None])[:, 0]
+            gap = ((da - db).abs() / torch.maximum(da.abs(), db.abs())
+                   .clamp_min(1e-30)).max()
+            worst = max(worst, float(gap))
+    rec.update(tiny_loss_max_rel_diff=rel, tiny_vq_calls=len(calls[b]),
+               tiny_vq_rows=int(sum(c[0].shape[0] for c in calls[b])),
+               tiny_vq_flips=flips, tiny_vq_flip_max_rel_gap=worst)
+    log(f"  (a) tiny scene, {len(tiny[b])} steps: per-step loss {a} vs "
+        f"{b} max rel {rel:.3e} (limit {TINY_TOL:.0e}); VQ index flips "
+        f"{flips} of {rec['tiny_vq_rows']} rows (each a near-tie: the two "
+        f"distances within {worst:.2e} relative, limit {VQ_TIE_REL:.0e})")
+    if len(tiny[b]) != 10 or not rel <= TINY_TOL \
+            or len(calls[a]) != len(calls[b]) \
+            or not worst <= VQ_TIE_REL:
+        raise AssertionError("the tiny DirectQVGO run differs between cuda "
+                             "and cpu")
+    return rec
+
+
+def tensorf_step_parts(model_mod, mcfg, ft, params, buffers, batch, rk,
+                       noise, n_samples: int) -> dict:
+    """A TensoRF training step at full width by parts (CUDA events, median
+    of 5): forward + backward, the factors' TV, MaskedAdam, each beside
+    its bound, the larger of its bytes and its FP32 operations. Bytes: a
+    sample reads 4 corners of each of three planes and 2 of each of three
+    vectors, of both grids' ranks, forward and again for the scatter
+    backward, over ``n_samples`` samples; the dense factor gradients
+    written; TV reading the factors, writing and adding their gradient;
+    Adam reading p, g, m, v and writing p, m, v. Operations: the rgbnet
+    and the k0 fusion product on the samples, forward and backward (6 a
+    multiply-add)."""
+    from fourk_nerf_torch.train import optim, trainer
+    lrs = {k: optim.group_lr(v, 10, ft.lrate_decay) for k, v in
+           optim.build_group_lrs(ft, params).items()}
+    skip = frozenset(ft.skip_zero_grad_fields)
+    st = trainer.TrainStep(model_mod, mcfg, ft, render_kwargs=rk,
+                           skip_zero_grad=skip)
+    opt = optim.init_state(params)
+    apply_tv = ft.weight_tv_density > 0 or ft.weight_tv_k0 > 0
+
+    def step():
+        st(params, buffers, opt, batch, lrs, None, noise, apply_tv=apply_tv,
+           tv_dense=True)
+
+    full = event_ms(step)
+    _, _, grads = st.loss_and_grads(params, buffers, batch, lrs.keys(),
+                                    noise)
+    split = {"fwd_bwd": event_ms(lambda: st.loss_and_grads(
+                 params, buffers, batch, lrs.keys(), noise)),
+             "adam": event_ms(lambda: optim.apply_updates(
+                 params, grads, opt, lrs, skip_zero_grad=skip))}
+    if apply_tv:
+        split["tv"] = event_ms(lambda: st.add_tv(params, grads,
+                                                 int(batch[0].shape[0]),
+                                                 True))
+    del grads
+    ranks = sum(params[g]["x_vec"].shape[1] for g in ("density", "k0"))
+    fac_bytes = tree_bytes({g: params[g] for g in ("density", "k0")})
+    param_bytes = tree_bytes(params)
+    C = params["k0"]["f_vec"].shape[1]
+    fuse = params["k0"]["f_vec"].shape[0] * C
+    bound_bytes = {"fwd_bwd": 2 * n_samples * 18 * ranks * 4 + fac_bytes,
+                   "adam": 7 * param_bytes, "tv": 3 * fac_bytes}
+    bound_flops = {"fwd_bwd": 6 * n_samples * (
+        mlp_macs(params.get("rgbnet", {})) + fuse), "adam": 0, "tv": 0}
+    if not apply_tv:
+        del bound_bytes["tv"], bound_flops["tv"]
+    bound, bound_by = bounds_of(bound_bytes, bound_flops)
+    bound["step"] = sum(bound.values())
+    return dict(step_ms=full, split_ms=split, split_bound_ms=bound,
+                split_bound_bytes=bound_bytes, split_bound_flops=bound_flops,
+                split_bound_by=bound_by, samples=n_samples,
+                rays=int(batch[0].shape[0]), params=param_bytes // 4)
+
+
+def secondary_tensorf(dev, data, bdata, basedir, launches):
+    """Phase 18 (b): TensoRF grids in DirectMPIGO (phase 13's views, all
+    five grid sizes) and in DirectVoxGO (phase 16's views, coarse dense
+    then fine TensoRF). Returns its record."""
+    import torch
+    from fourk_nerf_torch.models import dmpigo, dvgo
+    from fourk_nerf_torch.ops import cuda_box, cuda_sweep, tensorf
+    from fourk_nerf_torch.train import checkpoints, trainer
+
+    rec: dict = {"grids": TENSORF_GRIDS}
+    resized = [0]
+    resize = tensorf.tensorf_resize
+
+    def counted(*a, **k):
+        resized[0] += 1
+        return resize(*a, **k)
+
+    # --- DirectMPIGO, fern pretrain, 60 steps through five grid sizes --------
+    over = {"fine_model_and_render": TENSORF_GRIDS,
+            "fine_train": TRAIN_OVERRIDES["fine_train"],
+            "args": TRAIN_OVERRIDES["args"]}
+    cfg = load_over(FERN_CFG, basedir, "tensorf_mpi", over)
+    args = run_args(over)
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.sweep.launches = 0
+    tensorf.tensorf_resize = counted
+    t0 = time.perf_counter()
+    try:
+        _, mcfg, params, buffers = trainer.train(args, cfg, data,
+                                                 writer=writer, device=dev)
+    finally:
+        tensorf.tensorf_resize = resize
+    sync()
+    train_s = time.perf_counter() - t0
+    launches["tensorf_mpi_i_val"] = cuda_sweep.sweep.launches
+    losses = writer.values("train/loss")
+    X, Y, Z = mcfg.world_size
+    shapes_ok = all(tuple(params[g]["xy_plane"].shape[:2]) == (X, Y)
+                    and tuple(params[g]["xz_plane"].shape[:2]) == (X, Z)
+                    and params[g]["z_vec"].shape[0] == Z
+                    for g in ("density", "k0"))
+    mpi = dict(config=FERN_CFG, overrides=over, world_size=[X, Y, Z],
+               train_s=train_s, losses=losses,
+               val_psnr=writer.values("val/psnr"), resizes=resized[0],
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(f"  (b) DirectMPIGO with TensoRF grids (ranks "
+        f"{TENSORF_GRIDS['density_config']['n_comp']} / "
+        f"{TENSORF_GRIDS['k0_config']['n_comp']}): "
+        f"{cfg.fine_train.N_iters} steps in {train_s:.1f} s (host clock): "
+        f"world size {mcfg.world_size}, {resized[0]} factor resizes; loss "
+        f"at each print {['%.5g' % x for x in losses]}; val psnr "
+        f"{mpi['val_psnr']}; sweep launches "
+        f"{launches['tensorf_mpi_i_val']}")
+    n_scale = len(cfg.fine_train.pg_scale)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and resized[0] == 2 * n_scale and shapes_ok
+            and int(np.prod(mcfg.world_size))
+            > 0.9 * cfg.fine_model_and_render.num_voxels
+            and len(mpi["val_psnr"]) == 1
+            and launches["tensorf_mpi_i_val"] == 0):
+        raise AssertionError(f"the TensoRF DirectMPIGO run: {mpi}")
+    check_finite(params, "TensoRF DirectMPIGO")
+    kw, p2, b2, opt2, step2, _ = checkpoints.load_checkpoint(
+        os.path.join(basedir, "tensorf_mpi", "fine_last.npz"), device=dev)
+    flat_a = checkpoints.tree_to_flat_dict(params)
+    flat_b = checkpoints.tree_to_flat_dict(p2)
+    if not (dmpigo.make_config(**kw) == mcfg
+            and step2 == cfg.fine_train.N_iters
+            and set(flat_a) == set(flat_b)
+            and all(torch.equal(flat_a[k], flat_b[k]) for k in flat_a)
+            and torch.equal(b2["mask_cache"], buffers["mask_cache"])):
+        raise AssertionError("the TensoRF checkpoint does not round-trip")
+    del p2, b2, opt2
+    ft = cfg.fine_train
+    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "rand_bkgd": True,
+          "stepsize": 1.0, "ndc_planes": True}
+    flat, _ = trainer.gather_training_rays(cfg, ft, data, dev)
+    bt = trainer.gather_batch(flat, *trainer.make_batch_sampler(
+        "flatten", flat, ft.N_rand, 777)(3))
+    del flat
+    noise = trainer.bkgd_noise(777, 1, ft.N_rand, dev)
+    mpi["step"] = tensorf_step_parts(dmpigo, mcfg, ft, params, buffers, bt,
+                                     rk, noise,
+                                     ft.N_rand * mcfg.n_samples(1.0))
+    r = mpi["step"]
+    log(f"  (b) DirectMPIGO TensoRF step at {r['rays']} rays: "
+        f"{r['step_ms']:.2f} ms (bound {r['split_bound_ms']['step']:.3g}); "
+        + ", ".join(f"{k} {v:.4g} ms (bound {r['split_bound_ms'][k]:.4g}, "
+                    f"by {r['split_bound_by'][k]})"
+                    for k, v in r["split_ms"].items()))
+    rec["mpi"] = mpi
+    del params, buffers, bt
+    torch.cuda.empty_cache()
+
+    # --- DirectVoxGO: syn_default, coarse dense, fine TensoRF ----------------
+    cfg = load_over(SYN_CFG, basedir, "tensorf_vox", TENSORF_BOUNDED)
+    args = run_args(TENSORF_BOUNDED)
+    writer = Recorder()
+    cuda_box.sweep_box.launches = 0
+    resized[0] = 0
+    tensorf.tensorf_resize = counted
+    t0 = time.perf_counter()
+    try:
+        _, mcfg, params, buffers = trainer.train(args, cfg, bdata,
+                                                 writer=writer, device=dev)
+    finally:
+        tensorf.tensorf_resize = resize
+    sync()
+    train_s = time.perf_counter() - t0
+    launches["tensorf_vox_i_val"] = cuda_box.sweep_box.launches
+    losses = writer.values("train/loss")
+    n_c = cfg.coarse_train.N_iters // args.i_print
+    n_box = cfg.coarse_train.N_iters // args.i_val * len(bdata["i_val"])
+    vox = dict(config=SYN_CFG, overrides=TENSORF_BOUNDED,
+               world_size=list(mcfg.world_size), train_s=train_s,
+               coarse_losses=losses[:n_c], fine_losses=losses[n_c:],
+               val_psnr=writer.values("val/psnr"), resizes=resized[0],
+               coarse_i_val_box_launches=n_box)
+    log(f"  (b) DirectVoxGO coarse {cfg.coarse_train.N_iters} (dense) + fine"
+        f" {cfg.fine_train.N_iters} (TensoRF) steps in {train_s:.1f} s: fine "
+        f"world size {mcfg.world_size}, {resized[0]} factor resizes; fine "
+        f"loss at each print {['%.5g' % x for x in losses[n_c:]]}; val psnr"
+        f" (coarse, fine) {vox['val_psnr']}; box launches "
+        f"{launches['tensorf_vox_i_val']} (the coarse i_val renders: "
+        f"{n_box})")
+    fine = losses[n_c:]
+    if not (all(np.isfinite(losses)) and fine[-1] < fine[0]
+            and resized[0] == 2 * len(cfg.fine_train.pg_scale)
+            and int(np.prod(mcfg.world_size))
+            > 0.9 * cfg.fine_model_and_render.num_voxels
+            and launches["tensorf_vox_i_val"] == n_box
+            and len(vox["val_psnr"]) == n_box // len(bdata["i_val"]) + 1):
+        raise AssertionError(f"the TensoRF DirectVoxGO run: {vox}")
+    check_finite(params, "TensoRF DirectVoxGO")
+    _, p2, _, _, _, _ = checkpoints.load_checkpoint(
+        os.path.join(basedir, "tensorf_vox", "fine_last.npz"), device=dev)
+    flat_a = checkpoints.tree_to_flat_dict(params)
+    flat_b = checkpoints.tree_to_flat_dict(p2)
+    if not all(torch.equal(flat_a[k], flat_b[k]) for k in flat_a):
+        raise AssertionError("the TensoRF DirectVoxGO checkpoint does not "
+                             "round-trip")
+    del p2
+    ft = cfg.fine_train
+    rk = {"near": float(bdata["near"]), "far": float(bdata["far"]),
+          "bg": 1.0, "rand_bkgd": False, "stepsize": 0.5}
+    flat, _ = trainer.gather_training_rays(
+        cfg, type(ft)({**ft, "ray_sampler": "flatten"}), bdata, dev)
+    bt = trainer.gather_batch(flat, *trainer.make_batch_sampler(
+        "flatten", flat, ft.N_rand, 777)(3))
+    del flat
+    n_valid = valid_samples(mcfg, buffers, bt[0], bt[1], rk["stepsize"],
+                            rk["near"])
+    vox["step"] = tensorf_step_parts(dvgo, mcfg, ft, params, buffers, bt, rk,
+                                     None, n_valid)
+    r = vox["step"]
+    log(f"  (b) DirectVoxGO TensoRF step at {r['rays']} rays ({n_valid} "
+        f"valid samples): {r['step_ms']:.2f} ms (bound "
+        f"{r['split_bound_ms']['step']:.3g}); " + ", ".join(
+            f"{k} {v:.4g} ms (bound {r['split_bound_ms'][k]:.4g}, by "
+            f"{r['split_bound_by'][k]})" for k, v in r["split_ms"].items()))
+    rec["vox"] = vox
+    del params, buffers, bt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def secondary_dbvgo(dev, bdata):
+    """Phase 18 (c): DirectBiVoxGO at 160^3 a field on phase 16's views,
+    one 8192-ray batch forward and backward. Returns its record."""
+    import torch
+    from fourk_nerf_torch.config import ConfigDict
+    from fourk_nerf_torch.models import dbvgo
+    from fourk_nerf_torch.ops import render
+    from fourk_nerf_torch.train import trainer
+
+    G = DBVGO_G
+    cfg = dbvgo.make_config(xyz_min=[-1.2] * 3, xyz_max=[1.2] * 3,
+                            num_voxels=G ** 3, num_voxels_base=G ** 3,
+                            alpha_init=1e-2, rgbnet_dim=12, rgbnet_width=128,
+                            viewbase_pe=4, fast_color_thres=1e-4)
+    params, buffers = dbvgo.init(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    flags = ConfigDict(dict(data=dict(ndc=False, inverse_y=False,
+                                      flip_x=False, flip_y=False)))
+    flat, _ = trainer.gather_training_rays(
+        flags, ConfigDict(dict(ray_sampler="flatten")), bdata, dev)
+    ro, rd, vd, target = trainer.gather_batch(
+        flat, *trainer.make_batch_sampler("flatten", flat, DBVGO_RAYS,
+                                          777)(0))
+    del flat
+    leaves = [params[f][g] for f in ("fg", "bg") for g in ("density", "k0")]
+
+    def fwd_bwd(bg=1.0):
+        for v in leaves:
+            v.requires_grad_(True)
+        out = dbvgo.forward(cfg, params, buffers, ro, rd, vd, stepsize=0.5,
+                            bg=bg)
+        loss = ((out["rgb_marched"] - target) ** 2).mean()
+        grads = torch.autograd.grad(loss, leaves)
+        for v in leaves:
+            v.requires_grad_(False)
+        return out, loss, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    out, loss, grads = fwd_bwd()
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        out0 = dbvgo.forward(cfg, params, buffers, ro, rd, vd, stepsize=0.5,
+                             bg=0.0)
+    # the constant background enters through the product of the two
+    # fields' transmittances: rgb(bg=1) - rgb(bg=0) is alphainv_last
+    out = {k: v.detach() if isinstance(v, torch.Tensor) else v
+           for k, v in out.items()}
+    comp_err = float((out["rgb_marched"] - out0["rgb_marched"]
+                      - out["alphainv_last"][:, None]).abs().max())
+    prod_err = float((out["alphainv_last"] - out["alphainv_last_fg"]
+                      * out["alphainv_last_bg"]).abs().max())
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    ms = event_ms(fwd_bwd)
+    # the samples: the foreground's in the cube, the background's all
+    mn = torch.tensor(cfg.xyz_min, device=dev)
+    mx = torch.tensor(cfg.xyz_max, device=dev)
+    center = torch.tensor(cfg.scene_center, device=dev)
+    radius = torch.tensor(cfg.scene_radius, device=dev)
+    _, valid, _ = render.sample_pts_on_rays_fixed(
+        (ro - center) / radius, rd / rd.norm(dim=-1, keepdim=True), mn, mx,
+        0.0, 2 * np.sqrt(3), 0.5 * cfg.voxel_size, cfg.n_samples_fg(0.5))
+    n_fg = int(valid.sum())
+    n_bg = DBVGO_RAYS * cfg.n_samples_bg(0.5)
+    param_bytes = tree_bytes(params)
+    macs = mlp_macs(params["fg"]["rgbnet"])
+    bound_bytes = {"fwd_bwd": 2 * (n_fg + n_bg) * 8 * (1 + cfg.k0_dim) * 4
+                   + param_bytes}
+    bound_flops = {"fwd_bwd": 6 * macs * (n_fg + n_bg)}
+    bound, bound_by = bounds_of(bound_bytes, bound_flops)
+    rec = dict(world_size=list(cfg.world_size), rays=DBVGO_RAYS,
+               samples_fg=DBVGO_RAYS * cfg.n_samples_fg(0.5),
+               samples_bg=n_bg, valid_fg=n_fg, loss=loss.item(),
+               composite_max_abs=comp_err, product_max_abs=prod_err,
+               fwd_bwd_ms=ms, bound_ms=bound["fwd_bwd"],
+               bound_by=bound_by["fwd_bwd"], bound_bytes=bound_bytes,
+               bound_flops=bound_flops, max_memory_allocated_bytes=peak)
+    log(f"  (c) DirectBiVoxGO {cfg.world_size} a field, {DBVGO_RAYS} rays "
+        f"({rec['samples_fg']} fg samples, {n_fg} in the cube, {n_bg} bg): "
+        f"loss {rec['loss']:.5g}, fg-over-bg: rgb(bg=1) - rgb(bg=0) vs "
+        f"alphainv_last {comp_err:.2e}, alphainv_last vs the fields' product"
+        f" {prod_err:.2e}; forward + backward {ms:.2f} ms (CUDA events, "
+        f"median of 5; bound {bound['fwd_bwd']:.3g} ms by "
+        f"{bound_by['fwd_bwd']}); peak memory {peak / 2**30:.2f} GiB")
+    if not (finite and comp_err <= 1e-5 and prod_err <= 1e-6):
+        raise AssertionError(f"DirectBiVoxGO: {rec}")
+    return rec
+
+
+def secondary_stylegan(dev):
+    """Phase 18 (d): the StyleGAN-heritage ops on the card against the same
+    ops on CPU copies of their inputs. Returns its record."""
+    import torch
+    from fourk_nerf_torch.ops import stylegan as sg
+
+    rng = np.random.default_rng(0)
+    rec: dict = {}
+    x_np = rng.normal(size=STYLEGAN_SHAPE).astype(np.float32)
+    b_np = rng.normal(size=STYLEGAN_SHAPE[1]).astype(np.float32)
+    x, b = (torch.as_tensor(a, device=dev) for a in (x_np, b_np))
+    xc, bc = torch.as_tensor(x_np), torch.as_tensor(b_np)
+    f, fc = (sg.setup_filter([1, 3, 3, 1], device=d) for d in (dev, "cpu"))
+    ops = {
+        "upsample2d": lambda x, b, f: sg.upsample2d(x, f),
+        "downsample2d": lambda x, b, f: sg.downsample2d(x, f),
+        "filtered_lrelu": lambda x, b, f: sg.filtered_lrelu(
+            x, f, f, b, padding=3, clamp=256.0),
+    }
+    for act in ("linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu",
+                "softplus", "swish"):
+        ops[f"bias_act_{act}"] = functools.partial(
+            lambda x, b, f, act: sg.bias_act(x, b, act=act), act=act)
+    for name, fn in ops.items():
+        got = fn(x, b, f)
+        want = fn(xc, bc, fc)
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        rec[name] = {"shape": list(got.shape), "max_abs_err": err,
+                     "ms": event_ms(lambda fn=fn: fn(x, b, f))}
+        if tuple(got.shape) != tuple(want.shape) or not err <= 1e-5 * max(
+                scale, 1.0):
+            raise AssertionError(f"{name}: card vs cpu {err} (scale {scale})")
+    log("  (d) " + ", ".join(f"{k} {v['ms']:.3f} ms (err {v['max_abs_err']:.1e})"
+                             for k, v in rec.items()))
+    del x, xc
+    # the hash grid at its defaults: 16 levels of 2^19 entries, 2 features
+    xyz_np = rng.uniform(0, 1, (HASH_POINTS, 3)).astype(np.float32)
+    table_c = sg.init_hash_table(generator=torch.Generator().manual_seed(0),
+                                 device="cpu")
+    xyz, table = torch.as_tensor(xyz_np, device=dev), table_c.to(dev)
+    xyzc = torch.as_tensor(xyz_np)
+    T = table.shape[1]
+    mism = 0
+    for lvl in range(16):
+        res = int(np.floor(16 * 1.3819129 ** lvl))
+        for corner in ((0, 0, 0), (1, 1, 1), (1, 0, 1)):
+            c = torch.tensor(corner)
+            ia = sg.hash_index(torch.floor(xyz * res).long() + c.to(dev), T)
+            ib = sg.hash_index(torch.floor(xyzc * res).long() + c, T)
+            mism += int((ia.cpu() != ib).sum())
+    enc = sg.hash_encode(xyz, table)
+    enc_c = sg.hash_encode(xyzc, table_c)
+    err = float((enc.cpu() - enc_c).abs().max())
+    rec["hash_encode"] = {"points": HASH_POINTS, "index_mismatches": mism,
+                          "max_abs_err": err, "scale": float(enc_c.abs().max()),
+                          "ms": event_ms(lambda: sg.hash_encode(xyz, table))}
+    log(f"  (d) hash_encode {HASH_POINTS} points: index mismatches {mism}, "
+        f"max abs err {err:.1e} (entries up to "
+        f"{rec['hash_encode']['scale']:.1e}), "
+        f"{rec['hash_encode']['ms']:.2f} ms")
+    if mism or not err <= 1e-5 * rec["hash_encode"]["scale"]:
+        raise AssertionError("hash_encode differs between the card and the "
+                             "cpu")
+    del xyz, table, xyzc, table_c, enc, enc_c
+    # top-p: a flip is allowed only where a sample sits on the p boundary
+    w_np = (rng.uniform(size=TOPP_SHAPE) ** 4).astype(np.float32)
+    w, wc = torch.as_tensor(w_np, device=dev), torch.as_tensor(w_np)
+    got, want = sg.topp_masking(w, 0.99).cpu(), sg.topp_masking(wc, 0.99)
+    flips = torch.nonzero(got != want).tolist()
+    margin = 0.0
+    for r, c in flips:
+        # the weight before the flipped sample, against p of the total
+        row = w_np[r].astype(np.float64)
+        ahead = row[row > row[c]].sum()
+        margin = max(margin, abs(ahead - 0.99 * row.sum()) / row.sum())
+    rec["topp_masking"] = {"shape": list(TOPP_SHAPE),
+                           "flips": len(flips),
+                           "flip_max_margin": margin,
+                           "ms": event_ms(lambda: sg.topp_masking(w, 0.99))}
+    log(f"  (d) topp_masking {TOPP_SHAPE}: {len(flips)} flips "
+        f"(each within {margin:.1e} of the p boundary), "
+        f"{rec['topp_masking']['ms']:.3f} ms")
+    if not margin <= 1e-5:
+        raise AssertionError("topp_masking differs between the card and the "
+                             "cpu away from the p boundary")
+    return rec
+
+
+def run_secondary(dev, anchor):
+    """Phase 18 (see the module docstring). ``anchor``: phase 13's views.
+    Returns the ``secondary`` record and the launch counts of its paths."""
+    import shutil
+
+    import torch
+    from fourk_nerf_torch.ops import cuda_box
+
+    t_phase = time.perf_counter()
+    basedir = os.path.join(HERE, "build", "phase18_secondary")
+    shutil.rmtree(basedir, ignore_errors=True)
+    launches: dict = {}
+    rec: dict = {}
+    t0 = time.perf_counter()
+    rec["vq"] = secondary_vq(dev, anchor, basedir, launches)
+    rec["vq"]["part_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    cuda_box.sweep_box.launches = 0
+    bdata = bounded_views(dev)
+    sync()
+    launches["teacher"] = cuda_box.sweep_box.launches
+    if launches["teacher"] != BOUNDED_VIEWS:
+        raise AssertionError(f"teacher views: {launches['teacher']} box "
+                             "launches")
+    t0 = time.perf_counter()
+    rec["tensorf"] = secondary_tensorf(dev, anchor, bdata, basedir, launches)
+    rec["tensorf"]["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["dbvgo"] = secondary_dbvgo(dev, bdata)
+    rec["dbvgo"]["part_s"] = time.perf_counter() - t0
+    del bdata
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["stylegan"] = secondary_stylegan(dev)
+    rec["stylegan"]["part_s"] = time.perf_counter() - t0
+    shutil.rmtree(basedir)
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {rec['phase_s']:.1f} s (parts "
+        + ", ".join(f"{k} {rec[k]['part_s']:.1f} s" for k in
+                    ("vq", "tensorf", "dbvgo", "stylegan")) + ")")
+    return rec, launches
+
+
 def run_probes(dev):
     """Phase 12: both probe suites as their users run them, counted."""
     from fourk_nerf_torch.tools import probe_floor, probe_ops
@@ -3081,6 +3879,8 @@ def main() -> int:
     log("[15] joint GAN + perceptual training at full width, fern joint "
         "L1+GAN config, then its 4K frame; the scale-1 GAN config")
     joint_gan, gan_launches = run_joint_gan(dev, pre)
+    anchor = {k: v for k, v in pre["data"].items()
+              if k not in ("srgt", "w2c")}  # phase 18 trains on them again
     del pre
     torch.cuda.empty_cache()
     log("[16] the bounded-scene path at full width: syn_default coarse -> "
@@ -3091,6 +3891,12 @@ def main() -> int:
     log("[17] the unbounded-inward path at full width: syn_default as "
         "DirectContractedVoxGO, --render_only, the tiny run on both devices")
     unbounded, unbounded_launches = run_unbounded(dev)
+    torch.cuda.empty_cache()
+    log("[18] the secondary models at full width: DirectQVGO (adain_vq), "
+        "TensoRF grids in DirectMPIGO and DirectVoxGO, DirectBiVoxGO, the "
+        "StyleGAN-heritage ops")
+    secondary, secondary_launches = run_secondary(dev, anchor)
+    del anchor
     torch.cuda.empty_cache()
 
     kernels = [
@@ -3105,7 +3911,9 @@ def main() -> int:
          "launches_joint": {"i_val": joint_launches["i_val"],
                             "serve": joint_launches["serve"]["sweep"]},
          "launches_joint_gan": {"i_val": gan_launches["i_val"],
-                                "serve": gan_launches["serve"]["sweep"]}},
+                                "serve": gan_launches["serve"]["sweep"]},
+         "launches_secondary": {k: secondary_launches[k] for k in (
+             "vq_i_val", "vq_render_only", "tensorf_mpi_i_val")}},
         {"name": "rdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:481",
@@ -3131,7 +3939,9 @@ def main() -> int:
          "launches_bounded": {k: bounded_launches[k] for k in (
              "teacher", "i_val", "render_only", "joint_i_val")}
          | {"serve": bounded_launches["serve"]["box"]},
-         "launches_unbounded": unbounded_launches},
+         "launches_unbounded": unbounded_launches,
+         "launches_secondary": {k: secondary_launches[k] for k in (
+             "teacher", "tensorf_vox_i_val")}},
         {"name": "rrdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rrdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:428",
@@ -3180,6 +3990,7 @@ def main() -> int:
     log(json.dumps({"joint_gan": joint_gan}))
     log(json.dumps({"bounded": bounded}))
     log(json.dumps({"unbounded": unbounded}))
+    log(json.dumps({"secondary": secondary}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The rgbnet is a plain dict ``{w0, b0, w1, b1, ...}`` with ``w`` of shape
 ``[Cin, W]``, the JAX package's layout, so parameters carry over as they
-are. Grids are channel-last ``[X, Y, Z, C]``.
+are. Grids are channel-last ``[X, Y, Z, C]`` tensors (``DenseGrid``) or
+TensoRF factor dicts (``TensoRFGrid``), through the ``grid_*`` dispatch.
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ import numpy as np
 import torch
 
 from fourk_nerf_torch.device import resolve_device
+from fourk_nerf_torch.ops import grid_sample, render, tensorf
 
 
 def mlp_init(dims: Sequence[int], *, generator: torch.Generator,
-             device=None) -> dict:
+             device=None, zero_final_bias: bool = True) -> dict:
     """nn.Linear-style init on ``device`` (default ``cuda``): W, b ~
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), final bias zeroed."""
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the final bias zeroed unless
+    ``zero_final_bias`` is false."""
     device = resolve_device(device)
     params = {}
     n_layers = len(dims) - 1
@@ -28,7 +31,7 @@ def mlp_init(dims: Sequence[int], *, generator: torch.Generator,
         w = torch.rand((dims[li], dims[li + 1]), generator=generator,
                        dtype=torch.float32) * (2 * bound) - bound
         params[f"w{li}"] = w.to(device)
-        if li == n_layers - 1:
+        if zero_final_bias and li == n_layers - 1:
             params[f"b{li}"] = torch.zeros(dims[li + 1], device=device)
         else:
             b = torch.rand((dims[li + 1],), generator=generator,
@@ -88,3 +91,62 @@ def dvgo_grid_resolution(xyz_min, xyz_max, num_voxels: int):
     voxel_size = (np.prod(xyz_max - xyz_min) / num_voxels) ** (1.0 / 3.0)
     world_size = ((xyz_max - xyz_min) / voxel_size).astype(np.int64)
     return tuple(int(w) for w in world_size), float(voxel_size)
+
+
+# ---------------------------------------------------------------------------
+# Grid-type dispatch (DenseGrid | TensoRFGrid), frozoul/4K-NeRF
+# lib/grid.py:27-35: a dense grid is a channel-last tensor, a TensoRF grid a
+# dict of factors (``ops/tensorf.py``).
+# ---------------------------------------------------------------------------
+
+def is_dense(grid_type: str) -> bool:
+    if grid_type not in ("DenseGrid", "TensoRFGrid"):
+        raise NotImplementedError(grid_type)
+    return grid_type == "DenseGrid"
+
+
+def grid_init(grid_type: str, channels: int, world_size, config=(), *,
+              generator: torch.Generator, device=None):
+    """A zero dense grid, or TensoRF factors drawn from ``generator``
+    (``config`` holds ``n_comp`` and optionally ``n_comp_xy``)."""
+    dev = resolve_device(device)
+    if is_dense(grid_type):
+        X, Y, Z = world_size
+        return torch.zeros((X, Y, Z, channels), device=dev)
+    cfgd = dict(config)
+    return tensorf.init_tensorf(channels, world_size, cfgd["n_comp"],
+                                cfgd.get("n_comp_xy"), generator=generator,
+                                device=dev)
+
+
+def grid_query(grid_type: str, gparams, ind01):
+    """``[..., C]`` at normalised ``[..., 3]`` coordinates."""
+    if is_dense(grid_type):
+        return grid_sample.trilinear_sample(gparams, ind01)
+    return tensorf.tensorf_query(gparams, ind01)
+
+
+def grid_resize(grid_type: str, gparams, new_size):
+    """The grid resampled onto ``new_size`` (a dense grid in z-slabs)."""
+    if is_dense(grid_type):
+        return grid_sample.resize_trilinear_chunked(gparams,
+                                                    new_size).contiguous()
+    return tensorf.tensorf_resize(gparams, new_size)
+
+
+def grid_dense(grid_type: str, gparams, channels: int):
+    """The dense ``[X, Y, Z, C]`` values."""
+    if is_dense(grid_type):
+        return gparams
+    return tensorf.tensorf_dense(gparams, channels)
+
+
+def grid_tv_grad(grid_type: str, gparams, wx: float, wy: float, wz: float,
+                 sparse_grad=None):
+    """The TV gradient of a grid: a dense grid's by the reference's rule
+    (sparse mode: only where ``sparse_grad`` is non-zero), TensoRF factors'
+    as the autograd gradient of the smooth-L1 factor loss (the JAX
+    package's ``_tv_dispatch``; it has no sparse mode)."""
+    if is_dense(grid_type):
+        return render.total_variation_grad(gparams, wx, wy, wz, sparse_grad)
+    return tensorf.tensorf_tv_grad(gparams, wx, wy, wz)

@@ -1,4 +1,4 @@
-"""DirectContractedVoxGO: the dense-grid radiance field of unbounded
+"""DirectContractedVoxGO: the voxel radiance field of unbounded
 inward-facing (360-degree) scenes (torch).
 
 The port of the JAX package's ``models/dcvgo.py`` (after frozoul/4K-NeRF
@@ -15,7 +15,7 @@ DirectVoxGO's dense compositing, with the rgbnet reading the k0 features
 and the view direction directly.
 
 A model is (static :class:`Config`, params dict, buffers dict) as in the
-other families; only dense grids are ported. The occupancy renewal, the
+other families, its grids dense or TensoRF. The occupancy renewal, the
 progressive scaling and the TV gradients are DirectVoxGO's functions.
 """
 
@@ -166,26 +166,15 @@ def get_kwargs(cfg: Config) -> dict:
     }
 
 
-def _dense_only(cfg: Config):
-    if cfg.density_type != "DenseGrid" or cfg.k0_type != "DenseGrid":
-        raise NotImplementedError(
-            "TensoRF grids are not ported yet: ROADMAP.md Queue A item 5 "
-            "(ops/tensorf.py and the grid dispatch)")
-
-
 def init(cfg: Config, *, generator: torch.Generator | None = None,
          init_mask=None, device=None):
-    """(params, buffers): zero grids, a random rgbnet drawn from
-    ``generator`` (seed 0 when None), a full mask (or ``init_mask``)."""
-    _dense_only(cfg)
+    """(params, buffers): the grids (``dvgo.init_grids``) and a random
+    rgbnet drawn from ``generator`` (seed 0 when None), a full mask (or
+    ``init_mask``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    X, Y, Z = cfg.world_size
-    params = {
-        "density": torch.zeros((X, Y, Z, 1), device=dev),
-        "k0": torch.zeros((X, Y, Z, cfg.k0_dim), device=dev),
-    }
+    params = dvgo.init_grids(cfg, generator, dev)
     if cfg.rgbnet_dim > 0:
         dims = [cfg.dim0] + [cfg.rgbnet_width] * (cfg.rgbnet_depth - 1) + [3]
         params["rgbnet"] = common.mlp_init(dims, generator=generator,
@@ -294,7 +283,6 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     samples), ``t [N,K]``, ``s = t / (1 + t)``, ``n_max`` (K), the masked
     ``raw_density`` / ``raw_alpha``, ``raw_rgb`` and, with
     ``render_depth``, ``depth`` (the composited ``s``, detached)."""
-    _dense_only(cfg)
     N = rays_o.shape[0]
     xyz_min, xyz_max = dvgo._xyz_minmax(cfg, rays_o.device)
     interval = stepsize * cfg.voxel_size_ratio
@@ -306,7 +294,8 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         buffers["mask_cache"], pts, xyz_min, xyz_max)
 
     ind01 = grid_sample.world_to_ind01(pts, xyz_min, xyz_max)
-    density = grid_sample.trilinear_sample(params["density"], ind01)[..., 0]
+    density = common.grid_query(cfg.density_type, params["density"],
+                                ind01)[..., 0]
     alpha = render.raw2alpha(density, cfg.act_shift, interval)
     if cfg.fast_color_thres > 0:
         valid = valid & (alpha > cfg.fast_color_thres)
@@ -316,7 +305,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         weights = torch.where(weights > cfg.fast_color_thres, weights,
                               torch.zeros_like(weights))
 
-    k0 = grid_sample.trilinear_sample(params["k0"], ind01)
+    k0 = common.grid_query(cfg.k0_type, params["k0"], ind01)
     if cfg.rgbnet_dim <= 0:
         rgb_raw = torch.sigmoid(k0)
     else:

@@ -4,7 +4,10 @@ pipeline (torch).
 A model is (static :class:`Config`, params dict, buffers dict), as in the
 JAX package: params hold ``density [X,Y,Z,1]``, ``k0 [X,Y,Z,C]`` and the
 ``rgbnet`` dict; buffers hold ``act_shift [1,1,Z,1]`` and the bool
-``mask_cache``. Only dense grids are ported. The training forms (random
+``mask_cache``. A grid is dense (``DenseGrid``) or TensoRF factors
+(``TensoRFGrid``, through ``common.grid_*``); the plane-aligned fast path
+is for dense grids. The rend layer of ``dim_rend > 3`` is not ported. The
+training forms (random
 background, progressive grid scaling, the act_shift decay, the TV
 gradients, the view-count mask) follow the forward pass; gradients come
 from torch autograd of the same forward.
@@ -116,25 +119,29 @@ def get_kwargs(cfg: Config) -> dict:
     }
 
 
-def _dense_only(cfg: Config):
-    if cfg.density_type != "DenseGrid" or cfg.k0_type != "DenseGrid":
-        raise NotImplementedError("the port has dense grids only")
+def _check_dim_rend(cfg: Config):
     if cfg.dim_rend > 3:
-        raise NotImplementedError("dim_rend > 3 (rend_layer) is not ported")
+        raise NotImplementedError(
+            "dim_rend > 3 (the rend_layer) is not ported yet: ROADMAP.md "
+            "Queue A item 5b")
 
 
 def init(cfg: Config, *, generator: torch.Generator | None = None,
          device=None):
-    """(params, buffers): zero grids, a random rgbnet drawn from
-    ``generator`` (seed 0 when None), per-plane act_shift, a full mask."""
-    _dense_only(cfg)
+    """(params, buffers): zero dense grids or TensoRF factors, and a random
+    rgbnet, drawn from ``generator`` (seed 0 when None) in that order,
+    per-plane act_shift, a full mask."""
+    _check_dim_rend(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    X, Y, Z = cfg.world_size
     params = {
-        "density": torch.zeros((X, Y, Z, 1), device=dev),
-        "k0": torch.zeros((X, Y, Z, cfg.k0_dim), device=dev),
+        "density": common.grid_init(cfg.density_type, 1, cfg.world_size,
+                                    cfg.density_config, generator=generator,
+                                    device=dev),
+        "k0": common.grid_init(cfg.k0_type, cfg.k0_dim, cfg.world_size,
+                               cfg.k0_config, generator=generator,
+                               device=dev),
     }
     if cfg.rgbnet_dim > 0:
         dims = ([cfg.dim0] + [cfg.rgbnet_width] * (cfg.rgbnet_depth - 1)
@@ -175,16 +182,17 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     """Volume-render N rays densely.
 
     ``ndc_planes`` selects the exact plane-aligned bilinear path
-    (:func:`plane_aligned_ok`). With ``rand_bkgd`` and ``is_train`` the
+    (:func:`plane_aligned_ok`) for the dense grids. With ``rand_bkgd`` and ``is_train`` the
     background is ``bg_noise [N, 3]``, uniform noise that the caller draws
     (the trainer, from a seeded ``torch.Generator`` per step), in place of
     ``bg``."""
-    _dense_only(cfg)
+    _check_dim_rend(cfg)
     N = rays_o.shape[0]
     K = cfg.n_samples(stepsize)
     xyz_min, xyz_max = _xyz_minmax(cfg, rays_o.device)
     interval = stepsize * cfg.voxel_size_ratio
-    aligned = ndc_planes and K == cfg.world_size[2]
+    aligned = (ndc_planes and common.is_dense(cfg.density_type)
+               and K == cfg.world_size[2])
 
     pts = render.sample_ndc_pts_on_rays(rays_o, rays_d, K)
     valid = ((pts >= xyz_min) & (pts <= xyz_max)).all(-1)
@@ -197,7 +205,8 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
             params["density"], ind01[..., :2])[..., 0]
         act_shift = buffers["act_shift"][0, 0, :, 0][None, :]
     else:
-        density = grid_sample.trilinear_sample(params["density"], ind01)[..., 0]
+        density = common.grid_query(cfg.density_type, params["density"],
+                                    ind01)[..., 0]
         act_shift = grid_sample.trilinear_sample(buffers["act_shift"],
                                                  ind01)[..., 0]
     alpha = render.raw2alpha(density + act_shift, 0.0, interval)
@@ -209,11 +218,11 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         weights = torch.where(weights > cfg.fast_color_thres, weights,
                               torch.zeros_like(weights))
 
-    if aligned:
+    if aligned and common.is_dense(cfg.k0_type):
         vox_emb = grid_sample.trilinear_sample_plane_aligned(params["k0"],
                                                              ind01[..., :2])
     else:
-        vox_emb = grid_sample.trilinear_sample(params["k0"], ind01)
+        vox_emb = common.grid_query(cfg.k0_type, params["k0"], ind01)
     if cfg.rgbnet_dim <= 0:
         rgb_raw = torch.sigmoid(vox_emb)
     else:
@@ -268,7 +277,8 @@ def update_occupancy_cache(cfg: Config, params: dict, buffers: dict) -> dict:
                                     axes[2], indexing="ij")
         xyz = torch.stack([gx, gy, gz], -1)
         ind01 = grid_sample.world_to_ind01(xyz, xyz_min, xyz_max)
-        dens = grid_sample.trilinear_sample(params["density"], ind01)[..., 0]
+        dens = common.grid_query(cfg.density_type, params["density"],
+                                 ind01)[..., 0]
         alpha[x0:x0 + _OCC_X_CHUNK] = render.raw2alpha(dens, 0.0,
                                                   cfg.voxel_size_ratio)
     alpha = grid_sample.max_pool3d_same(alpha)
@@ -323,25 +333,27 @@ def scale_volume_grid(cfg: Config, params: dict, buffers: dict,
     grids resampled trilinearly onto the world size of ``num_voxels``.
     Up to 256^3 voxels the mask is rebuilt at the new resolution from the
     old mask and the new density; above, it keeps its resolution. Returns
-    (new_cfg, new_params, new_buffers); the grids are new tensors."""
-    _dense_only(cfg)
+    (new_cfg, new_params, new_buffers); the grids are new tensors (TensoRF
+    factors each resized, ``common.grid_resize``)."""
     new_cfg = dataclasses.replace(
         cfg, num_voxels=int(num_voxels), mpi_depth=int(mpi_depth),
         world_size=common.dmpigo_grid_resolution(
             cfg.xyz_min, cfg.xyz_max, num_voxels, mpi_depth),
         voxel_size_ratio=256.0 / mpi_depth)
     new_params = dict(params)
-    for k in ("density", "k0"):
-        new_params[k] = grid_sample.resize_trilinear_chunked(
-            params[k], new_cfg.world_size).contiguous()
+    new_params["density"] = common.grid_resize(
+        cfg.density_type, params["density"], new_cfg.world_size)
+    new_params["k0"] = common.grid_resize(cfg.k0_type, params["k0"],
+                                          new_cfg.world_size)
     new_buffers = dict(buffers)
     if int(np.prod(new_cfg.world_size)) <= 256 ** 3:
-        dev = params["density"].device
+        dev = buffers["mask_cache"].device
         xyz_min, xyz_max = _xyz_minmax(new_cfg, dev)
         old_mask_at_new = grid_sample.nearest_mask_lookup(
             buffers["mask_cache"], _grid_xyz(new_cfg, new_cfg.world_size, dev),
             xyz_min, xyz_max)
-        dens = new_params["density"] + buffers["act_shift"]
+        dens = common.grid_dense(cfg.density_type, new_params["density"],
+                                 1) + buffers["act_shift"]
         alpha = render.raw2alpha(dens[..., 0], 0.0, new_cfg.voxel_size_ratio)
         alpha = grid_sample.max_pool3d_same(alpha)
         new_buffers["mask_cache"] = old_mask_at_new & (
@@ -368,17 +380,16 @@ def _tv_weights(cfg: Config, weight: float, n_rays: int):
 def density_tv_grad(cfg: Config, params: dict, weight: float,
                     dense_mode: bool, n_rays: int, density_grad):
     """TV gradient of the density grid; in sparse mode (``dense_mode``
-    false) only where ``density_grad`` is non-zero."""
-    _dense_only(cfg)
+    false) only where ``density_grad`` is non-zero. TensoRF factors get the
+    gradient of their smooth-L1 loss (``common.grid_tv_grad``)."""
     wxy, wz = _tv_weights(cfg, weight, n_rays)
-    return render.total_variation_grad(
-        params["density"], wxy, wxy, wz, None if dense_mode else density_grad)
+    return common.grid_tv_grad(cfg.density_type, params["density"], wxy,
+                               wxy, wz, None if dense_mode else density_grad)
 
 
 def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
                n_rays: int, k0_grad):
     """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
-    _dense_only(cfg)
     wxy, wz = _tv_weights(cfg, weight, n_rays)
-    return render.total_variation_grad(
-        params["k0"], wxy, wxy, wz, None if dense_mode else k0_grad)
+    return common.grid_tv_grad(cfg.k0_type, params["k0"], wxy, wxy, wz,
+                               None if dense_mode else k0_grad)

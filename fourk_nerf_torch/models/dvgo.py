@@ -1,4 +1,4 @@
-"""DirectVoxGO: the dense-grid radiance field of bounded inward-facing
+"""DirectVoxGO: the voxel radiance field of bounded inward-facing
 scenes (torch).
 
 A model is (static :class:`Config`, params dict, buffers dict), as in the
@@ -6,7 +6,8 @@ JAX package: params hold ``density [X,Y,Z,1]``, ``k0 [X,Y,Z,C]`` and, with
 ``rgbnet_dim > 0``, the ``rgbnet`` dict; buffers hold the bool
 ``mask_cache``. Every ray gets a static sample count K (the bbox-diagonal
 bound); samples past a ray's own count or outside the box carry alpha 0.
-Only dense grids are ported. The training forms follow the forward pass:
+A grid is dense (``DenseGrid``) or TensoRF factors (``TensoRFGrid``, through
+``common.grid_*``). The training forms follow the forward pass:
 progressive grid scaling, the near-camera mask-out, the per-voxel view
 counts of the per-voxel lr, the occupancy renewal and the TV gradients;
 gradients come from torch autograd of the same forward (the training
@@ -149,24 +150,28 @@ def get_kwargs(cfg: Config) -> dict:
     }
 
 
-def _dense_only(cfg: Config):
-    if cfg.density_type != "DenseGrid" or cfg.k0_type != "DenseGrid":
-        raise NotImplementedError("the port has dense grids only")
+def init_grids(cfg, generator: torch.Generator, dev) -> dict:
+    """``density`` and ``k0`` of ``cfg``'s grid types: zero dense grids, or
+    TensoRF factors drawn from ``generator`` (density first)."""
+    return {
+        "density": common.grid_init(cfg.density_type, 1, cfg.world_size,
+                                    cfg.density_config, generator=generator,
+                                    device=dev),
+        "k0": common.grid_init(cfg.k0_type, cfg.k0_dim, cfg.world_size,
+                               cfg.k0_config, generator=generator,
+                               device=dev),
+    }
 
 
 def init(cfg: Config, *, generator: torch.Generator | None = None,
          init_mask=None, device=None):
-    """(params, buffers): zero grids, a random rgbnet drawn from
-    ``generator`` (seed 0 when None), a full mask (or ``init_mask``)."""
-    _dense_only(cfg)
+    """(params, buffers): the grids (:func:`init_grids`) and a random
+    rgbnet drawn from ``generator`` (seed 0 when None), a full mask (or
+    ``init_mask``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    X, Y, Z = cfg.world_size
-    params = {
-        "density": torch.zeros((X, Y, Z, 1), device=dev),
-        "k0": torch.zeros((X, Y, Z, cfg.k0_dim), device=dev),
-    }
+    params = init_grids(cfg, generator, dev)
     if cfg.rgbnet_dim > 0:
         dims = [cfg.dim0] + [cfg.rgbnet_width] * (cfg.rgbnet_depth - 1) + [3]
         params["rgbnet"] = common.mlp_init(dims, generator=generator,
@@ -199,7 +204,6 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
             viewdirs, *, stepsize: float, near, far, bg: float = 0.0,
             render_depth: bool = False, **unused) -> dict:
     """Volume-render N rays densely (eval: no random background)."""
-    _dense_only(cfg)
     N = rays_o.shape[0]
     xyz_min, xyz_max = _xyz_minmax(cfg, rays_o.device)
     interval = stepsize * cfg.voxel_size_ratio
@@ -211,7 +215,8 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         buffers["mask_cache"], pts, xyz_min, xyz_max)
 
     ind01 = grid_sample.world_to_ind01(pts, xyz_min, xyz_max)
-    density = grid_sample.trilinear_sample(params["density"], ind01)[..., 0]
+    density = common.grid_query(cfg.density_type, params["density"],
+                                ind01)[..., 0]
     alpha = render.raw2alpha(density, cfg.act_shift, interval)
     if cfg.fast_color_thres > 0:
         valid = valid & (alpha > cfg.fast_color_thres)
@@ -222,7 +227,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
                               torch.zeros_like(weights))
 
     k0 = None if cfg.rgbnet_full_implicit else \
-        grid_sample.trilinear_sample(params["k0"], ind01)
+        common.grid_query(cfg.k0_type, params["k0"], ind01)
     if cfg.rgbnet_dim <= 0:
         rgb_raw = torch.sigmoid(k0)
     else:
@@ -291,7 +296,8 @@ def update_occupancy_cache(cfg: Config, params: dict, buffers: dict) -> dict:
                                     axes[2], indexing="ij")
         ind01 = grid_sample.world_to_ind01(torch.stack([gx, gy, gz], -1),
                                            xyz_min, xyz_max)
-        dens = grid_sample.trilinear_sample(params["density"], ind01)[..., 0]
+        dens = common.grid_query(cfg.density_type, params["density"],
+                                 ind01)[..., 0]
         alpha[x0:x0 + _OCC_X_CHUNK] = render.raw2alpha(
             dens, cfg.act_shift, cfg.voxel_size_ratio)
     alpha = grid_sample.max_pool3d_same(alpha)
@@ -317,7 +323,11 @@ def maskout_near_cam_vox(cfg: Config, params: dict, cam_o, near: float
     """Density -100 at the voxels within ``near`` of a camera centre
     ``cam_o [n, 3]`` (frozoul/4K-NeRF lib/dvgo.py:186-198). The nearest
     squared distance is kept as a running minimum over x-slabs and chunks
-    of cameras, so no ``[X, Y, Z, n]`` tensor forms."""
+    of cameras, so no ``[X, Y, Z, n]`` tensor forms. A dense density only:
+    the JAX package's ``jnp.where`` over TensoRF factors fails too."""
+    if not common.is_dense(cfg.density_type):
+        raise ValueError("maskout_near_cam_vox writes voxels of a dense "
+                         "density grid; a TensoRFGrid has none")
     dens = params["density"]
     dev = dens.device
     cam = torch.as_tensor(np.asarray(cam_o, dtype=np.float32), device=dev)
@@ -344,26 +354,28 @@ def scale_volume_grid(cfg: Config, params: dict, buffers: dict,
     256^3 voxels the mask is rebuilt at the new resolution (the old mask
     at the new voxels, AND the dilated alpha of the new density); above,
     it keeps its resolution. Returns (new_cfg, new_params, new_buffers);
-    the grids are new tensors."""
-    _dense_only(cfg)
+    the grids are new tensors (TensoRF factors each resized,
+    ``common.grid_resize``)."""
     world_size, voxel_size = common.dvgo_grid_resolution(
         cfg.xyz_min, cfg.xyz_max, num_voxels)
     new_cfg = dataclasses.replace(cfg, num_voxels=int(num_voxels),
                                   world_size=tuple(world_size),
                                   voxel_size=voxel_size)
     new_params = dict(params)
-    for k in ("density", "k0"):
-        new_params[k] = grid_sample.resize_trilinear_chunked(
-            params[k], new_cfg.world_size).contiguous()
+    new_params["density"] = common.grid_resize(
+        cfg.density_type, params["density"], new_cfg.world_size)
+    new_params["k0"] = common.grid_resize(cfg.k0_type, params["k0"],
+                                          new_cfg.world_size)
     new_buffers = dict(buffers)
     if int(np.prod(new_cfg.world_size)) <= 256 ** 3:
-        dev = params["density"].device
+        dev = buffers["mask_cache"].device
         xyz_min, xyz_max = _xyz_minmax(new_cfg, dev)
         old_mask_at_new = grid_sample.nearest_mask_lookup(
             buffers["mask_cache"], _grid_xyz(new_cfg, new_cfg.world_size, dev),
             xyz_min, xyz_max)
-        alpha = render.raw2alpha(new_params["density"][..., 0],
-                                 new_cfg.act_shift, new_cfg.voxel_size_ratio)
+        dens = common.grid_dense(cfg.density_type, new_params["density"], 1)
+        alpha = render.raw2alpha(dens[..., 0], new_cfg.act_shift,
+                                 new_cfg.voxel_size_ratio)
         alpha = grid_sample.max_pool3d_same(alpha)
         new_buffers["mask_cache"] = old_mask_at_new & (
             alpha > new_cfg.fast_color_thres)
@@ -443,17 +455,16 @@ def _tv_weight(cfg: Config, weight: float, n_rays: int) -> float:
 def density_tv_grad(cfg: Config, params: dict, weight: float,
                     dense_mode: bool, n_rays: int, density_grad):
     """TV gradient of the density grid; in sparse mode (``dense_mode``
-    false) only where ``density_grad`` is non-zero."""
-    _dense_only(cfg)
+    false) only where ``density_grad`` is non-zero. TensoRF factors get the
+    gradient of their smooth-L1 loss (``common.grid_tv_grad``)."""
     w = _tv_weight(cfg, weight, n_rays)
-    return render.total_variation_grad(
-        params["density"], w, w, w, None if dense_mode else density_grad)
+    return common.grid_tv_grad(cfg.density_type, params["density"], w, w, w,
+                               None if dense_mode else density_grad)
 
 
 def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
                n_rays: int, k0_grad):
     """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
-    _dense_only(cfg)
     w = _tv_weight(cfg, weight, n_rays)
-    return render.total_variation_grad(
-        params["k0"], w, w, w, None if dense_mode else k0_grad)
+    return common.grid_tv_grad(cfg.k0_type, params["k0"], w, w, w,
+                               None if dense_mode else k0_grad)

@@ -94,6 +94,18 @@ def nearest_mask_lookup(mask, xyz, xyz_min, xyz_max):
     return vals & in_range
 
 
+def resize_trilinear(grid, new_size):
+    """Trilinear ``align_corners=True`` resize of ``[X,Y,Z,C]`` to
+    ``new_size`` in one query (the TensoRF factors' resize: planes and
+    vectors, small next to a full grid)."""
+    dt, dev = grid.dtype, grid.device
+    u = [torch.arange(n, dtype=dt, device=dev) / (n - 1) if n > 1
+         else torch.zeros(n, dtype=dt, device=dev)
+         for n in (int(s) for s in new_size)]
+    gx, gy, gz = torch.meshgrid(*u, indexing="ij")
+    return trilinear_sample(grid, torch.stack([gx, gy, gz], -1))
+
+
 def resize_trilinear_chunked(grid, new_size, z_chunk: int = 32):
     """Trilinear ``align_corners=True`` resize of ``[X,Y,Z,C]`` to
     ``new_size``, computed in z-slabs of ``z_chunk`` planes so the 8-corner

@@ -68,9 +68,15 @@ def composite(weights, values):
 
 def sample_ndc_pts_on_rays(rays_o, rays_d, n_samples: int):
     """Fixed-count equidistant NDC sampling ``p_k = o + d * k/(K-1)``:
-    ``[N, K, 3]``."""
-    dist = torch.arange(n_samples, dtype=rays_o.dtype,
-                        device=rays_o.device) / (n_samples - 1)
+    ``[N, K, 3]``. ``k/(K-1)`` is a true division by a device tensor: a
+    CUDA tensor divided by a Python number is multiplied by its
+    reciprocal, which moves some ``k/(K-1)`` by an ulp, and a sample that
+    lies on a grid plane then falls on the other side of it on the card
+    than on the CPU (its 8-corner gradient goes to other voxels)."""
+    dev = rays_o.device
+    dist = torch.arange(n_samples, dtype=rays_o.dtype, device=dev) \
+        / torch.full((1,), float(n_samples - 1), dtype=rays_o.dtype,
+                     device=dev)
     return rays_o[:, None, :] + rays_d[:, None, :] * dist[None, :, None]
 
 

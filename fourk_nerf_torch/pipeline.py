@@ -48,6 +48,12 @@ class FramePipeline:
         self.fuse_rrdb = fuse_rrdb
         self.stepsize, self.near, self.bg = stepsize, near, bg
         self.bounded = isinstance(cfg, dvgo.Config)
+        if not trainer.dense_grids(cfg) or "k0" not in params:
+            raise ValueError("the frame's kernels read dense density and k0 "
+                             "grids; a model with a TensoRF grid or a "
+                             "codebook (DirectQVGO) renders through "
+                             "trainer.render_viewpoints (its chunked "
+                             "forward)")
         if self.bounded:
             self.packed = cuda_box.pack_box_kernel(cfg, params, buffers,
                                                    use_bf16=use_bf16)

@@ -203,7 +203,12 @@ def build_group_lrs(cfg_train, params: dict) -> dict:
             continue
         name = k[len("lrate_"):]
         if name not in params:
-            continue
+            # DirectQVGO keeps its codebook projection under k0_vq, driven
+            # by lrate_k0 (the reference's VQGrid is model.k0)
+            if name == "k0" and "k0_vq" in params:
+                name = "k0_vq"
+            else:
+                continue
         lr = cfg_train[k]
         if lr and lr > 0:
             lrs[name] = float(lr)

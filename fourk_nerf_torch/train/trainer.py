@@ -16,18 +16,22 @@ Rays of every training view live on the device; the batch stream is the
 JAX package's (numpy ``default_rng((seed, epoch))``, indexed by step), so
 the same run draws the same rays, pixels or patches in both packages and
 a resumed run draws what the unbroken one would. :class:`TrainStep` is
-one step: autograd of the forward and the losses, the TV gradients,
-MaskedAdam in place. The slab-sweep training forward (``patch_box``) and
-the other model families raise up front.
+one step: autograd of the forward and the losses, the TV gradients
+(TensoRF factors': the autograd gradient of their TV loss), MaskedAdam in
+place, and a DirectQVGO's EMA codebook put in the buffers. The slab-sweep
+training forward (``patch_box``) raises up front, as does a DirectQVGO
+(``mode_type`` adain_vq) run with a ``pg_scale``, which the JAX package
+cannot scale.
 
 Evaluation (:func:`render_viewpoints`): full frames of a trained model for
 a list of poses, with PSNR / SSIM against ground truth when it is given. A
 frame goes through the family's kernel where the model fits it:
-``cuda_sweep.render_frame_cuda`` for a plane-aligned NDC DirectMPIGO,
-``cuda_box.render_frame_box_cuda`` for a dense DirectVoxGO with its mask at
-grid resolution. With ground truth (published metrics) the kernels run
-their float32 path, without it their bf16 path. Any other model (a
-DirectContractedVoxGO always) takes the chunked ``forward`` of its module.
+``cuda_sweep.render_frame_cuda`` for a plane-aligned NDC DirectMPIGO with
+dense grids, ``cuda_box.render_frame_box_cuda`` for a dense DirectVoxGO
+with its mask at grid resolution. With ground truth (published metrics)
+the kernels run their float32 path, without it their bf16 path. Any other
+model (a DirectContractedVoxGO or a DirectQVGO always, a model with a
+TensoRF grid) takes the chunked ``forward`` of its module.
 Which path a model takes is decided from its configuration before the
 first frame; a kernel that fails raises, it is never replaced by another
 path.
@@ -45,7 +49,7 @@ import torch
 
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.models import dcvgo, dmpigo, dvgo
+from fourk_nerf_torch.models import dcvgo, dmpigo, dvgo, dvqgo, model_module
 from fourk_nerf_torch.ops import cuda_box, cuda_sweep, grid_sample, \
     rays as ray_ops, render
 from fourk_nerf_torch.train import checkpoints, losses, optim
@@ -71,9 +75,15 @@ class DataFlags:
 def cfg_box_ok(model_cfg) -> bool:
     """True when the bounded-scene sweep can serve this model: dense grids,
     explicit rgb."""
+    return dense_grids(model_cfg) and not getattr(
+        model_cfg, "rgbnet_full_implicit", False)
+
+
+def dense_grids(model_cfg) -> bool:
+    """True when both grids of the model are dense (the kernels read dense
+    grids only)."""
     return (getattr(model_cfg, "density_type", "") == "DenseGrid"
-            and getattr(model_cfg, "k0_type", "") == "DenseGrid"
-            and not getattr(model_cfg, "rgbnet_full_implicit", False))
+            and getattr(model_cfg, "k0_type", "") == "DenseGrid")
 
 
 def frame_path(model_mod, model_cfg, params, buffers, data: DataFlags,
@@ -82,6 +92,7 @@ def frame_path(model_mod, model_cfg, params, buffers, data: DataFlags,
     kernel), ``"box"`` (the bounded-scene kernel) or ``"chunked"`` (the
     module's ``forward`` in ray chunks)."""
     if (model_mod is dmpigo and "rgbnet" in params
+            and dense_grids(model_cfg)
             and dmpigo.plane_aligned_ok(model_cfg, stepsize, data.ndc)):
         return "sweep"
     if (model_mod is dvgo and cfg_box_ok(model_cfg) and not data.ndc
@@ -102,7 +113,8 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
     """Render every pose and, with ``gt_imgs``, score the frames.
 
     ``model_mod`` is the model's module (``models.dmpigo``,
-    ``models.dvgo`` or ``models.dcvgo``); ``render_kwargs`` holds
+    ``models.dvqgo``, ``models.dvgo`` or ``models.dcvgo``);
+    ``render_kwargs`` holds
     ``stepsize``, ``bg`` and, for bounded scenes, ``near`` and ``far``.
     ``render_factor`` divides the
     resolution and the intrinsics for previews and skips the metrics;
@@ -145,7 +157,7 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
         if model_mod is dmpigo:
             kw["ndc_planes"] = dmpigo.plane_aligned_ok(model_cfg, stepsize,
                                                        data.ndc)
-        else:
+        elif model_mod is not dvqgo:
             kw.update(near=rk["near"], far=rk["far"])
         outs = [model_mod.forward(model_cfg, params, buffers, ro[s:s + chunk],
                                   rd[s:s + chunk], vd[s:s + chunk], **kw)
@@ -517,12 +529,25 @@ def _unflatten(like, it):
     return next(it)
 
 
+def _add_(tree, other) -> None:
+    """``tree += other`` leaf by leaf, in place (a grid, or TensoRF
+    factors)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _add_(v, other[k])
+    else:
+        tree.add_(other)
+
+
 class TrainStep:
     """One encoder training step for a fixed model configuration (one
     progressive-scaling phase): the loss and its gradients by autograd,
-    the TV gradients added, MaskedAdam applied to the params in place.
-    ``near_thres``: the near-clip loss's distance on the normalised
-    lattice (a DirectContractedVoxGO with a ``near_clip``), else None."""
+    the TV gradients added, MaskedAdam applied to the params in place, and
+    a DirectQVGO's EMA codebook after this batch (its training forward's
+    ``vq_state``) put in the buffers in place, as the JAX loop threads it
+    into its buffers after each step. ``near_thres``: the near-clip loss's
+    distance on the normalised lattice (a DirectContractedVoxGO with a
+    ``near_clip``), else None."""
 
     def __init__(self, model_mod, model_cfg, cfg_train, *,
                  render_kwargs: dict, skip_zero_grad=frozenset(),
@@ -545,6 +570,12 @@ class TrainStep:
     def loss_and_grads(self, params, buffers, batch, groups, bg_noise=None):
         """(loss, terms, grads) of one batch; ``grads`` holds the param
         groups named in ``groups``, in the layout of ``params``."""
+        return self._loss_grads_state(params, buffers, batch, groups,
+                                      bg_noise)[:3]
+
+    def _loss_grads_state(self, params, buffers, batch, groups, bg_noise):
+        """:meth:`loss_and_grads` and the forward's ``vq_state`` (None for
+        a model without a codebook)."""
         rays_o, rays_d, viewdirs, target = batch
         live = {k: _detached_leaves(params[k]) for k in groups}
         out = self.model_mod.forward(
@@ -558,34 +589,38 @@ class TrainStep:
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
         return (loss.detach(), {k: v.detach() for k, v in terms.items()},
-                _unflatten(live, iter(grads)))
+                _unflatten(live, iter(grads)), out.get("vq_state"))
 
     @torch.no_grad()
     def add_tv(self, params, grads, n_rays: int, tv_dense: bool) -> None:
         """Add the TV gradients of the density and k0 grids to ``grads``
-        in place (sparse mode: only where the gradient is non-zero)."""
+        in place (sparse mode: only where the gradient is non-zero). A
+        model without a k0 grid (DirectQVGO) has no k0 TV."""
         m = self.model_mod
         if self.weight_tv_density > 0 and "density" in grads:
-            grads["density"].add_(m.density_tv_grad(
+            _add_(grads["density"], m.density_tv_grad(
                 self.model_cfg, params, self.weight_tv_density, tv_dense,
                 n_rays, grads["density"]))
         if self.weight_tv_k0 > 0 and "k0" in grads:
-            grads["k0"].add_(m.k0_tv_grad(
+            _add_(grads["k0"], m.k0_tv_grad(
                 self.model_cfg, params, self.weight_tv_k0, tv_dense, n_rays,
                 grads["k0"]))
 
     def __call__(self, params, buffers, opt_state, batch, lrs, per_lr,
                  bg_noise, *, apply_tv: bool, tv_dense: bool):
-        """One step; updates ``params`` and ``opt_state`` in place and
-        returns (loss, psnr) as device scalars."""
+        """One step; updates ``params``, ``opt_state`` and a codebook's
+        ``buffers["vq_state"]`` in place and returns (loss, psnr) as device
+        scalars."""
         with torch.profiler.record_function("train_step"):
-            loss, terms, grads = self.loss_and_grads(params, buffers, batch,
-                                                     lrs.keys(), bg_noise)
+            loss, terms, grads, vq_state = self._loss_grads_state(
+                params, buffers, batch, lrs.keys(), bg_noise)
             if apply_tv:
                 self.add_tv(params, grads, batch[0].shape[0], tv_dense)
             optim.apply_updates(params, grads, opt_state, lrs,
                                 skip_zero_grad=self.skip_zero_grad,
                                 per_lr=per_lr)
+            if vq_state is not None:
+                buffers["vq_state"] = vq_state
             psnr = -10.0 * torch.log10(
                 terms["mse"] / max(self.cfg_train.weight_main, 1e-12))
         return loss, psnr
@@ -665,10 +700,11 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     (model_mod, model_cfg, params, buffers)."""
     dev = resolve_device(device)
     model_mod = _select_model_mod(cfg)
+    _refuse_unscalable(model_mod, cfg_train)
     if abs(cfg_model.world_bound_scale - 1) > 1e-9:
         xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
         xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift
-    if cfg_train.pervoxel_lr and model_mod is dmpigo:
+    if cfg_train.pervoxel_lr and model_mod in (dmpigo, dvqgo):
         raise ValueError("the per-voxel lr counts the views of a box's "
                          "voxels (DirectVoxGO, DirectContractedVoxGO)")
     seed = int(getattr(args, "seed", 777))
@@ -868,27 +904,35 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
 
 
 def _select_model_mod(cfg):
-    """The model family of a config (run.py:286-313): DirectMPIGO for NDC
-    scenes, DirectContractedVoxGO for unbounded inward-facing ones
-    (``data.unbounded_inward``), DirectVoxGO for bounded ones. DirectQVGO
-    (``mode_type`` adain_vq), whose training forms are not ported,
-    raises."""
-    if cfg.data.ndc:
-        if cfg.fine_model_and_render.get("mode_type") == "adain_vq":
-            raise _later("DirectQVGO (mode_type adain_vq) training",
-                         "5 (secondary models)")
-        return dmpigo
-    if cfg.data.get("unbounded_inward", False):
-        return dcvgo
-    return dvgo
+    """The model family of a config (run.py:286-313,
+    ``models.model_module``): DirectMPIGO for NDC scenes (DirectQVGO with
+    ``mode_type`` adain_vq), DirectContractedVoxGO for unbounded
+    inward-facing ones (``data.unbounded_inward``), DirectVoxGO for bounded
+    ones."""
+    return model_module(
+        bool(cfg.data.ndc), bool(cfg.data.get("unbounded_inward", False)),
+        cfg.fine_model_and_render.get("mode_type", ""))
+
+
+def _refuse_unscalable(model_mod, cfg_train):
+    """Raise for a DirectQVGO stage with a ``pg_scale``: the JAX package's
+    DirectQVGO (its ``models/dvqgo.py``) has no ``scale_volume_grid``, so
+    its loop stops with an AttributeError at the first scaling step; the
+    port refuses the run before it starts."""
+    if model_mod is dvqgo and len(cfg_train.pg_scale):
+        raise ValueError(
+            "DirectQVGO (mode_type adain_vq) cannot take a pg_scale step: "
+            "the JAX package's dvqgo has no scale_volume_grid, and its loop "
+            "fails with an AttributeError at the first scaling step; set "
+            "pg_scale=[]")
 
 
 def _make_cfg(model_mod, xyz_min, xyz_max, num_voxels, model_kwargs):
     kw = dict(model_kwargs)
-    if model_mod is dmpigo:
-        return dmpigo.make_config(xyz_min=xyz_min, xyz_max=xyz_max,
-                                  num_voxels=num_voxels,
-                                  mpi_depth=kw.pop("mpi_depth"), **kw)
+    if model_mod in (dmpigo, dvqgo):  # the MPI family takes mpi_depth
+        return model_mod.make_config(xyz_min=xyz_min, xyz_max=xyz_max,
+                                     num_voxels=num_voxels,
+                                     mpi_depth=kw.pop("mpi_depth"), **kw)
     kw.pop("mpi_depth", None)
     return model_mod.make_config(
         xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
@@ -911,6 +955,8 @@ def train(args, cfg, data_dict, writer=None, device=None):
     if any(c.ray_sampler == "patch_box" for c in stages):
         raise _later("the patch_box sampler (the slab-sweep training "
                      "forward)", "2b (patch_box)")
+    for c in stages:
+        _refuse_unscalable(model_mod, c)
     if model_mod is dcvgo and any(c.ray_sampler == "in_maskcache"
                                   for c in stages):
         raise ValueError("the in_maskcache sampler keeps the rays that hit "

@@ -69,6 +69,22 @@ def dcvgo_from_numpy(params, buffers, device=None):
     return to_torch(params, dev), to_torch(buffers, dev)
 
 
+def dvqgo_from_numpy(params, buffers, device=None):
+    """JAX-layout dvqgo ``params`` (``density``, ``k0_vq/project``,
+    ``rgbnet``) and ``buffers`` (``act_shift``, ``mask_cache``,
+    ``vq_state``) -> tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return to_torch(params, dev), to_torch(buffers, dev)
+
+
+def dbvgo_from_numpy(params, buffers, device=None):
+    """JAX-layout dbvgo ``params`` (the ``fg`` and ``bg`` fields) and
+    ``buffers`` (``mask_cache_fg``, ``mask_cache_bg``) -> tensors on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return to_torch(params, dev), to_torch(buffers, dev)
+
+
 def _as_float(x) -> torch.Tensor:
     """An array or tensor as a float32 tensor on its own device."""
     if isinstance(x, torch.Tensor):

@@ -355,8 +355,19 @@ def test_init_and_tensorf_grids():
     assert tuple(p["density"].shape) == (*tc.world_size, 1)
     assert tuple(p["k0"].shape) == (*tc.world_size, 6)
     assert p["rgbnet"]["w0"].shape == (33, 16) and bool(b["mask_cache"].all())
+    # TensoRF grids: factors drawn, and the forward runs on them (their
+    # parity with the JAX package: tests/test_torch_tensorf.py)
     tens = td.make_config(num_voxels=24 ** 3, num_voxels_base=24 ** 3,
                           alpha_init=1e-2, density_type="TensoRFGrid",
                           density_config={"n_comp": 4}, **FG)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        td.init(tens, device="cpu")
+    tp, tb = td.init(tens, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    X, Y, Z = tens.world_size
+    assert tuple(tp["density"]["xy_plane"].shape) == (X, Y, 4)
+    assert "f_vec" not in tp["density"]
+    assert tuple(tp["k0"].shape) == (X, Y, Z, 3)
+    ro = torch.zeros((5, 3))
+    rd = torch.nn.functional.normalize(torch.randn(
+        (5, 3), generator=torch.Generator().manual_seed(1)), dim=-1)
+    out = td.forward(tens, tp, tb, ro, rd, rd, stepsize=1.0)
+    assert bool(torch.isfinite(out["rgb_marched"]).all())

@@ -732,3 +732,46 @@ def test_dcvgo_forward_and_gradients_cuda_match_cpu(cuda):
         assert ref > 0
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=1e-4 * ref)
+
+
+def test_ndc_samples_and_dvqgo_forward_cuda_match_cpu(cuda):
+    """The NDC samples are the same bits on the card as on the CPU (a CUDA
+    tensor divided by a Python number is multiplied by its reciprocal,
+    which put some samples on the other side of a grid plane); then a
+    DirectQVGO forward and its gradients agree between the devices."""
+    from fourk_nerf_torch.models import dvqgo
+    from fourk_nerf_torch.ops import render
+    rng = np.random.default_rng(0)
+    ro = rng.normal(0, 0.1, (64, 3)).astype(np.float32)
+    ro[:, 2] = -1.0
+    rd = rng.normal(0, 0.3, (64, 3)).astype(np.float32)
+    rd[:, 2] = 2.0
+    for K in (8, 256, 255):
+        got = render.sample_ndc_pts_on_rays(torch.as_tensor(ro, device=cuda),
+                                            torch.as_tensor(rd, device=cuda),
+                                            K)
+        want = render.sample_ndc_pts_on_rays(torch.as_tensor(ro),
+                                             torch.as_tensor(rd), K)
+        assert torch.equal(got.cpu(), want), K
+    cfg = dvqgo.make_config(
+        xyz_min=[-1.3, -1.2, -1.0], xyz_max=[1.3, 1.2, 1.0],
+        num_voxels=16 * 16 * 8, mpi_depth=8, rgbnet_dim=6, rgbnet_width=16,
+        fast_color_thres=1.0 / 40, n_cluster=256)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p, b = dvqgo.init(cfg, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+        p["density"] = torch.as_tensor(rng.normal(
+            -1, 2, tuple(p["density"].shape)).astype(np.float32)
+            if dev.type == "cuda" else outs["density"], device=dev)
+        outs.setdefault("density", p["density"].cpu().numpy())
+        p["density"].requires_grad_(True)
+        out = dvqgo.forward(cfg, p, b, torch.as_tensor(ro, device=dev),
+                            torch.as_tensor(rd, device=dev),
+                            torch.as_tensor(rd, device=dev), stepsize=1.0,
+                            is_train=True)
+        g, = torch.autograd.grad(out["rgb_marched"].sum(), p["density"])
+        outs[dev.type] = (out["rgb_marched"].detach().cpu(), g.cpu(),
+                          out["vq_state"]["embed"].cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -266,7 +266,7 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(fine_model_and_render=dict(mode_type="adain_vq")),
+    dict(fine_model_and_render=dict(dim_rend=6)),
     dict(fine_train=dict(ray_sampler="patch_box")),
     # a bounded run: the raise comes before the coarse stage trains
     dict(data=dict(ndc=False), coarse_train=dict(N_iters=5),
