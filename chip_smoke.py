@@ -166,12 +166,43 @@ Phases (any failure raises and the script exits non-zero):
      beside their bounds; (c) DirectBiVoxGO at 160^3 a field, an
      8192-ray batch of phase 16's views forward and backward: finite, the
      constant background weighted by the product of the two fields'
-     transmittances, timed beside its bound; (d) the StyleGAN-heritage ops
+     transmittances, timed beside its bound; the tiny DirectBiVoxGO and
+     TensoRF DirectMPIGO / DirectVoxGO of ``tools/device_parity.py`` on
+     the card against the CPU (the background samples within 4 ulps,
+     outputs 1e-4, gradients 1e-4 of each leaf's largest entry); (d) the StyleGAN-heritage ops
      on the card against CPU copies of their inputs (the FIR ops and
      ``bias_act`` on ``[4, 256, 128, 128]``, ``hash_encode`` at its
      defaults on 2^20 points with equal indices, ``topp_masking`` on
      ``[8192, 256]``); one ``{"secondary": ...}`` JSON line;
- 19. one JSON line with the seven kernels' summary, then the result line.
+ 19. the last modules at full width: (a) ``fern_lg_pretrain.py`` with
+     ``dim_rend`` 8 (the rend layer; the one deviation) on phase 13's views
+     and cut; checks: the loss falls, the rend layer bitwise unchanged
+     (frozen: no ``lrate_rend_layer``), the ``i_val`` and held-out renders
+     chunked with no sweep launch, ``run --render_only`` renders the
+     held-out views bitwise as the trained model did, ``FramePipeline``
+     and ``run_sr`` refuse the model, a 10-step run of the tiny CPU-test
+     scene with ``dim_rend`` 8 gives the same losses on the card and on
+     the CPU; (b) ``syn_default.py`` with ``ray_sampler='patch_box'`` in
+     both stages on phase 16's views and cut, the coarse stage 400 steps
+     (``PATCH_BOX_OVERRIDES``):
+     the plans and windows each stage logs (renewed at every pg_scale
+     step), the steps by route, the loss falls, the held-out PSNR beside
+     phase 16's and above a white frame, the slab forward against the
+     gather forward on one patch at the final params (loss 1e-5 relative,
+     gradients 5e-5), the fine step by parts (forward + backward,
+     MaskedAdam) beside their bounds and beside phase 16's gather step,
+     peak memory, a 10-step tiny ``patch_box`` run on both devices; (c)
+     ``parallel/`` in a world of one rank on NCCL: the 1x1 mesh,
+     ``all_reduce_dict``, ``tile_process_sharded`` of phase 11's crop on
+     the dense-block kernel (counted) bitwise equal to ``tile_process``,
+     ``box_sweep.render_frame_box(tile_mesh=...)`` of a phase 8 pose
+     (one box launch) bitwise equal to the one-rank frame, the grids
+     split along X and whole again, the replica check, then ``run.run``
+     with ``--multihost`` on the tiny scene in a process of its own (the
+     card's machine has no image reader, so the scene goes in memory, as
+     phase 13's ``run --render_only`` does); one ``{"completion": ...}``
+     JSON line and the phase's seconds;
+ 20. one JSON line with the seven kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -303,6 +334,31 @@ DBVGO_RAYS = 8192          # phase 18 (c): rays a batch
 STYLEGAN_SHAPE = (4, 256, 128, 128)  # phase 18 (d): the FIR ops' input
 HASH_POINTS = 1 << 20      # phase 18 (d): hash_encode points
 TOPP_SHAPE = (8192, 256)   # phase 18 (d): topp_masking weights
+DIM_REND = 8               # phase 19 (a): the rend layer's input channels
+#: phase 19 (a): the fern pretrain with the rend layer, phase 13's cut
+DIM_REND_OVERRIDES = {
+    "fine_model_and_render": {"dim_rend": DIM_REND},
+    "fine_train": TRAIN_OVERRIDES["fine_train"],
+    "args": TRAIN_OVERRIDES["args"],
+}
+DIM_REND_DEVIATION = ("fine_model_and_render.dim_rend=8 (published 3): no "
+                      "published config sets it above 3")
+#: phase 19 (b): syn_default with the slab sweep's patches in both stages,
+#: phase 16's cut but 400 coarse steps: an 88x88 patch of an 800x800 view
+#: reaches a voxel of the object in a few of 100 steps, where 8192 random
+#: rays reach it in every one, and 100 coarse patch steps left every alpha
+#: under bbox_thres on an H100 (PERF.md, phase 19)
+PATCH_BOX_COARSE_STEPS = 400
+PATCH_BOX_OVERRIDES = {
+    **BOUNDED_OVERRIDES,
+    "coarse_train": {**BOUNDED_OVERRIDES["coarse_train"],
+                     "N_iters": PATCH_BOX_COARSE_STEPS,
+                     "ray_sampler": "patch_box"},
+    "fine_train": {**BOUNDED_OVERRIDES["fine_train"],
+                   "ray_sampler": "patch_box"},
+}
+BOUNDED_DEVIATION = ("coarse_model_and_render.alpha_init=1e-4 (published "
+                     "1e-6): 100 coarse steps of 5000, as phase 16's")
 
 
 def log(*a):
@@ -3642,6 +3698,34 @@ def secondary_dbvgo(dev, bdata):
         f"{bound_by['fwd_bwd']}); peak memory {peak / 2**30:.2f} GiB")
     if not (finite and comp_err <= 1e-5 and prod_err <= 1e-6):
         raise AssertionError(f"DirectBiVoxGO: {rec}")
+    rec["cuda_vs_cpu"] = secondary_cuda_vs_cpu(dev)
+    return rec
+
+
+def secondary_cuda_vs_cpu(dev):
+    """Phase 18 (c): the tiny DirectBiVoxGO and TensoRF DirectMPIGO /
+    DirectVoxGO of ``tools/device_parity.py`` on the card against the CPU,
+    as ``tests/test_torch_gpu.py`` holds them: the background samples
+    within 4.8e-7 (4 ulps), outputs 1e-4, gradients 1e-4 of each leaf's
+    largest entry."""
+    import torch
+    from fourk_nerf_torch.tools import device_parity
+    cpu = torch.device("cpu")
+    rec = {"dbvgo_bg_samples_max_abs": device_parity.dbvgo_bg_samples(dev)}
+    for name, case in (("dbvgo", device_parity.dbvgo_case()),
+                       ("tensorf_dmpigo", device_parity.tensorf_case(
+                           "dmpigo")),
+                       ("tensorf_dvgo", device_parity.tensorf_case("dvgo"))):
+        res = device_parity.compare((cpu, dev), *case)
+        rec[name] = {"out_max_abs": max(res["out_diff"].values()),
+                     "grad_max_rel": max(res["grad_rel"])}
+    log("  (c) cuda vs cpu, the tiny models of tools/device_parity.py: "
+        + ", ".join(f"{k} {v}" for k, v in rec.items()))
+    if not (rec["dbvgo_bg_samples_max_abs"] <= 4.8e-7 and all(
+            v["out_max_abs"] <= 1e-4 and v["grad_max_rel"] <= 1e-4
+            for k, v in rec.items() if isinstance(v, dict))):
+        raise AssertionError(f"a secondary model moves between the card "
+                             f"and the CPU: {rec}")
     return rec
 
 
@@ -3778,6 +3862,554 @@ def run_secondary(dev, anchor):
     return rec, launches
 
 
+class Tee:
+    """Writes to stdout and keeps the lines that hold ``key`` (the
+    trainer's plan lines)."""
+
+    def __init__(self, key: str):
+        self.key, self.lines, self.out = key, [], sys.stdout
+
+    def write(self, s):
+        self.lines += [line for line in s.splitlines() if self.key in line]
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def tiny_tolerance(runs: dict, what: str) -> float:
+    """The largest relative difference of the per-step losses of a tiny
+    run on the card and on the CPU; fails above ``TINY_TOL``."""
+    rel = float(np.max(np.abs(runs["cuda"] - runs["cpu"]) / runs["cpu"]))
+    log(f"  {what}: {len(runs['cpu'])} steps, per-step loss cuda vs cpu max "
+        f"rel {rel:.3e} (limit {TINY_TOL:.0e})")
+    if len(runs["cpu"]) != 10 or not rel <= TINY_TOL:
+        raise AssertionError(f"{what} differs between cuda and cpu")
+    return rel
+
+
+def last_dim_rend(dev, anchor, basedir, launches):
+    """Phase 19 (a): DirectMPIGO with ``dim_rend`` 8 on phase 13's views at
+    full width (see the module docstring). Returns its record."""
+    import types
+
+    import torch
+    from fourk_nerf_torch import pipeline, run as run_mod, run_sr, weights
+    from fourk_nerf_torch.models import dmpigo
+    from fourk_nerf_torch.ops import cuda_sweep
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import checkpoints, trainer
+
+    log(f"  (a) deviation from the published config: {DIM_REND_DEVIATION}")
+    rec: dict = {"config": FERN_CFG, "overrides": DIM_REND_OVERRIDES,
+                 "deviation": DIM_REND_DEVIATION}
+    cfg = load_over(FERN_CFG, basedir, "dim_rend", DIM_REND_OVERRIDES)
+    drawn = []
+    init = dmpigo.init
+
+    def recording_init(*a, **kw):  # the rend layer the run starts from
+        params, buffers = init(*a, **kw)
+        drawn.append({k: v.clone() for k, v in params["rend_layer"].items()})
+        return params, buffers
+
+    writer = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.sweep.launches = 0
+    dmpigo.init = recording_init
+    t0 = time.perf_counter()
+    try:
+        _, mcfg, params, buffers = trainer.train(
+            run_args(DIM_REND_OVERRIDES), cfg, anchor, writer=writer,
+            device=dev)
+    finally:
+        dmpigo.init = init
+    sync()
+    rec["train_s"] = time.perf_counter() - t0
+    launches["dim_rend_i_val"] = cuda_sweep.sweep.launches
+    losses = writer.values("train/loss")
+    frozen = len(drawn) == 1 and all(
+        torch.equal(params["rend_layer"][k], v) for k, v in drawn[0].items())
+    rec.update(world_size=list(mcfg.world_size), losses=losses,
+               val_psnr=writer.values("val/psnr"), rend_layer_frozen=frozen,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(f"  (a) dim_rend {mcfg.dim_rend}: {cfg.fine_train.N_iters} steps in "
+        f"{rec['train_s']:.1f} s (host clock), world size {mcfg.world_size};"
+        f" loss at each print {['%.5g' % x for x in losses]}; val psnr "
+        f"{rec['val_psnr']} ({launches['dim_rend_i_val']} sweep launches); "
+        f"rend layer unchanged: {frozen}; peak memory "
+        f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and frozen
+            and launches["dim_rend_i_val"] == 0):
+        raise AssertionError(f"the dim_rend run: {rec}")
+    check_finite(params, "dim_rend params")
+
+    # held-out views: chunked, counted; then --render_only from the file
+    rk = {"near": 0.0, "far": 1.0, "bg": 0.0, "stepsize": 1.0}
+    gt = [anchor["images"][i] for i in anchor["i_test"]]
+    cuda_sweep.sweep.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.render_viewpoints(
+        dmpigo, mcfg, params, buffers, anchor["poses"][anchor["i_test"]],
+        anchor["HW"][anchor["i_test"]], anchor["Ks"][anchor["i_test"]],
+        data=trainer.DataFlags(ndc=True), render_kwargs=rk, gt_imgs=gt,
+        eval_ssim=False, device=dev)
+    sync()
+    rec["chunked_frame_s"] = (time.perf_counter() - t0) / len(gt)
+    args = run_mod.config_parser().parse_args(
+        ["--config", os.path.join(HERE, FERN_CFG), "--device", dev.type,
+         "--render_only", "--render_test"])
+    again = run_mod.run(args, cfg, anchor)["test"]
+    sync()
+    launches["dim_rend_test"] = cuda_sweep.sweep.launches
+    same = all(torch.equal(a, b) for a, b in zip(res["rgbs"], again["rgbs"]))
+    rec.update(test_psnr=res["psnrs"], test_path=res["path"],
+               render_only_path=again["path"], render_only_bitwise=same)
+    h, w = (int(v) for v in anchor["HW"][0])
+    log(f"  (a) held-out psnr {res['psnrs']} through the {res['path']} "
+        f"forward ({rec['chunked_frame_s']:.2f} s a {w}x{h} frame, host "
+        f"clock); --render_only {again['path']}, bitwise: {same}; sweep "
+        f"launches {launches['dim_rend_test']}")
+    if not (res["path"] == again["path"] == "chunked" and same
+            and launches["dim_rend_test"] == 0):
+        raise AssertionError("the dim_rend held-out renders")
+    del res, again
+
+    # the 4K frame and the joint trainer refuse the model up front
+    refused = {}
+    sr = weights.sftnet_init(num_block=1, seed=3, device=dev)
+    try:
+        pipeline.FramePipeline(mcfg, params, buffers, sr, device=dev)
+    except ValueError as e:
+        refused["FramePipeline"] = str(e)[:60]
+    jcfg = load_over(os.path.join("fourk_nerf_torch", "configs", "llff",
+                                  "fern_lg_joint_l1.py"), basedir,
+                     "dim_rend_joint", {"fine_model_and_render": {
+                         "dim_rend": DIM_REND}})
+    try:
+        run_sr.run(run_sr.config_parser().parse_args(
+            ["--config", "c.py", "--device", dev.type]), jcfg, anchor)
+    except ValueError as e:
+        refused["run_sr"] = str(e)[:60]
+    rec["refused"] = refused
+    log(f"  (a) refused up front: {refused}")
+    if set(refused) != {"FramePipeline", "run_sr"}:
+        raise AssertionError("a dim_rend 8 model was not refused")
+    del params, buffers, sr
+    torch.cuda.empty_cache()
+
+    # the tiny CPU-test scene on the card and on the CPU
+    tiny = {}
+    for name in ("cuda", "cpu"):
+        tcfg = tiny_scene.apply_overrides(load_over(
+            FERN_CFG, basedir, f"tiny_{name}", {}), basedir, f"tiny_{name}")
+        tcfg.fine_model_and_render.dim_rend = DIM_REND
+        w = Recorder()
+        trainer.train(types.SimpleNamespace(
+            seed=0, no_reload=True, no_reload_optimizer=False, ft_path="",
+            i_print=1, i_val=0, i_weights=0), tcfg, tiny_scene.scene(),
+            writer=w, device=torch.device(name))
+        tiny[name] = np.array(w.values("train/loss"))
+    rec["tiny_loss_max_rel_diff"] = tiny_tolerance(tiny, "(a) tiny dim_rend "
+                                                   "run")
+    return rec
+
+
+def tiny_patch_box_cfg(basedir, expname):
+    """``syn_default`` cut to the tiny bounded scene for ``patch_box``: no
+    coarse stage, 10 fine steps at 28^3 with a pg_scale step at 5, N_rand
+    64 (8x8 patches), as ``tests/test_torch_box_train.py`` runs it."""
+    from fourk_nerf_torch.tools import tiny_scene
+    over = {k: v for k, v in tiny_scene.BOUNDED_OVERRIDES.items()
+            if k.endswith("model_and_render")}
+    cfg = load_over(SYN_CFG, basedir, expname, over)
+    cfg.fine_model_and_render.update(num_voxels=28 ** 3,
+                                     num_voxels_base=28 ** 3)
+    cfg.coarse_train.N_iters = 0
+    cfg.fine_train.update(N_iters=10, N_rand=64, pg_scale=[5],
+                          ray_sampler="patch_box")
+    return cfg
+
+
+def last_patch_box(dev, basedir, launches, bounded):
+    """Phase 19 (b): ``patch_box`` in both stages of ``syn_default`` on
+    phase 16's views at full width (see the module docstring).
+    ``bounded``: phase 16's record, beside which the numbers go. Returns
+    its record."""
+    import contextlib
+    import types
+
+    import torch
+    from fourk_nerf_torch.config import ConfigDict
+    from fourk_nerf_torch.models import dvgo
+    from fourk_nerf_torch.ops import box_sweep, cuda_box
+    from fourk_nerf_torch.tools import tiny_scene
+    from fourk_nerf_torch.train import losses as losses_mod, optim, trainer
+
+    rec: dict = {"config": SYN_CFG, "overrides": PATCH_BOX_OVERRIDES,
+                 "deviation": BOUNDED_DEVIATION}
+    cuda_box.sweep_box.launches = 0
+    data = bounded_views(dev)
+    sync()
+    launches["patch_box_teacher"] = cuda_box.sweep_box.launches
+    cfg = load_over(SYN_CFG, basedir, "patch_box", PATCH_BOX_OVERRIDES)
+    args = run_args(PATCH_BOX_OVERRIDES)
+    writer, tee = Recorder(), Tee("patch_box")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_box.sweep_box.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        _, mcfg, params, buffers = trainer.train(args, cfg, data,
+                                                 writer=writer, device=dev)
+    sync()
+    rec["train_s"] = time.perf_counter() - t0
+    launches["patch_box_i_val"] = cuda_box.sweep_box.launches
+    losses = writer.values("train/loss")
+    n_c = cfg.coarse_train.N_iters // args.i_print
+    plans = [line.split("): ", 1)[1] for line in tee.lines
+             if "slab-sweep ON" in line or "-> gather" in line]
+    routes = [line.split("): ", 1)[1] for line in tee.lines
+              if "patch_box steps" in line]
+    rec.update(coarse_losses=losses[:n_c], fine_losses=losses[n_c:],
+               plans=plans, routes=routes,
+               val_psnr=writer.values("val/psnr"),
+               world_size=list(mcfg.world_size),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(f"  (b) coarse {cfg.coarse_train.N_iters} + fine "
+        f"{cfg.fine_train.N_iters} patch_box steps in {rec['train_s']:.1f} s "
+        f"(host clock, plans, eval renders and saves included): fine world "
+        f"size {mcfg.world_size}; steps by route {rec['routes']}; loss at "
+        f"each print coarse {['%.5g' % x for x in losses[:n_c]]}, fine "
+        f"{['%.5g' % x for x in losses[n_c:]]}; val psnr {rec['val_psnr']} "
+        f"({launches['patch_box_i_val']} box launches); peak memory "
+        f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    for line in plans:
+        log(f"  (b) plan: {line}")
+    n_plans = 1 + len(cfg.coarse_train.pg_scale) + 1 + len(
+        cfg.fine_train.pg_scale)
+    # a print averages 10 patches of another content each, most of them
+    # background: the coarse stage's second half of prints against its
+    # first (40 prints), and the val renders, which see whole views, rise
+    halves = [float(np.mean(x[:len(x) // 2])), float(np.mean(
+        x[len(x) // 2:]))] if (x := losses[:n_c]) else []
+    rec["coarse_loss_halves"] = halves
+    val = rec["val_psnr"]
+    n_val = sum(c.N_iters // args.i_val for c in (cfg.coarse_train,
+                                                   cfg.fine_train))
+    slab = [int(r.split("steps: ")[1].split(" slab")[0]) for r in routes]
+    if not (len(plans) == n_plans and all(np.isfinite(losses))
+            and halves[1] < halves[0] and val[-1] > val[0] + 1.0
+            and len(slab) == 2 and min(slab) > 0
+            and launches["patch_box_i_val"] == n_val * len(data["i_val"])):
+        raise AssertionError(f"the patch_box run: {rec}")
+    check_finite(params, "patch_box params")
+
+    # the held-out views through the box kernel, beside phase 16's
+    rk = {"near": 2.0, "far": 6.0, "bg": 1.0, "stepsize": 0.5}
+    gt = [data["images"][i] for i in data["i_test"]]
+    cuda_box.sweep_box.launches = 0
+    res = trainer.render_viewpoints(
+        dvgo, mcfg, params, buffers, data["poses"][data["i_test"]],
+        data["HW"][data["i_test"]], data["Ks"][data["i_test"]],
+        data=trainer.DataFlags(), render_kwargs=rk, gt_imgs=gt,
+        eval_ssim=False, device=dev)
+    sync()
+    launches["patch_box_test"] = cuda_box.sweep_box.launches
+    white = [float(-10 * np.log10(np.mean((1.0 - g) ** 2))) for g in gt]
+    rec.update(test_psnr=res["psnrs"], white_psnr=white,
+               phase16_test_psnr=bounded.get("test_psnr"))
+    log(f"  (b) held-out psnr {res['psnrs']} (phase 16, gathers: "
+        f"{bounded.get('test_psnr')}; a white frame {white}); "
+        f"{launches['patch_box_test']} box launches")
+    if not (res["path"] == "box" and np.mean(res["psnrs"]) > np.mean(white)
+            + 1.0):
+        raise AssertionError("the patch_box model's held-out views")
+    del res
+
+    # one patch at the final params: the slab forward against the gather
+    ft = cfg.fine_train
+    flat, _ = trainer.gather_training_rays(cfg, ft, data, dev)
+    sample = trainer.make_batch_sampler("patch_box", flat, ft.N_rand, 777)
+    kind, sel = sample(3)
+    batch = trainer.gather_batch(flat, kind, sel, sample.patch)
+    # this patch's own plan and window: at the final grid the stage's
+    # window over every patch may pass the cap (the gather route)
+    axis, flip, S = box_sweep.box_train_plan(
+        mcfg, flat["rays_o"][sel[0]], flat["rays_d"][sel[0]], stepsize=0.5,
+        near=2.0)
+    Pu, Pv = box_sweep.box_window_size_for(
+        mcfg, *batch[:3], stepsize=0.5, near=2.0, axis=axis, flip=flip,
+        cap=max(mcfg.world_size))
+    train_cfg = ConfigDict(dict(weight_main=1.0, weight_entropy_last=1e-3,
+                                weight_distortion=0.01, weight_rgbper=0.01,
+                                weight_nearclip=0.0))
+    keys = ("density", "k0")
+
+    def loss_grads(fwd):
+        p = {**params, **{k: params[k].detach().requires_grad_(True)
+                          for k in keys}}
+        loss = losses_mod.encoder_losses(fwd(p), batch[3], train_cfg,
+                                         batch[0].shape[0])[0]
+        return loss.item(), torch.autograd.grad(loss, [p[k] for k in keys])
+
+    l_ref, g_ref = loss_grads(lambda p: dvgo.forward(
+        mcfg, p, buffers, *batch[:3], stepsize=0.5, near=2.0, far=1e9,
+        bg=1.0, is_train=True))
+    st: dict = {}
+    l_box, g_box = loss_grads(lambda p: box_sweep.sweep_rays_train_box(
+        mcfg, p, buffers, *batch[:3], stepsize=0.5, near=2.0, bg=1.0,
+        axis=axis, flip=flip, S=S, Pu=Pu, Pv=Pv, use_bf16=False, stats=st))
+    g_err = [float((a - b).abs().max()) for a, b in zip(g_ref, g_box)]
+    rec["slab_vs_gather"] = dict(
+        rays=int(batch[0].shape[0]), plan=[axis, flip, S], window=[Pu, Pv],
+        loss_gather=l_ref, loss_slab=l_box, grad_max_abs=g_err,
+        grad_max=[float(a.abs().max()) for a in g_ref], **st)
+    log(f"  (b) one {sample.patch}x{sample.patch} patch at the final params,"
+        f" plan {(axis, flip, S)}, window {(Pu, Pv)}, {st}: loss slab "
+        f"{l_box:.7g} vs gather {l_ref:.7g}; gradient max abs difference "
+        f"{g_err} (limits: loss 1e-5 relative, gradients 5e-5, the JAX "
+        "package's test_box_train.py)")
+    if not (abs(l_box - l_ref) <= 1e-5 * abs(l_ref)
+            and max(g_err) <= 5e-5):
+        raise AssertionError("the slab forward disagrees with the gather "
+                             "forward")
+    del g_ref, g_box
+
+    # the fine step at full width: forward + backward and MaskedAdam
+    lrs = {k: optim.group_lr(v, 10, ft.lrate_decay) for k, v in
+           optim.build_group_lrs(ft, params).items()}
+    skip = frozenset(ft.skip_zero_grad_fields)
+    step_for = trainer.make_box_train_steps(
+        dvgo, mcfg, ft, render_kwargs={**rk, "rand_bkgd": False},
+        skip_zero_grad=skip, Pu=Pu, Pv=Pv)
+    step = step_for(axis, flip, S)
+    opt = optim.init_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    full = event_ms(lambda: step(params, buffers, opt, batch, lrs, None,
+                                 None, apply_tv=False, tv_dense=False))
+    peak = torch.cuda.max_memory_allocated()
+    _, _, grads = step.loss_and_grads(params, buffers, batch, lrs.keys())
+    split = {"fwd_bwd": event_ms(lambda: step.loss_and_grads(
+                 params, buffers, batch, lrs.keys())),
+             "adam": event_ms(lambda: optim.apply_updates(
+                 params, grads, opt, lrs, skip_zero_grad=skip))}
+    st = {}
+    box_sweep.sweep_rays_train_box(
+        mcfg, params, buffers, *batch[:3], stepsize=0.5, near=2.0, bg=1.0,
+        axis=axis, flip=flip, S=S, Pu=Pu, Pv=Pv, stats=st)
+    param_bytes = tree_bytes(params)
+    bound_bytes = {"fwd_bwd": 2 * st["samples"] * 8 * (1 + mcfg.k0_dim) * 4
+                   + param_bytes, "adam": 7 * param_bytes}
+    bound_flops = {"fwd_bwd": 6 * mlp_macs(params["rgbnet"])
+                   * st["mlp_samples"], "adam": 0}
+    bound, bound_by = bounds_of(bound_bytes, bound_flops)
+    gather_ms = bounded["fine_step"]["step_ms"]
+    rec["fine_step"] = dict(
+        step_ms=full, split_ms=split, split_bound_ms=bound,
+        split_bound_by=bound_by, split_bound_bytes=bound_bytes,
+        split_bound_flops=bound_flops, rays=int(batch[0].shape[0]),
+        params=param_bytes // 4, max_memory_allocated_bytes=peak,
+        phase16_gather_step_ms=gather_ms,
+        phase16_gather_rays=bounded["fine_step"]["rays"], **st)
+    log(f"  (b) fine step at {mcfg.world_size}, {batch[0].shape[0]} rays, "
+        f"{st['slots']} slots, {st['samples']} samples, {st['mlp_samples']}"
+        f" weighted: {full:.2f} ms (CUDA events, median of 5; phase 16's "
+        f"gather step on {bounded['fine_step']['rays']} rays "
+        f"{gather_ms:.2f} ms); "
+        + ", ".join(f"{k} {v:.4g} ms (bound {bound[k]:.4g}, by "
+                    f"{bound_by[k]})" for k, v in split.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    rec["fine_step"]["profile"] = profile_call(
+        lambda: step(params, buffers, opt, batch, lrs, None, None,
+                     apply_tv=False, tv_dense=False), "patch_box fine step",
+        top=10)
+    del flat, grads, opt, params, buffers, data
+    torch.cuda.empty_cache()
+
+    # the tiny CPU-test scene on the card and on the CPU
+    tiny = {}
+    for name in ("cuda", "cpu"):
+        w = Recorder()
+        trainer.train(types.SimpleNamespace(
+            seed=777, no_reload=True, no_reload_optimizer=False, ft_path="",
+            i_print=1, i_val=0, i_weights=0), tiny_patch_box_cfg(
+            basedir, f"tiny_{name}"), tiny_scene.bounded_scene(
+            h=32, w=32, n_train=3, n_val=1, n_test=1), writer=w,
+            device=torch.device(name))
+        tiny[name] = np.array(w.values("train/loss"))
+    rec["tiny_loss_max_rel_diff"] = tiny_tolerance(tiny, "(b) tiny patch_box"
+                                                   " run")
+    return rec
+
+
+def last_parallel(dev, syn, sr_model, launches):
+    """Phase 19 (c): ``parallel/`` in a world of one rank on NCCL (see the
+    module docstring). ``syn``: phase 4's synthetic frame record, whose
+    encoder output phase 11 crops. Returns its record."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from fourk_nerf_torch.models import sr_esrnet
+    from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sr
+    from fourk_nerf_torch.parallel import mesh as pm
+    from fourk_nerf_torch.utils import misc
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="1",
+               RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rec: dict = {}
+    try:
+        rec["initialized"] = pm.maybe_initialize_distributed(True)
+        rec["backend"] = dist.get_backend()
+        mesh = pm.make_mesh()
+        rec["mesh"] = [list(mesh.shape), mesh.device_type]
+        red = pm.all_reduce_dict(mesh, {"loss": 0.25, "psnr": torch.tensor(
+            [31.5], device=dev)})
+        rec["all_reduce"] = {k: float(v) for k, v in red.items()}
+
+        # the tiled decode over the data axis, the dense-block kernel
+        ch, cw, ts, tp = 189, 252, 96, 10
+        img = syn["rgb_feature"][None, :ch, :cw]
+        cond = syn["depth"][None, :ch, :cw, None]
+        prep = cuda_sr.prepare_sftnet(sr_model)
+
+        def apply_fn(x, c):
+            return cuda_sr.sftnet_apply_cuda(prep, x, c, upchain="dilated")
+
+        cuda_sr.rdb_apply.launches = 0
+        sharded = sr_esrnet.tile_process_sharded(apply_fn, img, cond, ts,
+                                                 mesh, tile_pad=tp)
+        sync()
+        launches["tile_sharded_rdb"] = cuda_sr.rdb_apply.launches
+        plain = sr_esrnet.tile_process(apply_fn, img, cond, ts, tile_pad=tp)
+        n_tiles = -(-ch // ts) * -(-cw // ts)
+        rec["tile"] = dict(crop=[cw, ch], tile=ts, tiles=n_tiles,
+                           bitwise=bool(torch.equal(sharded, plain)),
+                           rdb_launches=launches["tile_sharded_rdb"])
+
+        # a fly-through frame over the data axis, the box kernel
+        cfg, params, buffers = box_synthetic(dev)
+        K, c2w = box_camera(BOX_HW), box_pose(0.1)
+        kw = dict(stepsize=BOX_RENDER["stepsize"], near=BOX_RENDER["near"],
+                  bg=BOX_RENDER["bg"], device=dev)
+        cuda_box.sweep_box.launches = 0
+        got = box_sweep.render_frame_box(cfg, params, buffers, BOX_HW,
+                                         BOX_HW, K, c2w, tile_mesh=mesh, **kw)
+        sync()
+        launches["tile_mesh_box"] = cuda_box.sweep_box.launches
+        want = cuda_box.render_frame_box_cuda(cfg, params, buffers, BOX_HW,
+                                              BOX_HW, K, c2w, **kw)
+        rec["box"] = dict(frame=BOX_HW, box_launches=launches[
+            "tile_mesh_box"], bitwise=all(torch.equal(got[k], want[k])
+                                          for k in want))
+
+        # the grids split along X over grid, and whole again
+        sh = pm.shard_grid_params(mesh, params)
+        rec["shard_roundtrip"] = all(
+            torch.equal(sh[k].full_tensor(), params[k])
+            for k in ("density", "k0"))
+        misc.check_replica_consistency(sh)
+        rec["replica_check"] = "passed"
+        del sh, params, buffers, got, want, sharded, plain
+        dist.destroy_process_group()
+        rec["destroyed"] = not dist.is_initialized()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"  (c) world of 1 rank: {rec}")
+    if not (rec["initialized"] and rec["backend"] == "nccl"
+            and rec["mesh"] == [[1, 1], "cuda"]
+            and rec["all_reduce"] == {"loss": 0.25, "psnr": 31.5}
+            and rec["tile"]["bitwise"]
+            and launches["tile_sharded_rdb"] == 15 * n_tiles
+            and rec["box"]["bitwise"] and launches["tile_mesh_box"] == 1
+            and rec["shard_roundtrip"] and rec["destroyed"]):
+        raise AssertionError(f"parallel/ at world size 1: {rec}")
+
+    t0 = time.perf_counter()
+    rc, tail, err = multihost_run(dev, {**env, "MASTER_PORT": str(port + 1)})
+    rec["multihost_s"] = time.perf_counter() - t0
+    rec["multihost"] = tail
+    for line in tail:
+        log(f"  (c) --multihost: {line}")
+    if rc != 0 or not any(f"multihost world 1 {rec['backend']}" in line
+                          for line in tail):
+        raise AssertionError(f"run --multihost: rc {rc}\n{err}")
+    return rec
+
+
+def multihost_run(dev, env):
+    """``run.run`` with the CLI's ``--multihost`` on the tiny scene (10
+    steps of ``tiny_scene.OVERRIDES``) in a process of its own under the
+    ``torchrun`` environment ``env``. Returns (exit code, its log lines
+    that tell the world and the steps, the end of its output)."""
+    script = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "from fourk_nerf_torch import run\n"
+        "from fourk_nerf_torch.config import load_config\n"
+        "from fourk_nerf_torch.tools import tiny_scene\n"
+        "import torch.distributed as dist\n"
+        "args = run.config_parser().parse_args(sys.argv[1:])\n"
+        "cfg = tiny_scene.apply_overrides(load_config(args.config), %r)\n"
+        "run.run(args, cfg, tiny_scene.scene())\n"
+        "print('multihost world', dist.get_world_size(), dist.get_backend())\n"
+        "dist.destroy_process_group()\n" % (HERE, os.path.join(
+            HERE, "build", "phase19_multihost")))
+    out = subprocess.run(
+        [sys.executable, "-c", script, "--config",
+         os.path.join(HERE, FERN_CFG), "--multihost", "--device", dev.type,
+         "--i_print", "5", "--i_val", "0", "--i_weights", "0"],
+        env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=300)
+    tail = [line for line in out.stdout.splitlines()
+            if "initialized" in line or "iter" in line or "world" in line]
+    return out.returncode, tail, (out.stdout[-2000:] + out.stderr[-2000:])
+
+
+def run_last_modules(dev, anchor, syn, sr_model, bounded):
+    """Phase 19 (see the module docstring). Returns its record and the
+    launch counts of its paths."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    basedir = os.path.join(HERE, "build", "phase19_last")
+    shutil.rmtree(basedir, ignore_errors=True)
+    launches: dict = {}
+    rec: dict = {}
+    for name, fn in (
+            ("dim_rend", lambda: last_dim_rend(dev, anchor, basedir,
+                                               launches)),
+            ("patch_box", lambda: last_patch_box(dev, basedir, launches,
+                                                 bounded)),
+            ("parallel", lambda: last_parallel(dev, syn, sr_model,
+                                               launches))):
+        t0 = time.perf_counter()
+        rec[name] = fn()
+        rec[name]["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    shutil.rmtree(basedir)
+    shutil.rmtree(os.path.join(HERE, "build", "phase19_multihost"),
+                  ignore_errors=True)
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {rec['phase_s']:.1f} s (parts "
+        + ", ".join(f"{k} {rec[k]['part_s']:.1f} s" for k in
+                    ("dim_rend", "patch_box", "parallel")) + ")")
+    log(json.dumps({"completion": rec}))
+    return rec, launches
+
+
 def run_probes(dev):
     """Phase 12: both probe suites as their users run them, counted."""
     from fourk_nerf_torch.tools import probe_floor, probe_ops
@@ -3896,6 +4528,11 @@ def main() -> int:
         "TensoRF grids in DirectMPIGO and DirectVoxGO, DirectBiVoxGO, the "
         "StyleGAN-heritage ops")
     secondary, secondary_launches = run_secondary(dev, anchor)
+    torch.cuda.empty_cache()
+    log("[19] the last modules at full width: DirectMPIGO with dim_rend 8, "
+        "patch_box in syn_default, parallel/ at world size 1 on NCCL")
+    _, last_launches = run_last_modules(dev, anchor, syn, sr_model,
+                                        bounded)
     del anchor
     torch.cuda.empty_cache()
 
@@ -3913,7 +4550,9 @@ def main() -> int:
          "launches_joint_gan": {"i_val": gan_launches["i_val"],
                                 "serve": gan_launches["serve"]["sweep"]},
          "launches_secondary": {k: secondary_launches[k] for k in (
-             "vq_i_val", "vq_render_only", "tensorf_mpi_i_val")}},
+             "vq_i_val", "vq_render_only", "tensorf_mpi_i_val")},
+         "launches_last": {k: last_launches[k] for k in (
+             "dim_rend_i_val", "dim_rend_test")}},
         {"name": "rdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:481",
@@ -3924,7 +4563,9 @@ def main() -> int:
          "conv_chain_ms": syn["conv_chain_ms"],
          "launches_joint": {"serve": joint_launches["serve"]["rdb"]},
          "launches_joint_gan": {"serve": gan_launches["serve"]["rdb"]},
-         "launches_bounded": {"serve": bounded_launches["serve"]["rdb"]}},
+         "launches_bounded": {"serve": bounded_launches["serve"]["rdb"]},
+         "launches_last": {"tile_sharded": last_launches[
+             "tile_sharded_rdb"]}},
         # library_ms is null for the sweep, the dense block, the box sweep
         # and the RRDB: no single PyTorch call computes any of them
         # (conv_chain_ms: the block's five convs alone as cuDNN calls)
@@ -3941,7 +4582,10 @@ def main() -> int:
          | {"serve": bounded_launches["serve"]["box"]},
          "launches_unbounded": unbounded_launches,
          "launches_secondary": {k: secondary_launches[k] for k in (
-             "teacher", "tensorf_vox_i_val")}},
+             "teacher", "tensorf_vox_i_val")},
+         "launches_last": {k: last_launches[k] for k in (
+             "patch_box_teacher", "patch_box_i_val", "patch_box_test",
+             "tile_mesh_box")}},
         {"name": "rrdb", "route": "cuda",
          "source": "fourk_nerf_torch/csrc/rrdb.cu",
          "replaces": "fourk_nerf_tpu/ops/pallas_sr.py:428",

@@ -44,6 +44,19 @@ def mlp_init(dims: Sequence[int], *, generator: torch.Generator,
 ACT_CODES = {"relu": 0, "lkrelu": 1, "gauss": 2}
 
 
+def gathered(tree):
+    """``tree`` with each DTensor leaf (a grid split over a mesh's ``grid``
+    axis, or a replicated param: ``parallel.mesh.shard_grid_params``)
+    gathered whole by ``full_tensor()``, whose gradient flows back to the
+    shards; plain tensors pass as they are. The model forwards read their
+    params through it: the collective that XLA inserts for a sharded grid
+    in the JAX package."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    full = getattr(tree, "full_tensor", None)
+    return tree if full is None else full()
+
+
 def activation(name: str):
     if name == "relu":
         return torch.relu

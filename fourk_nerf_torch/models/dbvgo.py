@@ -167,7 +167,10 @@ def sample_bg_pts(rays_o, rays_d, t_max, bg_preserve: float, n_samples: int):
     ``r^2 / t^2 (1 - bg_preserve) + r / t bg_preserve`` (``t`` its
     distance, ``r`` that over its inf norm)."""
     k = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)
-    ori_t = t_max[:, None] - 1.0 + 1.0 / (1.0 - k / n_samples)[None, :]
+    # k / K as the CPU divides (render.true_div): near k = K - 1 an ulp of
+    # it moves t by K ulps
+    ori_t = t_max[:, None] - 1.0 + 1.0 / (
+        1.0 - render.true_div(k, n_samples))[None, :]
     pts = rays_o[:, None, :] + rays_d[:, None, :] * ori_t[..., None]
     t_outer = torch.linalg.norm(pts, dim=-1)
     r_outer = t_outer / pts.abs().amax(-1)
@@ -215,6 +218,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     rays the foreground leaves visible), composited fg over bg over
     ``bg``; ``alphainv_last`` is the product of the two fields' (each
     also returned, ``alphainv_last_fg`` / ``_bg``)."""
+    params = common.gathered(params)
     dev, dt = rays_o.device, rays_o.dtype
     center = torch.tensor(cfg.scene_center, dtype=dt, device=dev)
     radius = torch.tensor(cfg.scene_radius, dtype=dt, device=dev)

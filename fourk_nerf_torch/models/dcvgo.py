@@ -283,6 +283,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     samples), ``t [N,K]``, ``s = t / (1 + t)``, ``n_max`` (K), the masked
     ``raw_density`` / ``raw_alpha``, ``raw_rgb`` and, with
     ``render_depth``, ``depth`` (the composited ``s``, detached)."""
+    params = common.gathered(params)
     N = rays_o.shape[0]
     xyz_min, xyz_max = dvgo._xyz_minmax(cfg, rays_o.device)
     interval = stepsize * cfg.voxel_size_ratio

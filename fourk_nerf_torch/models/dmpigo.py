@@ -6,7 +6,11 @@ JAX package: params hold ``density [X,Y,Z,1]``, ``k0 [X,Y,Z,C]`` and the
 ``rgbnet`` dict; buffers hold ``act_shift [1,1,Z,1]`` and the bool
 ``mask_cache``. A grid is dense (``DenseGrid``) or TensoRF factors
 (``TensoRFGrid``, through ``common.grid_*``); the plane-aligned fast path
-is for dense grids. The rend layer of ``dim_rend > 3`` is not ported. The
+is for dense grids. With ``dim_rend > 3`` the rgbnet has ``dim_rend``
+outputs under leaky ReLU, the composite is a ``dim_rend``-channel
+``rgb_feature``, and a ``[dim_rend, 3]`` ``rend_layer`` maps it (and each
+sample's raw colour) to rgb; such a model renders through the chunked
+forward, since the sweep kernel composites 3 channels. The
 training forms (random
 background, progressive grid scaling, the act_shift decay, the TV
 gradients, the view-count mask) follow the forward pass; gradients come
@@ -119,19 +123,12 @@ def get_kwargs(cfg: Config) -> dict:
     }
 
 
-def _check_dim_rend(cfg: Config):
-    if cfg.dim_rend > 3:
-        raise NotImplementedError(
-            "dim_rend > 3 (the rend_layer) is not ported yet: ROADMAP.md "
-            "Queue A item 5b")
-
-
 def init(cfg: Config, *, generator: torch.Generator | None = None,
          device=None):
-    """(params, buffers): zero dense grids or TensoRF factors, and a random
-    rgbnet, drawn from ``generator`` (seed 0 when None) in that order,
-    per-plane act_shift, a full mask."""
-    _check_dim_rend(cfg)
+    """(params, buffers): zero dense grids or TensoRF factors, a random
+    rgbnet and, with ``dim_rend > 3``, a random ``rend_layer``, drawn from
+    ``generator`` (seed 0 when None) in that order, per-plane act_shift, a
+    full mask."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -148,6 +145,9 @@ def init(cfg: Config, *, generator: torch.Generator | None = None,
                 + [cfg.dim_rend])
         params["rgbnet"] = common.mlp_init(dims, generator=generator,
                                            device=dev)
+        if cfg.dim_rend > 3:
+            params["rend_layer"] = common.mlp_init(
+                [cfg.dim_rend, 3], generator=generator, device=dev)
     act_shift = common.mpi_act_shift(cfg.mpi_depth, cfg.voxel_size_ratio)
     buffers = {
         "act_shift": torch.as_tensor(act_shift, device=dev).reshape(
@@ -185,8 +185,10 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     (:func:`plane_aligned_ok`) for the dense grids. With ``rand_bkgd`` and ``is_train`` the
     background is ``bg_noise [N, 3]``, uniform noise that the caller draws
     (the trainer, from a seeded ``torch.Generator`` per step), in place of
-    ``bg``."""
-    _check_dim_rend(cfg)
+    ``bg``. With ``dim_rend > 3``, ``rgb_feature`` has ``dim_rend``
+    channels and ``rgb_marched`` and ``raw_rgb`` are the rend layer's rgb
+    (lib/dmpigo.py:405-411)."""
+    params = common.gathered(params)
     N = rays_o.shape[0]
     K = cfg.n_samples(stepsize)
     xyz_min, xyz_max = _xyz_minmax(cfg, rays_o.device)
@@ -231,16 +233,23 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         vdir_emb = ray_ops.positional_encoding(viewdirs, cfg.viewbase_pe)
         vdir_emb = vdir_emb[:, None, :].expand(N, K, vdir_emb.shape[-1])
         rgb_feat = torch.cat([vox_emb, pe_emb, vdir_emb], dim=-1)
+        act = cfg.act_type if cfg.dim_rend <= 3 else "lkrelu"
         rgb_raw = torch.sigmoid(common.mlp_apply(
-            params["rgbnet"], rgb_feat, common.activation(cfg.act_type)))
+            params["rgbnet"], rgb_feat, common.activation(act)))
 
     rgb_feature = render.composite(weights, rgb_raw)
+    rgb_marched = rgb_feature
+    if cfg.dim_rend > 3:
+        lk = common.activation("lkrelu")
+        rgb_marched = common.mlp_apply(params["rend_layer"], rgb_feature, lk)
+        rgb_raw = torch.sigmoid(common.mlp_apply(params["rend_layer"],
+                                                 rgb_raw, lk))
     if rand_bkgd and is_train:
         if bg_noise is None:
             raise ValueError("rand_bkgd training needs bg_noise")
-        rgb_marched = rgb_feature + alphainv_last[:, None] * bg_noise
+        rgb_marched = rgb_marched + alphainv_last[:, None] * bg_noise
     else:
-        rgb_marched = rgb_feature + alphainv_last[:, None] * bg
+        rgb_marched = rgb_marched + alphainv_last[:, None] * bg
     s = (torch.arange(K, dtype=rgb_marched.dtype, device=rays_o.device)
          + 0.5) / K
     s = s[None, :].expand(N, K)

@@ -204,6 +204,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
             viewdirs, *, stepsize: float, near, far, bg: float = 0.0,
             render_depth: bool = False, **unused) -> dict:
     """Volume-render N rays densely (eval: no random background)."""
+    params = common.gathered(params)
     N = rays_o.shape[0]
     xyz_min, xyz_max = _xyz_minmax(cfg, rays_o.device)
     interval = stepsize * cfg.voxel_size_ratio

@@ -78,6 +78,7 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     The outputs are DirectMPIGO's (``rgb_feature`` is the marched colour:
     the reference's model has no rend layer) and ``vq_diff``; with
     ``is_train`` also ``vq_state``, the codebook after this batch."""
+    params = common.gathered(params)
     N = rays_o.shape[0]
     K = cfg.n_samples(stepsize)
     xyz_min, xyz_max = dmpigo._xyz_minmax(cfg, rays_o.device)

@@ -12,7 +12,8 @@ run in NCHW inside.
 
 The plain ESRGAN generator :class:`RRDBNetBPS` (dense blocks without SFT,
 pixel-shuffle upsampling), the memory-bounded tiled inference
-:func:`tile_process` and the standalone :func:`enhance` follow.
+:func:`tile_process` (over the ranks of a mesh axis:
+:func:`tile_process_sharded`) and the standalone :func:`enhance` follow.
 
 Evaluation in float32 or, through :func:`apply_bf16`, in bfloat16 with the
 rounding points of the JAX module: a plain conv rounds its output to the
@@ -365,32 +366,89 @@ def _pad_nhwc(x, pad, mode):
         .permute(0, 2, 3, 1)
 
 
+def _tile_plan(img, cond, tile_size: int, tile_pad: int):
+    """The edge-padded frame and condition and the row-major tile origins
+    of :func:`tile_process`."""
+    _, H, W, _ = img.shape
+    ts, tp = tile_size, tile_pad
+    ny, nx = math.ceil(H / ts), math.ceil(W / ts)
+    pad = (tp, ny * ts + tp - H, tp, nx * ts + tp - W)
+    starts = [(y * ts, x * ts) for y in range(ny) for x in range(nx)]
+    return (_pad_nhwc(img, pad, "replicate"),
+            _pad_nhwc(cond, pad, "replicate"), starts, ny, nx)
+
+
+def _tile_core(apply_fn, img_p, cond_p, start, tile_size: int,
+               tile_pad: int, scale: int):
+    """The unpadded SR core of the tile at ``start``."""
+    sy, sx = start
+    full = tile_size + 2 * tile_pad
+    sr = apply_fn(img_p[:, sy:sy + full, sx:sx + full],
+                  cond_p[:, sy:sy + full, sx:sx + full])[0]
+    lo, hi = tile_pad * scale, (tile_pad + tile_size) * scale
+    return sr[lo:hi, lo:hi]
+
+
+def _paste(cores, ny: int, nx: int, H: int, W: int, tile_size: int,
+           scale: int):
+    """The frame ``[1, H*scale, W*scale, C]`` of the row-major ``cores``
+    (an iterable: each is written as it comes)."""
+    hs = tile_size * scale
+    out = None
+    for i, core in enumerate(cores):
+        if out is None:
+            out = core.new_empty((ny * hs, nx * hs, core.shape[-1]))
+        y, x = divmod(i, nx)
+        out[y * hs:(y + 1) * hs, x * hs:(x + 1) * hs] = core
+    return out[None, :H * scale, :W * scale]
+
+
 def tile_process(apply_fn, img, cond, tile_size: int, tile_pad: int = 10,
                  scale: int = 4):
     """Memory-bounded full-frame SR: edge-pad the frame, cut overlapping
     tiles that all have the shape ``tile_size + 2 * tile_pad`` square (edge
     tiles too), run each through ``apply_fn(x_tile, cond_tile) -> sr_tile``
-    (NHWC) and paste the unpadded cores into the frame on the device.
+    (NHWC) and paste the unpadded cores into the frame on the device, each
+    as it is decoded.
 
     ``img [1,H,W,C]``, ``cond [1,H,W,Cc]`` -> ``[1, H*scale, W*scale, 3]``."""
     _, H, W, _ = img.shape
-    ts, tp = tile_size, tile_pad
-    ny, nx = math.ceil(H / ts), math.ceil(W / ts)
-    pad = (tp, ny * ts + tp - H, tp, nx * ts + tp - W)
-    img_p = _pad_nhwc(img, pad, "replicate")
-    cond_p = _pad_nhwc(cond, pad, "replicate")
-    hs, full = ts * scale, ts + 2 * tp
-    out = None
-    for y in range(ny):
-        for x in range(nx):
-            sy, sx = y * ts, x * ts
-            sr = apply_fn(img_p[:, sy:sy + full, sx:sx + full],
-                          cond_p[:, sy:sy + full, sx:sx + full])[0]
-            if out is None:
-                out = sr.new_empty((ny * hs, nx * hs, sr.shape[-1]))
-            out[y * hs:(y + 1) * hs, x * hs:(x + 1) * hs] = \
-                sr[tp * scale:(tp + ts) * scale, tp * scale:(tp + ts) * scale]
-    return out[None, :H * scale, :W * scale]
+    img_p, cond_p, starts, ny, nx = _tile_plan(img, cond, tile_size,
+                                               tile_pad)
+    cores = (_tile_core(apply_fn, img_p, cond_p, st, tile_size, tile_pad,
+                        scale) for st in starts)
+    return _paste(cores, ny, nx, H, W, tile_size, scale)
+
+
+def tile_process_sharded(apply_fn, img, cond, tile_size: int, mesh,
+                         tile_pad: int = 10, scale: int = 4,
+                         axis: str = "data"):
+    """:func:`tile_process` with the tiles split over ``mesh``'s ``axis``
+    (a ``parallel.mesh.make_mesh`` mesh): the row-major tile list, padded
+    by its first tiles to a multiple of the axis size (the extras are
+    decoded and dropped, as in the JAX package), is cut into equal
+    contiguous shares; each rank decodes its share, the cores are
+    all-gathered in the axis's process group and pasted. Tiles are
+    independent (each carries its halo), so the frame equals
+    :func:`tile_process`'s exactly."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    _, H, W, _ = img.shape
+    img_p, cond_p, starts, ny, nx = _tile_plan(img, cond, tile_size,
+                                               tile_pad)
+    nt = len(starts)
+    padded = starts + starts[:(-nt) % n]
+    per = len(padded) // n
+    local = torch.stack([
+        _tile_core(apply_fn, img_p, cond_p, st, tile_size, tile_pad, scale)
+        for st in padded[rank * per:(rank + 1) * per]]).contiguous()
+    got = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(got, local, group=group)
+    cores = torch.cat(got)[:nt]
+    return _paste(cores, ny, nx, H, W, tile_size, scale)
 
 
 def enhance(apply_fn, img, cond=None, *, scale: int = 4, pre_pad: int = 10,

@@ -16,8 +16,8 @@ def get_rays(H: int, W: int, K, c2w, inverse_y: bool, flip_x: bool,
              flip_y: bool, mode: str = "center", *, device=None):
     """Per-pixel camera rays on ``device`` (default ``cuda``). Returns
     (rays_o, rays_d), both ``[H, W, 3]``.
-    ``mode``: 'lefttop' | 'center' (the JAX package's 'random' jitter is a
-    training feature, not ported yet)."""
+    ``mode``: 'lefttop' | 'center' (the JAX package's 'random' jitter has
+    no caller there, and none here)."""
     device = resolve_device(device)
     K = as_tensor(K, device)
     c2w = as_tensor(c2w, device)

@@ -66,17 +66,21 @@ def composite(weights, values):
     return (weights[..., None] * values).sum(-2)
 
 
+def true_div(t, d: float):
+    """``t / d`` for a Python number ``d``, the same bits on every device:
+    a CUDA tensor divided by a Python number is multiplied by its
+    reciprocal, an ulp off the CPU's true division, so ``d`` goes in as a
+    device tensor."""
+    return t / torch.full((1,), float(d), dtype=t.dtype, device=t.device)
+
+
 def sample_ndc_pts_on_rays(rays_o, rays_d, n_samples: int):
     """Fixed-count equidistant NDC sampling ``p_k = o + d * k/(K-1)``:
-    ``[N, K, 3]``. ``k/(K-1)`` is a true division by a device tensor: a
-    CUDA tensor divided by a Python number is multiplied by its
-    reciprocal, which moves some ``k/(K-1)`` by an ulp, and a sample that
-    lies on a grid plane then falls on the other side of it on the card
-    than on the CPU (its 8-corner gradient goes to other voxels)."""
-    dev = rays_o.device
-    dist = torch.arange(n_samples, dtype=rays_o.dtype, device=dev) \
-        / torch.full((1,), float(n_samples - 1), dtype=rays_o.dtype,
-                     device=dev)
+    ``[N, K, 3]``. ``k/(K-1)`` is a :func:`true_div`: an ulp off moves a
+    sample that lies on a grid plane to the other side of it on the card
+    (its 8-corner gradient goes to other voxels)."""
+    dist = true_div(torch.arange(n_samples, dtype=rays_o.dtype,
+                                 device=rays_o.device), n_samples - 1)
     return rays_o[:, None, :] + rays_d[:, None, :] * dist[None, :, None]
 
 

@@ -54,6 +54,11 @@ class FramePipeline:
                              "codebook (DirectQVGO) renders through "
                              "trainer.render_viewpoints (its chunked "
                              "forward)")
+        if getattr(cfg, "dim_rend", 3) > 3:
+            raise ValueError("the sweep kernel composites 3 channels; a "
+                             "DirectMPIGO with dim_rend > 3 (its rend layer) "
+                             "renders through trainer.render_viewpoints (its "
+                             "chunked forward)")
         if self.bounded:
             self.packed = cuda_box.pack_box_kernel(cfg, params, buffers,
                                                    use_bf16=use_bf16)

@@ -59,7 +59,8 @@ def config_parser():
     p.add_argument("--i_weights", type=int, default=100000)
     # distributed
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported yet)")
+                   help="join the world of a torchrun launch "
+                   "(parallel.mesh.maybe_initialize_distributed)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the card) or cpu (the kernels' plain versions)")
     return p
@@ -119,12 +120,11 @@ def run(args, cfg, data_dict) -> dict:
     """Train (or reload) and render on ``args.device``, in full float32
     (no TF32). Returns the ``render_viewpoints`` results by split name
     ("test", "train", "video")."""
+    from fourk_nerf_torch.parallel import mesh as pmesh
     from fourk_nerf_torch.train import checkpoints, trainer
     from fourk_nerf_torch.utils.logging import ScalarWriter, dump_provenance
 
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet: ROADMAP.md "
-                                  "Queue A item 6 (parallel/)")
+    pmesh.maybe_initialize_distributed(args.multihost, args.device)
     dev = resolve_device(args.device)
     rundir = os.path.join(cfg.basedir, cfg.expname)
     dump_provenance(cfg, args, rundir)

@@ -67,7 +67,8 @@ def config_parser():
     p.add_argument("--i_weights", type=int, default=100000)
     # distributed
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported yet)")
+                   help="join the world of a torchrun launch "
+                   "(parallel.mesh.maybe_initialize_distributed)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the card) or cpu (the kernels' plain versions)")
     return p
@@ -126,12 +127,12 @@ def run(args, cfg, data_dict) -> dict:
     result) and ``"video"`` (the ``render_video`` result)."""
     from fourk_nerf_torch import pipeline, weights
     from fourk_nerf_torch.models import sr_esrnet
+    from fourk_nerf_torch.parallel import mesh as pmesh
     from fourk_nerf_torch.train import checkpoints, sr_trainer, trainer
     from fourk_nerf_torch.utils.logging import ScalarWriter, dump_provenance
 
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet: ROADMAP.md "
-                                  "Queue A item 6 (parallel/)")
+    pmesh.maybe_initialize_distributed(args.multihost, args.device)
+    sr_trainer.refuse_dim_rend(cfg.fine_model_and_render)
     if args.dump_images or args.render_video:
         _imageio()
     dev = resolve_device(args.device)

@@ -1009,13 +1009,29 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     return model_mod, model_cfg, params, buffers, sr_model
 
 
+def refuse_dim_rend(cfg_model):
+    """Raise for an encoder with ``dim_rend > 3``: the JAX package's joint
+    trainer cannot train one (its photometric L1 subtracts the 3-channel
+    target from the ``[N, dim_rend]`` ``rgb_feature``, and its patch
+    sweeps composite 3 channels), so the port refuses the run before it
+    starts and invents no loss in its place."""
+    if int(cfg_model.get("dim_rend", 3)) > 3:
+        raise ValueError(
+            "the joint trainer takes dim_rend <= 3: the JAX package's joint "
+            "step subtracts the 3-channel target from the [N, dim_rend] "
+            "rgb_feature (a shape error) and its patch sweeps composite 3 "
+            "channels; train such an encoder with run.py")
+
+
 def train_sr(args, cfg, data_dict, writer=None, device=None):
     """Fit a scene jointly (run_sr.py): the box from the training cameras'
     frustums (with ``args.ftdvcoa_path`` and a config with a coarse stage,
     tightened to that coarse checkpoint's geometry, whose mask a new
     bounded encoder starts from: run_sr.py:1197-1225), then
     :func:`scene_rep_reconstruction_sr_patch` of the fine stage on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``). An encoder with ``dim_rend > 3`` is
+    refused (:func:`refuse_dim_rend`)."""
+    refuse_dim_rend(cfg.fine_model_and_render)
     os.makedirs(os.path.join(cfg.basedir, cfg.expname), exist_ok=True)
     xyz_min, xyz_max = trainer.compute_bbox_by_cam_frustrm(
         cfg, data_dict["HW"], data_dict["Ks"], data_dict["poses"],

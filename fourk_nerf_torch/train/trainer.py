@@ -18,10 +18,16 @@ the same run draws the same rays, pixels or patches in both packages and
 a resumed run draws what the unbroken one would. :class:`TrainStep` is
 one step: autograd of the forward and the losses, the TV gradients
 (TensoRF factors': the autograd gradient of their TV loss), MaskedAdam in
-place, and a DirectQVGO's EMA codebook put in the buffers. The slab-sweep
-training forward (``patch_box``) raises up front, as does a DirectQVGO
+place, and a DirectQVGO's EMA codebook put in the buffers. The
+``patch_box`` sampler trains a DirectVoxGO on pixel patches through the
+differentiable slab sweep (``box_sweep.sweep_rays_train_box``), with a
+static plan per view (:func:`compute_box_plans`, renewed at each
+``pg_scale`` step); every other model, and a stage some view of which has
+no dominant axis or too wide a window, trains on the same patches through
+its gather forward, as in the JAX package, and says so (the stage's last
+line counts its steps by route). A DirectQVGO
 (``mode_type`` adain_vq) run with a ``pg_scale``, which the JAX package
-cannot scale.
+cannot scale, is refused up front.
 
 Evaluation (:func:`render_viewpoints`): full frames of a trained model for
 a list of poses, with PSNR / SSIM against ground truth when it is given. A
@@ -31,7 +37,8 @@ dense grids, ``cuda_box.render_frame_box_cuda`` for a dense DirectVoxGO
 with its mask at grid resolution. With ground truth (published metrics)
 the kernels run their float32 path, without it their bf16 path. Any other
 model (a DirectContractedVoxGO or a DirectQVGO always, a model with a
-TensoRF grid) takes the chunked ``forward`` of its module.
+TensoRF grid, a DirectMPIGO with ``dim_rend > 3``) takes the chunked
+``forward`` of its module.
 Which path a model takes is decided from its configuration before the
 first frame; a kernel that fails raises, it is never replaced by another
 path.
@@ -50,8 +57,8 @@ import torch
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.device import resolve_device
 from fourk_nerf_torch.models import dcvgo, dmpigo, dvgo, dvqgo, model_module
-from fourk_nerf_torch.ops import cuda_box, cuda_sweep, grid_sample, \
-    rays as ray_ops, render
+from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sweep, \
+    grid_sample, rays as ray_ops, render
 from fourk_nerf_torch.train import checkpoints, losses, optim
 from fourk_nerf_torch.utils import metrics, stats as stats_mod
 
@@ -90,9 +97,11 @@ def frame_path(model_mod, model_cfg, params, buffers, data: DataFlags,
                stepsize: float) -> str:
     """Which renderer serves this model: ``"sweep"`` (the NDC plane-sweep
     kernel), ``"box"`` (the bounded-scene kernel) or ``"chunked"`` (the
-    module's ``forward`` in ray chunks)."""
+    module's ``forward`` in ray chunks). The sweep kernel composites 3
+    channels, so a DirectMPIGO with ``dim_rend > 3`` (its rend layer) is
+    chunked."""
     if (model_mod is dmpigo and "rgbnet" in params
-            and dense_grids(model_cfg)
+            and model_cfg.dim_rend <= 3 and dense_grids(model_cfg)
             and dmpigo.plane_aligned_ok(model_cfg, stepsize, data.ndc)):
         return "sweep"
     if (model_mod is dvgo and cfg_box_ok(model_cfg) and not data.ndc
@@ -227,11 +236,6 @@ def render_viewpoints(model_mod, model_cfg, params, buffers, render_poses,
 _RAY_KEYS = ("rays_o", "rays_d", "viewdirs", "rgb")
 
 
-def _later(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue A item {item}")
-
-
 def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
                                 near_clip=None, device=None):
     """The scene box that holds every training camera's frustum between
@@ -348,7 +352,7 @@ def gather_training_rays(cfg, cfg_train, data_dict, device=None, *,
     each for the ``flatten`` sampler, the rays that meet the occupancy mask
     of ``model`` (``(model_mod, model_cfg, buffers)``) for
     ``in_maskcache``, and ``[V, H, W, 3]`` for ``random`` and the patch
-    samplers (whose ``make_batch_sampler`` raises for ``patch_box``); for ``patch_inmask`` with a model that has
+    samplers; for ``patch_inmask`` with a model that has
     ``hit_coarse_geo`` also ``hit``, the per-view hit maps ``[V, H, W]``
     (numpy bool). ``render_kwargs`` (``near``, ``far``, ``stepsize``) goes
     to the hit test."""
@@ -423,7 +427,9 @@ def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int,
     view, shuffled, before the next view; ``patch_mimg`` every (view,
     origin), shuffled per epoch; ``patch_inmask`` the same without the
     patches whose rays all miss the occupancy mask (``hit [V, H, W]``;
-    never all of them)."""
+    never all of them); ``patch_box`` as ``patch_mimg`` with the side the
+    largest multiple of 8 whose square is at most ``N_rand`` (at least
+    8)."""
     dev = flat["rgb"].device
     if sampler in ("flatten", "in_maskcache"):
         n = flat["rgb"].shape[0]
@@ -448,13 +454,13 @@ def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int,
                                 for n in (V, H, W))
 
         return sample
-    if sampler == "patch_box":
-        raise _later("the patch_box sampler (the slab-sweep training "
-                     "forward)", "2b (patch_box)")
-    if sampler not in _PATCH_SAMPLERS:
+    if sampler not in _PATCH_SAMPLERS + ("patch_box",):
         raise NotImplementedError(sampler)
     V, H, W = flat["rgb"].shape[:3]
-    P = max((min(n_rand // 64, H, W) // 8) * 8, 8)
+    if sampler == "patch_box":  # the slab sweep's patches: P^2 <= N_rand
+        P = max((int(np.sqrt(n_rand)) // 8) * 8, 8)
+    else:
+        P = max((min(n_rand // 64, H, W) // 8) * 8, 8)
     rows = sorted({min(r, H - P) for r in range(0, H, P)})
     cols = sorted({min(c, W - P) for c in range(0, W, P)})
     pos = [(r, c) for r in rows for c in cols]
@@ -547,12 +553,15 @@ class TrainStep:
     ``vq_state``) put in the buffers in place, as the JAX loop threads it
     into its buffers after each step. ``near_thres``: the near-clip loss's
     distance on the normalised lattice (a DirectContractedVoxGO with a
-    ``near_clip``), else None."""
+    ``near_clip``), else None. ``forward_fn`` replaces the module's
+    ``forward`` (same arguments; the slab sweep of a ``patch_box`` plan,
+    :func:`make_box_train_steps`)."""
 
     def __init__(self, model_mod, model_cfg, cfg_train, *,
                  render_kwargs: dict, skip_zero_grad=frozenset(),
-                 near_thres: float | None = None):
+                 near_thres: float | None = None, forward_fn=None):
         self.model_mod, self.model_cfg = model_mod, model_cfg
+        self.forward_fn = forward_fn or model_mod.forward
         self.cfg_train = cfg_train
         self.skip_zero_grad = frozenset(skip_zero_grad)
         self.near_thres = near_thres
@@ -578,7 +587,7 @@ class TrainStep:
         a model without a codebook)."""
         rays_o, rays_d, viewdirs, target = batch
         live = {k: _detached_leaves(params[k]) for k in groups}
-        out = self.model_mod.forward(
+        out = self.forward_fn(
             self.model_cfg, {**params, **live}, buffers, rays_o, rays_d,
             viewdirs, bg_noise=bg_noise, **self.fwd_kw)
         loss, terms = losses.encoder_losses(out, target, self.cfg_train,
@@ -625,6 +634,71 @@ class TrainStep:
                 terms["mse"] / max(self.cfg_train.weight_main, 1e-12))
         return loss, psnr
 
+
+
+def compute_box_plans(model_cfg, rays: dict, render_kwargs: dict,
+                      patch: int):
+    """The ``patch_box`` plans of a stage: per training view its
+    ``(axis, flip, S)`` (``box_sweep.box_train_plan`` of all its rays) and
+    one slab window ``(Pu, Pv)`` that holds every sampler patch of every
+    view (``box_sweep.box_window_size_for``). ``rays`` holds ``rays_o``,
+    ``rays_d`` and ``viewdirs`` by view (``[H, W, 3]`` each). Returns
+    (plans, (Pu, Pv)), or (None, None) when a view has no dominant axis or
+    its window would be too wide: the stage then trains through the gather
+    forward. The JAX package caps the window at the minor extents of every
+    view's axis, so that one slice fits every view; where a grid's extents
+    differ that cut a view's footprint, and its samples outside the window
+    lost their corners. The port does not cap it: a view whose extents are
+    narrower than the window reads its grid whole
+    (``sweep_rays_train_box``)."""
+    stepsize, near = render_kwargs["stepsize"], render_kwargs["near"]
+    plans, Pu, Pv = [], 8, 8
+    for v in range(len(rays["rays_o"])):
+        ro, rd, vd = (rays[k][v] for k in ("rays_o", "rays_d", "viewdirs"))
+        plan = box_sweep.box_train_plan(model_cfg, ro, rd, stepsize=stepsize,
+                                        near=near)
+        if plan is None:
+            return None, None
+        H, W = ro.shape[:2]
+        rows = sorted({min(r, H - patch) for r in range(0, H, patch)})
+        cols = sorted({min(c, W - patch) for c in range(0, W, patch)})
+
+        def tiles(x):
+            return torch.stack([x[r:r + patch, c:c + patch].reshape(-1, 3)
+                                for r in rows for c in cols])
+
+        pupv = box_sweep.box_window_size_for(
+            model_cfg, tiles(ro), tiles(rd), tiles(vd), stepsize=stepsize,
+            near=near, axis=plan[0], flip=plan[1])
+        if pupv is None:
+            return None, None
+        plans.append(plan)
+        Pu, Pv = max(Pu, pupv[0]), max(Pv, pupv[1])
+    return plans, (Pu, Pv)
+
+
+def make_box_train_steps(model_mod, model_cfg, cfg_train, *, render_kwargs,
+                         skip_zero_grad, Pu: int, Pv: int, near_thres=None):
+    """``step_for(axis, flip, S)``: the :class:`TrainStep` of a
+    ``patch_box`` plan, whose forward is the slab sweep of that plan over
+    the ``(Pu, Pv)`` window (at the JAX trainer's bf16 rounding), one a
+    plan."""
+    steps: dict = {}
+
+    def step_for(axis: int, flip: bool, S: int) -> TrainStep:
+        key = (axis, flip, S)
+        if key not in steps:
+            def forward(cfg, params, buffers, ro, rd, vd, **kw):
+                return box_sweep.sweep_rays_train_box(
+                    cfg, params, buffers, ro, rd, vd, axis=axis, flip=flip,
+                    S=S, Pu=Pu, Pv=Pv, **kw)
+            steps[key] = TrainStep(
+                model_mod, model_cfg, cfg_train, render_kwargs=render_kwargs,
+                skip_zero_grad=skip_zero_grad, near_thres=near_thres,
+                forward_fn=forward)
+        return steps[key]
+
+    return step_for
 
 
 def _periodic_step(path: str, stage: str):
@@ -801,6 +875,33 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                            render_kwargs=render_kwargs,
                            skip_zero_grad=skip_zero, near_thres=near_thres)
 
+    # patch_box: the slab sweep with a static plan per view; the gather
+    # forward takes a stage that cannot have one (trainer.py:824-843 of
+    # the JAX package)
+    def setup_box_steps(mcfg):
+        plans, pupv = compute_box_plans(mcfg, flat, render_kwargs, patch)
+        if plans is None:
+            print(f"scene_rep_reconstruction ({stage}): patch_box -> gather "
+                  "forward (a view has no dominant axis or too wide a "
+                  "window)")
+            return None, None
+        print(f"scene_rep_reconstruction ({stage}): patch_box slab-sweep ON "
+              f"(window {pupv}, plans {sorted(set(plans))})")
+        return plans, make_box_train_steps(
+            model_mod, mcfg, cfg_train, render_kwargs=render_kwargs,
+            skip_zero_grad=skip_zero, Pu=pupv[0], Pv=pupv[1],
+            near_thres=near_thres)
+
+    box_plans, box_step_for = None, None
+    patch_box = cfg_train.ray_sampler == "patch_box"
+    if patch_box:
+        if model_mod is dvgo:
+            box_plans, box_step_for = setup_box_steps(model_cfg)
+        else:
+            print(f"scene_rep_reconstruction ({stage}): patch_box -> gather "
+                  "forward (the slab sweep serves DirectVoxGO)")
+    box_routes = {"slab": 0, "gather": 0}
+
     # the lr-decay clock restarts at each pg_scale boundary: take it from
     # the checkpoint, where it is kept
     if "steps_since_reset" in meta_l:
@@ -831,9 +932,18 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                                        render_kwargs=render_kwargs,
                                        skip_zero_grad=skip_zero,
                                        near_thres=near_thres)
+                if box_step_for is not None:
+                    # the voxel size halved: S and the window change
+                    box_plans, box_step_for = setup_box_steps(model_cfg)
 
             kind, sel = sample_batch(global_step - 1)
             batch = gather_batch(flat, kind, sel, patch)
+            step_fn = train_step
+            if patch_box:
+                route = "slab" if box_step_for is not None else "gather"
+                box_routes[route] += 1
+                if box_step_for is not None:
+                    step_fn = box_step_for(*box_plans[sel[0]])
             lrs = {k: optim.group_lr(v, steps_since_reset,
                                      cfg_train.lrate_decay)
                    for k, v in base_lrs.items()}
@@ -841,7 +951,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                      if render_kwargs["rand_bkgd"] else None)
             apply_tv = (cfg_train.tv_after < global_step < cfg_train.tv_before
                         and global_step % cfg_train.tv_every == 0)
-            loss, psnr = train_step(
+            loss, psnr = step_fn(
                 params, buffers, opt_state, batch, lrs, per_lr, noise,
                 apply_tv=bool(apply_tv),
                 tv_dense=bool(global_step < cfg_train.tv_dense_before))
@@ -891,6 +1001,10 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                     saver=saver)
 
         saver.wait_for_pending_saves()
+        if patch_box:
+            print(f"scene_rep_reconstruction ({stage}): patch_box steps: "
+                  f"{box_routes['slab']} slab sweep, {box_routes['gather']} "
+                  "gather forward")
         if cfg_train.N_iters > 0:
             checkpoints.save_checkpoint(
                 last_ckpt_path, model_mod.get_kwargs(model_cfg), params,
@@ -952,9 +1066,6 @@ def train(args, cfg, data_dict, writer=None, device=None):
     model_mod = _select_model_mod(cfg)
     stages = [cfg.fine_train] + ([cfg.coarse_train]
                                  if cfg.coarse_train.N_iters > 0 else [])
-    if any(c.ray_sampler == "patch_box" for c in stages):
-        raise _later("the patch_box sampler (the slab-sweep training "
-                     "forward)", "2b (patch_box)")
     for c in stages:
         _refuse_unscalable(model_mod, c)
     if model_mod is dcvgo and any(c.ray_sampler == "in_maskcache"

@@ -95,10 +95,23 @@ def test_patch_gather_matches_jax_slices():
             g.numpy(), flat[k][1, 8:16, 16:24].reshape(-1, 3))
 
 
-def test_patch_box_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        tt.make_batch_sampler("patch_box", {"rgb": torch.zeros(
-            (1, 8, 8, 3))}, 64, 0)
+def test_patch_box_draws_gather_whole_patches():
+    """The ``patch_box`` sampler's draws go through the patch gather: the
+    JAX sampler's draws, ``P x P`` rays each (P = 8 at N_rand 64)."""
+    rng = np.random.default_rng(2)
+    flat = {k: rng.normal(size=(2, 12, 20, 3)).astype(np.float32)
+            for k in tt._RAY_KEYS}
+    want = jt.make_batch_sampler("patch_box", flat, 64, 0)
+    got = tt.make_batch_sampler("patch_box", {k: torch.as_tensor(v) for k, v
+                                              in flat.items()}, 64, 0)
+    assert got.patch == want.patch == 8
+    for step in range(12):
+        kind, (v, r, c) = got(step)
+        assert (kind, (v, r, c)) == want(step)
+        rays = tt.gather_batch({k: torch.as_tensor(x) for k, x in
+                                flat.items()}, kind, (v, r, c), got.patch)
+        np.testing.assert_array_equal(
+            rays[3].numpy(), flat["rgb"][v, r:r + 8, c:c + 8].reshape(-1, 3))
 
 
 def _bounded_model(seed=2):

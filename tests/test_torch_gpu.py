@@ -775,3 +775,45 @@ def test_ndc_samples_and_dvqgo_forward_cuda_match_cpu(cuda):
                           out["vq_state"]["embed"].cpu())
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+
+#: outputs 1e-4 absolute, gradients 1e-4 of each leaf's largest entry, as
+#: the DirectContractedVoxGO card test holds them
+PARITY_TOL = 1e-4
+
+
+def _check_parity(res):
+    for k, d in res["out_diff"].items():
+        assert d <= PARITY_TOL, (k, d)
+    for i, d in enumerate(res["grad_rel"]):
+        assert d <= PARITY_TOL, (i, d)
+
+
+def test_dbvgo_background_and_forward_cuda_match_cpu(cuda):
+    """DirectBiVoxGO on the card against the CPU
+    (``tools/device_parity.py``). Its background samples
+    ``t_max - 1 + 1 / (1 - k/K)`` divide by ``K`` as the CPU does (a CUDA
+    tensor divided by a Python number is multiplied by its reciprocal,
+    which moved a sample near ``k = K - 1`` by 6 ulps of its magnitude,
+    ~1.4): they agree within 4 ulps (4.8e-7; the norms, reduced in another
+    order, move them by up to 3); then the forward of a 10^3-voxel model
+    (both fields, the background on its own mask) and the gradients of its
+    training loss agree within :data:`PARITY_TOL`."""
+    from fourk_nerf_torch.tools import device_parity
+    assert device_parity.dbvgo_bg_samples(cuda) <= 4.8e-7
+    res = device_parity.compare((torch.device("cpu"), cuda),
+                                *device_parity.dbvgo_case())
+    _check_parity(res)
+    assert float(res["outputs"]["alphainv_last_bg"].min()) < 0.99
+
+
+@pytest.mark.parametrize("family", ["dmpigo", "dvgo"])
+def test_tensorf_forward_and_gradients_cuda_match_cpu(cuda, family):
+    """A TensoRF DirectMPIGO (NDC rays, 12x12x8) and DirectVoxGO (12^3,
+    rays of the tiny scene's cameras) on the card against the CPU: the
+    forward and the gradients of the training loss on every factor and the
+    rgbnet within :data:`PARITY_TOL`."""
+    from fourk_nerf_torch.tools import device_parity
+    _check_parity(device_parity.compare(
+        (torch.device("cpu"), cuda), *device_parity.tensorf_case(family)))

@@ -224,17 +224,23 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
     assert tst.find_reload_path(args, rundir, "fine") is None
 
 
-@pytest.mark.parametrize("flag,item", [("--multihost", "item 6")])
-def test_run_sr_unported_flags_raise(tmp_path, flag, item):
+@pytest.mark.parametrize("flag", ["--multihost"])
+def test_run_sr_multihost_needs_a_rendezvous(tmp_path, monkeypatch, flag):
+    """``--multihost`` joins the world of a torchrun launch; without its
+    environment it raises before any work (where the JAX package prints
+    the failure and carries on in one process)."""
     from fourk_nerf_torch import config as tconfig, run_sr
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
     root = os.path.join(os.path.dirname(__file__), "..")
     cfg = tconfig.load_config(os.path.join(
         root, "fourk_nerf_torch", "configs", "llff", "fern_lg_joint_l1.py"))
     cfg.basedir = str(tmp_path)
     args = run_sr.config_parser().parse_args(
         ["--config", "c.py", "--device", "cpu", flag])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match="MASTER_ADDR.*torchrun"):
         run_sr.run(args, cfg, {})
+    assert not any(tmp_path.iterdir())
 
 
 # --- full float32 in the entry points (ROADMAP Queue C 2) -------------------
@@ -292,7 +298,7 @@ def test_entry_points_run_in_full_float32(cudnn_flags):
     for mod in (run, run_sr):
         args = mod.config_parser().parse_args(
             ["--config", "c.py", "--device", "cpu", "--multihost"])
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="torchrun"):
             mod.run(args, cfg, {})
     assert cudnn_flags[2:] == [(False, False)] * 2
     assert torch.backends.cuda.matmul.allow_tf32  # restored

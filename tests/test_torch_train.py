@@ -265,24 +265,64 @@ def test_resume_picks_the_largest_parsed_step(tmp_path):
                                "fine") is None
 
 
-@pytest.mark.parametrize("change", [
-    dict(fine_model_and_render=dict(dim_rend=6)),
-    dict(fine_train=dict(ray_sampler="patch_box")),
-    # a bounded run: the raise comes before the coarse stage trains
-    dict(data=dict(ndc=False), coarse_train=dict(N_iters=5),
-         fine_train=dict(ray_sampler="patch_box")),
-    dict(data=dict(ndc=False),
-         coarse_train=dict(N_iters=5, ray_sampler="patch_box")),
-])
-def test_unported_paths_raise_up_front(tmp_path, change):
-    _, t = _cfgs(tmp_path)
-    for section, kv in change.items():
+def _bounded_cfg(tmp_path, **train):
+    """``syn_default`` cut to the tiny bounded scene, 6 + 6 steps."""
+    t = tconfig.load_config(os.path.join(ROOT, "fourk_nerf_torch", "configs",
+                                         "syn", "syn_default.py"))
+    t.basedir, t.expname = str(tmp_path / "torch"), "tiny"
+    for sec, kv in tiny_scene.BOUNDED_OVERRIDES.items():
         for k, v in kv.items():
-            t[section][k] = v
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        tt.train(_args(), t, tiny_scene.scene(), device="cpu")
-    rundir = tmp_path / "torch" / "tiny"
-    assert not rundir.exists() or not any(rundir.glob("coarse_*"))
+            t[sec][k] = v
+    for sec in ("coarse_train", "fine_train"):
+        t[sec].update(N_iters=6, pg_scale=[])
+        t[sec].update(train.get(sec, {}))
+    return t
+
+
+@pytest.mark.parametrize("change,route", [
+    (dict(fine_model_and_render=dict(dim_rend=6)), None),
+    (dict(fine_train=dict(ray_sampler="patch_box")), "gather"),
+    # a bounded run, both stages on the slab sweep
+    (dict(coarse_train=dict(ray_sampler="patch_box"),
+          fine_train=dict(ray_sampler="patch_box")), "slab"),
+    (dict(coarse_train=dict(ray_sampler="patch_box")), "slab"),
+])
+def test_former_queue_a_paths_train(tmp_path, capsys, change, route):
+    """What raised up front before ``dim_rend > 3`` and ``patch_box`` were
+    ported now trains: the rend layer on the tiny NDC scene (its i_val
+    render chunked), ``patch_box`` on a DirectMPIGO through its gather
+    forward, and on a bounded DirectVoxGO through the slab sweep. Torch
+    runs on one intra-op thread, as in the other bounded tests: beside the
+    other test workers its small ops would wait for busy cores."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _train_former_path(tmp_path, capsys, change, route)
+    finally:
+        torch.set_num_threads(n_threads)
+
+
+def _train_former_path(tmp_path, capsys, change, route):
+    if "coarse_train" in change:
+        t = _bounded_cfg(tmp_path, **change)
+        data = tiny_scene.bounded_scene()
+    else:
+        _, t = _cfgs(tmp_path)
+        for section, kv in change.items():
+            for k, v in kv.items():
+                t[section][k] = v
+        data = tiny_scene.scene()
+    w = Recorder()
+    _, mcfg, params, _ = tt.train(_args(i_val=5), t, data, writer=w,
+                                  device="cpu")
+    assert np.all(np.isfinite(w.losses())) and len(w.losses()) >= 6
+    if route is None:
+        assert mcfg.dim_rend == 6 and "rend_layer" in params
+    else:
+        stage = "coarse" if "coarse_train" in change else "fine"
+        n = {"slab": 0, "gather": 0, route: t[f"{stage}_train"].N_iters}
+        assert (f"({stage}): patch_box steps: {n['slab']} slab sweep, "
+                f"{n['gather']} gather forward") in capsys.readouterr().out
 
 
 def test_cli_trains_and_renders_the_test_views(tmp_path):
