@@ -1,0 +1,7 @@
+"""``encode_ms.render``: mean ms of ``FramePipeline.encode`` per frame
+(CUDA events around the call, over the traced window)."""
+
+
+def read(rec):
+    ev = rec.get("events", {}).get("encode_ms")
+    return sum(ev) / len(ev) if ev else None
