@@ -27,6 +27,7 @@ import torch
 from fourk_nerf_torch.device import resolve_device
 from fourk_nerf_torch.models import common
 from fourk_nerf_torch.ops import grid_sample, rays as ray_ops, render
+from fourk_nerf_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +220,9 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     if cfg.fast_color_thres > 0:
         weights = torch.where(weights > cfg.fast_color_thres, weights,
                               torch.zeros_like(weights))
+    if trace.on():  # the rows the dense k0 gather and rgbnet compute
+        trace.count("samples.k0", N * K)
+        trace.count("samples.weighted", (weights > 0).sum())
 
     if aligned and common.is_dense(cfg.k0_type):
         vox_emb = grid_sample.trilinear_sample_plane_aligned(params["k0"],

@@ -24,6 +24,7 @@ import torch
 from fourk_nerf_torch.device import resolve_device
 from fourk_nerf_torch.models import common
 from fourk_nerf_torch.ops import grid_sample, rays as ray_ops, render
+from fourk_nerf_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +227,9 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
     if cfg.fast_color_thres > 0:
         weights = torch.where(weights > cfg.fast_color_thres, weights,
                               torch.zeros_like(weights))
+    if trace.on():  # the rows the dense k0 gather and rgbnet compute
+        trace.count("samples.k0", N * K)
+        trace.count("samples.weighted", (weights > 0).sum())
 
     k0 = None if cfg.rgbnet_full_implicit else \
         common.grid_query(cfg.k0_type, params["k0"], ind01)

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from fourk_nerf_torch.models.sr_esrnet import SFTNet, conv_nchw, lrelu, \
     nearest_up2
 from fourk_nerf_torch.ops import _build, s2d
+from fourk_nerf_torch.utils import trace
 
 _F, _G = 64, 32
 _CIN = tuple(_F + _G * s for s in range(5))
@@ -397,6 +398,9 @@ def _check_upchain(upchain):
         raise ValueError(f"upchain must be one of {UPCHAINS}, got {upchain!r}")
 
 
+_BLOCKS = trace.span("decode.blocks")
+
+
 def _sftnet_trunk(prep: PreparedSFTNet, x, cond, rdb, rrdb, upchain):
     """The decode up to the post-lrelu ``conv_up1`` output (the body itself
     at scale 1) with dense-block function ``rdb`` or, when given, whole-RRDB
@@ -406,14 +410,15 @@ def _sftnet_trunk(prep: PreparedSFTNet, x, cond, rdb, rrdb, upchain):
     m = prep.m16
     feat, c, body, ch = sftnet_head(prep, x, cond)
     with torch.no_grad():
-        for i in range(m.num_block):
-            if rrdb is not None:
-                body = rrdb(body, ch, prep.rrdb_packs[i])
-                continue
-            xin = body
-            cur = rdb(body, ch, prep.packs[3 * i])
-            cur = rdb(cur, ch, prep.packs[3 * i + 1])
-            body = rdb(cur, ch, prep.packs[3 * i + 2], xin=xin)
+        with _BLOCKS:
+            for i in range(m.num_block):
+                if rrdb is not None:
+                    body = rrdb(body, ch, prep.rrdb_packs[i])
+                    continue
+                xin = body
+                cur = rdb(body, ch, prep.packs[3 * i])
+                cur = rdb(cur, ch, prep.packs[3 * i + 1])
+                body = rdb(cur, ch, prep.packs[3 * i + 2], xin=xin)
         body = body.permute(2, 0, 1)[None]
         body = m.conv_body(m.sftbody(body, c)) + feat
         body = body.permute(0, 2, 3, 1)
@@ -433,6 +438,7 @@ def _up_conv(conv, body, upchain):
         .permute(0, 2, 3, 1)
 
 
+@trace.span("decode.tail")
 def _sftnet_tail(prep: PreparedSFTNet, body, upchain):
     """``conv_up2`` (scale 4), ``conv_hr`` and the float32 ``conv_last`` on
     the trunk's output -> float32 ``[1, sH, sW, 3]``. These are the three
@@ -570,6 +576,7 @@ def uptail_plain(up1_out, w: UptailWeights):
     return rgb.to(bf).float()
 
 
+@trace.span("decode.tail")
 def uptail_apply(up1_out, w: UptailWeights):
     """The fused x4 upsample tail in one launch: the post-lrelu ``conv_up1``
     output ``[1, H2, W2, 64]`` -> ``lrelu(conv_up2(nearest_up2 .))`` ->

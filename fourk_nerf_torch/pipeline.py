@@ -24,6 +24,7 @@ from fourk_nerf_torch.models import dmpigo, dvgo, sr_esrnet
 from fourk_nerf_torch.ops import cuda_box, cuda_sr, cuda_sweep, \
     rays as ray_ops
 from fourk_nerf_torch.train import trainer
+from fourk_nerf_torch.utils import trace
 
 
 class FramePipeline:
@@ -71,6 +72,7 @@ class FramePipeline:
         self.sr = cuda_sr.prepare_sftnet(sr_model) \
             if cuda_sr.fits_kernels(sr_model) else sr_model
 
+    @trace.span("encode")
     def encode(self, H: int, W: int, K, c2w) -> dict:
         """The encoder render: ``rgb_feature [H,W,3]``, ``depth [H,W]``,
         ``rgb_marched``, ``alphainv_last``."""
@@ -83,6 +85,7 @@ class FramePipeline:
             self.cfg, self.params, None, H, W, K, c2w, stepsize=self.stepsize,
             bg=self.bg, device=self.device, packed=self.packed)
 
+    @trace.span("decode")
     @fp32_precision()
     def decode(self, enc: dict) -> torch.Tensor:
         """The SR decode of an encoder output: ``[1, sH, sW, 3]`` float32
@@ -95,6 +98,7 @@ class FramePipeline:
                                          fuse_rrdb=self.fuse_rrdb,
                                          upchain="dilated")
 
+    @trace.span("frame", root=True)
     def __call__(self, H: int, W: int, K, c2w):
         """One frame: returns (sr ``[1, sH, sW, 3]``, encoder outputs)."""
         enc = self.encode(H, W, K, c2w)

@@ -50,7 +50,7 @@ from fourk_nerf_torch.ops import grid_sample, plane_sweep, rays as ray_ops, \
     render
 from fourk_nerf_torch.train import checkpoints, losses, optim, sr_losses, \
     trainer
-from fourk_nerf_torch.utils import metrics, stats as stats_mod
+from fourk_nerf_torch.utils import metrics, stats as stats_mod, trace
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +146,9 @@ def _force_image_sampler(cfg_train):
 # ---------------------------------------------------------------------------
 # the joint step
 # ---------------------------------------------------------------------------
+
+_SR_STEP = trace.span("sr_step", root=True)
+
 
 class SRTrainStep:
     """One joint step for a fixed model configuration (one progressive-
@@ -406,7 +409,7 @@ class SRTrainStep:
         (with a GAN weight: ``d_opt`` its optimizer state, ``lrs["d"]`` its
         lr) and the optimizer states in place. Returns (loss, psnr_sr,
         terms) as device scalars."""
-        with fp32_precision(), torch.profiler.record_function("sr_step"):
+        with fp32_precision(), _SR_STEP:
             loss, terms, psnr_sr, enc_grads, sr_grads, window, sr_hr = \
                 self.loss_and_grads(params, buffers, batch, lrs["enc"].keys(),
                                     bg_noise, apply_tv=apply_tv,
@@ -416,9 +419,8 @@ class SRTrainStep:
             self.update(params, enc_grads, enc_opt, sr_grads, sr_opt, lrs,
                         window)
             if self.use_gan:
-                with torch.profiler.record_function("d_step"):
-                    terms.update(self.d_step(*sr_hr, self.d_condition(batch),
-                                             d_opt, lrs["d"]))
+                terms.update(self.d_step(*sr_hr, self.d_condition(batch),
+                                         d_opt, lrs["d"]))
         return loss, psnr_sr, terms
 
 

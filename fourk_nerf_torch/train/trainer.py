@@ -60,7 +60,7 @@ from fourk_nerf_torch.models import dcvgo, dmpigo, dvgo, dvqgo, model_module
 from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sweep, \
     grid_sample, rays as ray_ops, render
 from fourk_nerf_torch.train import checkpoints, losses, optim
-from fourk_nerf_torch.utils import metrics, stats as stats_mod
+from fourk_nerf_torch.utils import metrics, stats as stats_mod, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -545,6 +545,12 @@ def _add_(tree, other) -> None:
         tree.add_(other)
 
 
+_STEP = trace.span("train_step", root=True)
+_FORWARD = trace.span("train.forward")
+_BACKWARD = trace.span("train.backward")
+_ADAM = trace.span("train.adam")
+
+
 class TrainStep:
     """One encoder training step for a fixed model configuration (one
     progressive-scaling phase): the loss and its gradients by autograd,
@@ -587,19 +593,22 @@ class TrainStep:
         a model without a codebook)."""
         rays_o, rays_d, viewdirs, target = batch
         live = {k: _detached_leaves(params[k]) for k in groups}
-        out = self.forward_fn(
-            self.model_cfg, {**params, **live}, buffers, rays_o, rays_d,
-            viewdirs, bg_noise=bg_noise, **self.fwd_kw)
-        loss, terms = losses.encoder_losses(out, target, self.cfg_train,
-                                            rays_o.shape[0],
-                                            near_thres=self.near_thres)
+        with _FORWARD:
+            out = self.forward_fn(
+                self.model_cfg, {**params, **live}, buffers, rays_o, rays_d,
+                viewdirs, bg_noise=bg_noise, **self.fwd_kw)
+            loss, terms = losses.encoder_losses(out, target, self.cfg_train,
+                                                rays_o.shape[0],
+                                                near_thres=self.near_thres)
         leaves = _flatten(live, [])
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
+        with _BACKWARD:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads)]
         return (loss.detach(), {k: v.detach() for k, v in terms.items()},
                 _unflatten(live, iter(grads)), out.get("vq_state"))
 
+    @trace.span("train.tv")
     @torch.no_grad()
     def add_tv(self, params, grads, n_rays: int, tv_dense: bool) -> None:
         """Add the TV gradients of the density and k0 grids to ``grads``
@@ -620,14 +629,15 @@ class TrainStep:
         """One step; updates ``params``, ``opt_state`` and a codebook's
         ``buffers["vq_state"]`` in place and returns (loss, psnr) as device
         scalars."""
-        with torch.profiler.record_function("train_step"):
+        with _STEP:
             loss, terms, grads, vq_state = self._loss_grads_state(
                 params, buffers, batch, lrs.keys(), bg_noise)
             if apply_tv:
                 self.add_tv(params, grads, batch[0].shape[0], tv_dense)
-            optim.apply_updates(params, grads, opt_state, lrs,
-                                skip_zero_grad=self.skip_zero_grad,
-                                per_lr=per_lr)
+            with _ADAM:
+                optim.apply_updates(params, grads, opt_state, lrs,
+                                    skip_zero_grad=self.skip_zero_grad,
+                                    per_lr=per_lr)
             if vq_state is not None:
                 buffers["vq_state"] = vq_state
             psnr = -10.0 * torch.log10(
