@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the seven CUDA libraries from ``fourk_nerf_torch/csrc`` (one
+  1. build the eight CUDA libraries from ``fourk_nerf_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time and ptxas
      summary, with the sweep and box kernels' registers by instantiation;
   2. sweep kernel vs its plain version on a small scene (viewdir PE 4,
@@ -54,11 +54,17 @@ Phases (any failure raises and the script exits non-zero):
      fern_lg_pretrain.py`` trains on them for 60 steps through all five
      grid sizes (``TRAIN_OVERRIDES``) with an ``i_val`` render, a periodic
      and a final checkpoint; checks: the loss falls, everything finite,
-     the sweep launches, the final checkpoint reloads and renders the held
-     out views bitwise as before, a 10-step run of the tiny CPU-test scene
+     the sweep launches, the grid update's launches (two TV and two
+     MaskedAdam a step: density and k0), the final checkpoint reloads and
+     renders the held out views bitwise as before, a 10-step run of the tiny CPU-test scene
      gives the same losses on the card and on the CPU; timings: the step at
      each grid size, the full-width step split into its parts beside their
-     byte bounds, peak memory, a profiled step, the checkpoint's save and
+     byte bounds; on one full-width step's gradients the grid update
+     kernels (``ops/cuda_grid.py``: sparse and dense TV, masked Adam on the
+     TV-added gradient) against their plain versions bit for bit (a skipped
+     zero gradient's sign aside), the touched count, and each kernel beside
+     its plain version and its bound (the gradient read, the touched
+     entries' bytes); peak memory, a profiled step, the checkpoint's save and
      load; one ``{"training": ...}`` JSON line; the scene's views are also
      rendered at 4032x3024 for phase 14, and the final checkpoint is kept
      for it;
@@ -202,7 +208,7 @@ Phases (any failure raises and the script exits non-zero):
      card's machine has no image reader, so the scene goes in memory, as
      phase 13's ``run --render_only`` does); one ``{"completion": ...}``
      JSON line and the phase's seconds;
- 20. one JSON line with the seven kernels' summary, then the result line.
+ 20. one JSON line with the eight kernels' summary, then the result line.
 
 The script imports nothing of JAX. It exits with code 2, printing no
 result, when no CUDA device is present or the ``fourk_nerf_torch``
@@ -1434,6 +1440,117 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def check_grid_update(st, params, opt, grads, lrs, n_rand: int) -> dict:
+    """Phase 13: the grid update kernels (``ops/cuda_grid.py``) on one
+    full-width step's gradients of the density and k0 grids, against their
+    plain versions on copies: TV added sparse and dense against ``grad +
+    render.total_variation_grad``, then MaskedAdam of the sparse TV-added
+    gradient against ``optim.masked_adam_plain`` from the run's moments.
+    Both bit for bit, except that the plain sparse TV turns a skipped -0.0
+    gradient into +0.0; the kernel's ``touched`` count equals the non-zero
+    gradients. Each kernel is timed (CUDA events, median of 5) beside its
+    plain version and its byte bound: the gradient read, and the touched
+    entries' grid read and gradient write (TV), or their param and moments
+    read and written (Adam). Returns the record."""
+    import torch
+    from fourk_nerf_torch.ops import cuda_grid, render
+    from fourk_nerf_torch.train import optim
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    m = st.model_mod
+    weights = {"density": st.weight_tv_density, "k0": st.weight_tv_k0}
+    bc = optim._bias_correction(opt["step"] + 1)
+    out = {"grids": {}, "ms": {}, "plain_ms": {}}
+    bound = {"tv_sparse": 0, "tv_dense": 0, "adam": 0}
+    for k in ("density", "k0"):
+        grid, g = params[k], grads[k]
+        w = m.tv_weights(st.model_cfg, weights[k], n_rand)
+        n = g.numel()
+        zero = g == 0
+        res = {"shape": list(g.shape), "nonzero": n - int(zero.sum())}
+        for dense in (False, True):
+            tag = "tv_dense" if dense else "tv_sparse"
+            got = g.clone()
+            cuda_grid.tv_add_grad_(grid, got, *w, dense)
+            want = g + render.total_variation_grad(grid, *w,
+                                                   None if dense else g)
+            same = (bits(got) == bits(want)) | (zero & (got == 0)
+                                                & (want == 0))
+            res[f"{tag}_differ"] = int((~same).sum())
+            res[f"{tag}_max_abs_err"] = float((got - want).abs().max())
+            if dense:
+                del got
+            else:
+                g_tv = got
+            del want
+            scratch = g.clone()
+            out["ms"][f"{k}.{tag}"] = event_ms(
+                lambda: cuda_grid.tv_add_grad_(grid, scratch, *w, dense))
+            scratch.copy_(g)
+            out["plain_ms"][f"{k}.{tag}"] = event_ms(
+                lambda: scratch.add_(render.total_variation_grad(
+                    grid, *w, None if dense else scratch)))
+            del scratch
+        touched = n - int((g_tv == 0).sum())
+        res["touched"] = touched
+        bound["tv_sparse"] += 4 * n + 8 * res["nonzero"]
+        bound["tv_dense"] += 12 * n
+        bound["adam"] += 4 * n + 24 * touched
+
+        step_size = float(np.float32(lrs[k]) * np.float32(bc))
+        kern = [t.clone() for t in (grid, opt["exp_avg"][k],
+                                     opt["exp_avg_sq"][k])]
+        plain = [t.clone() for t in kern]
+        count = torch.zeros((), dtype=torch.int64, device=grid.device)
+        cuda_grid.masked_adam_(kern[0], g_tv, kern[1], kern[2], step_size,
+                               True, touched=count)
+        optim.masked_adam_plain(*(t.view(-1) for t in
+                                  (plain[0], g_tv, plain[1], plain[2])),
+                                step_size, True)
+        res["adam_differ"] = sum(int((bits(a) != bits(b)).sum())
+                                 for a, b in zip(kern, plain))
+        res["adam_max_abs_err"] = max(float((a - b).abs().max())
+                                      for a, b in zip(kern, plain))
+        res["adam_touched"] = int(count)
+        out["ms"][f"{k}.adam"] = event_ms(lambda: cuda_grid.masked_adam_(
+            kern[0], g_tv, kern[1], kern[2], step_size, True))
+        out["plain_ms"][f"{k}.adam"] = event_ms(
+            lambda: optim.masked_adam_plain(*(t.view(-1) for t in (
+                plain[0], g_tv, plain[1], plain[2])), step_size, True))
+        del kern, plain, g_tv
+        torch.cuda.empty_cache()
+        out["grids"][k] = res
+        log(f"  grid update, {k} {tuple(g.shape)}: {res['nonzero']} "
+            f"non-zero gradients, {touched} after TV (touched count "
+            f"{res['adam_touched']}); entries that differ from the plain "
+            f"versions: TV sparse {res['tv_sparse_differ']}, dense "
+            f"{res['tv_dense_differ']}, Adam {res['adam_differ']}; ms "
+            + ", ".join(f"{t} {out['ms'][f'{k}.{t}']:.3f} (plain "
+                        f"{out['plain_ms'][f'{k}.{t}']:.2f})"
+                        for t in ("tv_sparse", "tv_dense", "adam")))
+        if res["tv_sparse_differ"] or res["tv_dense_differ"] \
+                or res["adam_differ"] or res["adam_touched"] != touched:
+            raise AssertionError(f"grid update kernels vs plain, {k}: {res}")
+    # the step's two stages: sparse TV, then masked Adam, over both grids
+    stages = ("tv_sparse", "adam")
+    out["bound_bytes"] = bound
+    out["bound_ms"] = {t: b / HBM_BYTES_PER_S * 1e3 for t, b in bound.items()}
+    out["step_ms"] = sum(out["ms"][f"{k}.{t}"] for k in out["grids"]
+                         for t in stages)
+    out["step_plain_ms"] = sum(out["plain_ms"][f"{k}.{t}"]
+                               for k in out["grids"] for t in stages)
+    out["step_bound_ms"] = sum(out["bound_ms"][t] for t in stages)
+    out["max_abs_err"] = max(r[f"{t}_max_abs_err"] for r in
+                             out["grids"].values()
+                             for t in ("tv_sparse", "tv_dense", "adam"))
+    log(f"  grid update, a step's sparse TV + masked Adam over both grids: "
+        f"{out['step_ms']:.3f} ms, plain {out['step_plain_ms']:.2f} ms, "
+        f"bound {out['step_bound_ms']:.3f} ms")
+    return out
+
+
 def run_training(dev):
     """Phase 13 (see the module docstring). Returns the ``training``
     record."""
@@ -1443,7 +1560,7 @@ def run_training(dev):
     import torch
     from fourk_nerf_torch import config as config_mod
     from fourk_nerf_torch.models import dmpigo
-    from fourk_nerf_torch.ops import cuda_sweep, grid_sample
+    from fourk_nerf_torch.ops import cuda_grid, cuda_sweep, grid_sample
     from fourk_nerf_torch.tools import tiny_scene
     from fourk_nerf_torch.train import checkpoints, optim, trainer
 
@@ -1477,6 +1594,8 @@ def run_training(dev):
     writer = Recorder()
     torch.cuda.reset_peak_memory_stats()
     cuda_sweep.sweep.launches = 0
+    cuda_grid.tv_add_grad_.launches = 0
+    cuda_grid.masked_adam_.launches = 0
     t0 = time.perf_counter()
     _, mcfg, params, buffers = trainer.train(args, cfg, data, writer=writer,
                                              device=dev)
@@ -1484,6 +1603,16 @@ def run_training(dev):
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches["i_val"] = cuda_sweep.sweep.launches
+    # every step adds TV (tv_after 0, tv_every 1) to density and k0, and
+    # both are masked groups; the rgbnet's update is no kernel of its own
+    grid_launches = {"tv": cuda_grid.tv_add_grad_.launches,
+                     "adam": cuda_grid.masked_adam_.launches}
+    n_steps = cfg.fine_train.N_iters
+    rec["grid_update_launches"] = grid_launches
+    log(f"  grid update launches over {n_steps} steps: {grid_launches}")
+    if grid_launches != {"tv": 2 * n_steps, "adam": 2 * n_steps}:
+        raise AssertionError(f"grid update: {grid_launches} launches, not "
+                             f"2 + 2 a step over {n_steps} steps")
     losses = writer.values("train/loss")
     rec.update(world_size=list(mcfg.world_size),
                mask_cache_world_size=list(mcfg.mask_cache_world_size),
@@ -1594,15 +1723,22 @@ def run_training(dev):
                            skip_zero_grad=skip)
     bt = batch()
     _, _, grads = st.loss_and_grads(p2, b2, bt, lrs.keys(), noise)
+    grid_update = check_grid_update(st, p2, opt, grads, lrs, n_rand)
+    rec["grid_update"] = grid_update
+    # each TV mode on its own copy of the gradients (dense TV fills in the
+    # zeros that sparse TV and masked Adam skip); Adam on the sparse one,
+    # as the step runs them
+    g_dense = {k: grads[k].clone() for k in ("density", "k0")}
     split = {
         "gather": event_ms(batch),
         "fwd_bwd": event_ms(lambda: st.loss_and_grads(p2, b2, bt, lrs.keys(),
                                                       noise)),
-        "tv_dense": event_ms(lambda: st.add_tv(p2, grads, n_rand, True)),
+        "tv_dense": event_ms(lambda: st.add_tv(p2, g_dense, n_rand, True)),
         "tv_sparse": event_ms(lambda: st.add_tv(p2, grads, n_rand, False)),
         "adam": event_ms(lambda: optim.apply_updates(
             p2, grads, opt, lrs, skip_zero_grad=skip)),
     }
+    del g_dense
     grid_bytes = tree_bytes({k: p2[k] for k in ("density", "k0")})
     param_bytes = tree_bytes(p2)
     K = c2.n_samples(1.0)
@@ -1614,9 +1750,14 @@ def run_training(dev):
         # gradients written once
         "fwd_bwd": 2 * taps + param_bytes,
         # the grid and its gradient read, the gradient written
-        "tv_dense": 3 * grid_bytes, "tv_sparse": 3 * grid_bytes,
-        # p, g, m, v read and p, m, v written: 28 B a float32 parameter
-        "adam": 7 * param_bytes,
+        "tv_dense": 3 * grid_bytes,
+        # the gradient read; the touched entries' grid read, gradient
+        # written (check_grid_update)
+        "tv_sparse": grid_update["bound_bytes"]["tv_sparse"],
+        # the grids' masked update (check_grid_update); the rgbnet's p, g,
+        # m, v read and p, m, v written: 28 B a float32 parameter
+        "adam": grid_update["bound_bytes"]["adam"]
+        + 7 * (param_bytes - grid_bytes),
     }
     bound_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in bound_bytes.items()}
     rec.update(step_ms_by_world_size=per_size, step_ms_full_sparse_tv=full_sparse,
@@ -4604,6 +4745,20 @@ def main() -> int:
          "library_ms": tail["uptail_library_ms"],
          "tflops": tail["uptail_tflops"],
          "tflops_issued": tail["uptail_tflops_issued"]},
+        # ms: a pretrain step's sparse TV + masked Adam of the density and
+        # k0 grids, four launches on one step's gradients; bound_ms: the
+        # gradient read twice, the touched entries' bytes; no library call
+        # computes either stage
+        {"name": "grid_update", "route": "cuda",
+         "source": "fourk_nerf_torch/csrc/grid_update.cu",
+         "replaces": None,
+         "launches": training["grid_update_launches"],
+         "max_abs_err": training["grid_update"]["max_abs_err"],
+         "ms": training["grid_update"]["step_ms"],
+         "plain_ms": training["grid_update"]["step_plain_ms"],
+         "bound_ms": training["grid_update"]["step_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "by_stage_ms": training["grid_update"]["ms"]},
         # the probes: ms is the sum over a suite's kernels, one launch each.
         # library_ms: for the floor probes the window product through
         # torch.mm (the loops and the copy ring have no library call), for

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.ops import grid_sample, render, tensorf
+from fourk_nerf_torch.ops import cuda_grid, grid_sample, render, tensorf
 
 
 def mlp_init(dims: Sequence[int], *, generator: torch.Generator,
@@ -163,3 +163,21 @@ def grid_tv_grad(grid_type: str, gparams, wx: float, wy: float, wz: float,
     if is_dense(grid_type):
         return render.total_variation_grad(gparams, wx, wy, wz, sparse_grad)
     return tensorf.tensorf_tv_grad(gparams, wx, wy, wz)
+
+
+def grid_tv_add_(grid_type: str, gparams, grad, wx: float, wy: float,
+                 wz: float, dense: bool) -> None:
+    """``grad += grid_tv_grad(...)`` in place (without ``dense``, a dense
+    grid's only where ``grad`` is non-zero), leaf by leaf for TensoRF
+    factors. A dense grid on the card takes one kernel pass
+    (``cuda_grid.tv_add_grad_``) and leaves no full-grid temporary."""
+    if is_dense(grid_type) and gparams.is_cuda:
+        cuda_grid.tv_add_grad_(gparams, grad, wx, wy, wz, dense)
+        return
+    tv = grid_tv_grad(grid_type, gparams, wx, wy, wz,
+                      None if dense else grad)
+    if isinstance(grad, dict):
+        for k, g in grad.items():
+            g.add_(tv[k])
+    else:
+        grad.add_(tv)

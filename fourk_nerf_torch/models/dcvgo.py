@@ -354,3 +354,4 @@ update_occupancy_cache = dvgo.update_occupancy_cache
 scale_volume_grid = dvgo.scale_volume_grid
 density_tv_grad = dvgo.density_tv_grad
 k0_tv_grad = dvgo.k0_tv_grad
+tv_weights = dvgo.tv_weights

@@ -381,13 +381,15 @@ def decay_act_shift(buffers: dict, amount: float) -> dict:
     return {**buffers, "act_shift": buffers["act_shift"] - amount}
 
 
-def _tv_weights(cfg: Config, weight: float, n_rays: int):
+def tv_weights(cfg: Config, weight: float, n_rays: int):
+    """The TV gradient's ``(wx, wy, wz)`` (``common.grid_tv_grad``) for a
+    loss weight and a batch of ``n_rays``."""
     # frozoul/4K-NeRF lib/dmpigo.py:248-251: wxy = w max(X, Y) / 128 and
     # wz = w D / 128, passed as (wx, wy, wz) = (wxy, wxy, wz) to the
     # kernel's innermost-first axis order
     w = weight / n_rays
-    return (w * max(cfg.world_size[:2]) / 128.0,
-            w * cfg.mpi_depth / 128.0)
+    wxy = w * max(cfg.world_size[:2]) / 128.0
+    return wxy, wxy, w * cfg.mpi_depth / 128.0
 
 
 def density_tv_grad(cfg: Config, params: dict, weight: float,
@@ -395,14 +397,14 @@ def density_tv_grad(cfg: Config, params: dict, weight: float,
     """TV gradient of the density grid; in sparse mode (``dense_mode``
     false) only where ``density_grad`` is non-zero. TensoRF factors get the
     gradient of their smooth-L1 loss (``common.grid_tv_grad``)."""
-    wxy, wz = _tv_weights(cfg, weight, n_rays)
-    return common.grid_tv_grad(cfg.density_type, params["density"], wxy,
-                               wxy, wz, None if dense_mode else density_grad)
+    return common.grid_tv_grad(cfg.density_type, params["density"],
+                               *tv_weights(cfg, weight, n_rays),
+                               None if dense_mode else density_grad)
 
 
 def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
                n_rays: int, k0_grad):
     """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
-    wxy, wz = _tv_weights(cfg, weight, n_rays)
-    return common.grid_tv_grad(cfg.k0_type, params["k0"], wxy, wxy, wz,
+    return common.grid_tv_grad(cfg.k0_type, params["k0"],
+                               *tv_weights(cfg, weight, n_rays),
                                None if dense_mode else k0_grad)

@@ -452,9 +452,12 @@ def voxel_count_views(cfg: Config, rays_o_views, rays_d_views, near,
     return count
 
 
-def _tv_weight(cfg: Config, weight: float, n_rays: int) -> float:
+def tv_weights(cfg: Config, weight: float, n_rays: int):
+    """The TV gradient's ``(wx, wy, wz)`` (``common.grid_tv_grad``) for a
+    loss weight and a batch of ``n_rays``."""
     # frozoul/4K-NeRF lib/dvgo.py:268-270: the same weight on every axis
-    return weight / n_rays * max(cfg.world_size) / 128.0
+    w = weight / n_rays * max(cfg.world_size) / 128.0
+    return w, w, w
 
 
 def density_tv_grad(cfg: Config, params: dict, weight: float,
@@ -462,14 +465,14 @@ def density_tv_grad(cfg: Config, params: dict, weight: float,
     """TV gradient of the density grid; in sparse mode (``dense_mode``
     false) only where ``density_grad`` is non-zero. TensoRF factors get the
     gradient of their smooth-L1 loss (``common.grid_tv_grad``)."""
-    w = _tv_weight(cfg, weight, n_rays)
-    return common.grid_tv_grad(cfg.density_type, params["density"], w, w, w,
+    return common.grid_tv_grad(cfg.density_type, params["density"],
+                               *tv_weights(cfg, weight, n_rays),
                                None if dense_mode else density_grad)
 
 
 def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
                n_rays: int, k0_grad):
     """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
-    w = _tv_weight(cfg, weight, n_rays)
-    return common.grid_tv_grad(cfg.k0_type, params["k0"], w, w, w,
+    return common.grid_tv_grad(cfg.k0_type, params["k0"],
+                               *tv_weights(cfg, weight, n_rays),
                                None if dense_mode else k0_grad)

@@ -15,16 +15,21 @@ caller decays the lrs (:func:`group_lr`) and resets the state at every
 progressive-scaling boundary, as the reference does (run.py:465-476).
 
 :func:`apply_updates` writes the params and the moments in place under
-``torch.no_grad()``, in chunks of ``_CHUNK`` elements, so no second copy
-of a grid or of its moments exists while it runs (the JAX package gets the
-same from buffer donation). The step count is a host integer: the update
-reads nothing back from the device.
+``torch.no_grad()``, so no second copy of a grid or of its moments exists
+while it runs (the JAX package gets the same from buffer donation): a leaf
+on the card in one pass of ``ops/cuda_grid.masked_adam_``, which reads only
+the gradient of an entry it skips, a leaf on the CPU in chunks of
+``_CHUNK`` elements. The step count is a host integer: the update reads
+nothing back from the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fourk_nerf_torch.ops import cuda_grid
+from fourk_nerf_torch.utils import trace
 
 BETA1, BETA2, EPS = 0.9, 0.99, 1e-8  # lib/masked_adam.py:19
 _CHUNK = 1 << 24  # elements per in-place slice: 64 MB of float32
@@ -51,9 +56,33 @@ def _bias_correction(step: int) -> float:
 
 
 def _update_leaf(p, g, m, v, step_size: float, masked: bool, plr=None):
-    pf, mf, vf = (t.view(-1) for t in (p, m, v))
+    """The update of one leaf in place: on the card one pass of
+    ``cuda_grid.masked_adam_``, on the CPU :func:`masked_adam_plain`. While
+    tracing is on, a masked leaf adds its numel to the counter
+    ``update.entries`` and the entries it updated (those with a non-zero
+    gradient) to ``update.touched``."""
     gf = g.reshape(-1)  # a conv's weight gradient may come in another layout
     plrf = None if plr is None else plr.reshape(-1)
+    counted = masked and trace.on()
+    if counted:
+        trace.count("update.entries", p.numel())
+    if p.is_cuda:
+        touched = (torch.zeros((), dtype=torch.int64, device=p.device)
+                   if counted else None)
+        cuda_grid.masked_adam_(p, gf, m, v, step_size, masked, plrf, touched)
+        if counted:
+            trace.count("update.touched", touched)
+        return
+    if counted:
+        trace.count("update.touched", int((gf != 0).sum()))
+    masked_adam_plain(p.view(-1), gf, m.view(-1), v.view(-1), step_size,
+                      masked, plrf)
+
+
+def masked_adam_plain(pf, gf, mf, vf, step_size: float, masked: bool,
+                      plrf=None) -> None:
+    """The plain MaskedAdam step of flat tensors in place, in chunks of
+    ``_CHUNK`` elements: the kernel's reference, on any device."""
     for s in range(0, pf.numel(), _CHUNK):
         sl = slice(s, s + _CHUNK)
         gc, mc, vc = gf[sl], mf[sl], vf[sl]

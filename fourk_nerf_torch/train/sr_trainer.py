@@ -379,15 +379,9 @@ class SRTrainStep:
         """Add the TV gradients of the density and k0 grids, scaled by the
         view count, as the reference's joint loop does
         (run_sr.py:1005-1011)."""
-        m, c = self.model_mod, self.model_cfg
-        if self.weight_tv_density > 0 and "density" in grads:
-            grads["density"].add_(m.density_tv_grad(
-                c, params, self.weight_tv_density, tv_dense, self.n_views,
-                grads["density"]))
-        if self.weight_tv_k0 > 0 and "k0" in grads:
-            grads["k0"].add_(m.k0_tv_grad(
-                c, params, self.weight_tv_k0, tv_dense, self.n_views,
-                grads["k0"]))
+        trainer.add_tv_(self.model_mod, self.model_cfg, params, grads,
+                        {"density": self.weight_tv_density,
+                         "k0": self.weight_tv_k0}, self.n_views, tv_dense)
 
     def update(self, params, enc_grads, enc_opt, sr_grads, sr_opt, lrs,
                window) -> None:

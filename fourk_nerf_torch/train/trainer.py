@@ -56,7 +56,8 @@ import torch
 
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.device import resolve_device
-from fourk_nerf_torch.models import dcvgo, dmpigo, dvgo, dvqgo, model_module
+from fourk_nerf_torch.models import common, dcvgo, dmpigo, dvgo, dvqgo, \
+    model_module
 from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sweep, \
     grid_sample, rays as ray_ops, render
 from fourk_nerf_torch.train import checkpoints, losses, optim
@@ -535,14 +536,18 @@ def _unflatten(like, it):
     return next(it)
 
 
-def _add_(tree, other) -> None:
-    """``tree += other`` leaf by leaf, in place (a grid, or TensoRF
-    factors)."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _add_(v, other[k])
-    else:
-        tree.add_(other)
+def add_tv_(model_mod, model_cfg, params, grads, weights: dict, n_rays: int,
+            dense: bool) -> None:
+    """Add to ``grads`` in place the TV gradient of each grid that
+    ``weights`` gives a positive loss weight and that has a gradient, by the
+    model's ``tv_weights`` (sparse mode, without ``dense``: only where the
+    gradient is non-zero; ``common.grid_tv_add_``)."""
+    for name, weight in weights.items():
+        if weight > 0 and name in grads:
+            common.grid_tv_add_(getattr(model_cfg, f"{name}_type"),
+                                params[name], grads[name],
+                                *model_mod.tv_weights(model_cfg, weight,
+                                                      n_rays), dense)
 
 
 _STEP = trace.span("train_step", root=True)
@@ -614,15 +619,9 @@ class TrainStep:
         """Add the TV gradients of the density and k0 grids to ``grads``
         in place (sparse mode: only where the gradient is non-zero). A
         model without a k0 grid (DirectQVGO) has no k0 TV."""
-        m = self.model_mod
-        if self.weight_tv_density > 0 and "density" in grads:
-            _add_(grads["density"], m.density_tv_grad(
-                self.model_cfg, params, self.weight_tv_density, tv_dense,
-                n_rays, grads["density"]))
-        if self.weight_tv_k0 > 0 and "k0" in grads:
-            _add_(grads["k0"], m.k0_tv_grad(
-                self.model_cfg, params, self.weight_tv_k0, tv_dense, n_rays,
-                grads["k0"]))
+        add_tv_(self.model_mod, self.model_cfg, params, grads,
+                {"density": self.weight_tv_density, "k0": self.weight_tv_k0},
+                n_rays, tv_dense)
 
     def __call__(self, params, buffers, opt_state, batch, lrs, per_lr,
                  bg_noise, *, apply_tv: bool, tv_dense: bool):

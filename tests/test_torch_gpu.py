@@ -13,8 +13,8 @@ import torch
 
 from fourk_nerf_torch import weights
 from fourk_nerf_torch.models import dmpigo, dvgo
-from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_sr, cuda_sweep, \
-    plane_sweep
+from fourk_nerf_torch.ops import box_sweep, cuda_box, cuda_grid, cuda_sr, \
+    cuda_sweep, plane_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -471,6 +471,196 @@ def test_total_variation_grad_cuda_matches_cpu(cuda, sparse):
         torch.as_tensor(g, device=d) if sparse else None).cpu().numpy()
         for d in ("cpu", cuda)]
     np.testing.assert_allclose(out[1], out[0], rtol=0, atol=1e-7)
+
+
+# --- the grid update kernels (csrc/grid_update.cu) against their plain
+# versions on the card, bit for bit ------------------------------------------
+
+GRID_SHAPES = [(1, 1, 1), (2, 3, 1), (3, 1, 2), (1, 2, 3), (5, 7, 9),
+               (17, 13, 11)]
+
+
+def _grid_case(dev, xyz, c, zero_share, seed, misaligned=False):
+    """A grid and a gradient on ``dev``, the gradient zero on
+    ``zero_share`` of its entries (a third of those -0.0); differences up
+    to ~6, so some clip. ``misaligned``: both views start one float into
+    their storage, which the kernels take entry by entry."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = tuple(xyz) + (c,)
+    n = int(np.prod(shape))
+
+    def make(scale):
+        buf = torch.randn(n + 1, generator=g, device=dev) * scale
+        return (buf[1:] if misaligned else buf[:n]).view(shape)
+
+    grid, grad = make(2.0), make(1e-3)
+    r = torch.rand(shape, generator=g, device=dev)
+    grad[r < zero_share] = 0.0
+    grad[r < zero_share / 3] = -0.0
+    return grid, grad
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _tv_plain(grid, grad, w, dense):
+    from fourk_nerf_torch.ops import render
+    return grad + render.total_variation_grad(grid, *w,
+                                              None if dense else grad)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("zero_share", [0.0, 0.999, 1.0])
+@pytest.mark.parametrize("c", [1, 3, 9, 12])
+@pytest.mark.parametrize("xyz", GRID_SHAPES)
+def test_tv_add_grad_kernel_matches_plain(cuda, xyz, c, zero_share, dense):
+    """``tv_add_grad_`` against ``grad + total_variation_grad`` on the card:
+    extents 1, 2, 3 and odd on each axis, 1-12 channels, gradients all
+    non-zero, 99.9% and all zero. Equal bit for bit, except that the plain
+    sparse TV turns a -0.0 gradient into +0.0 and the kernel leaves it."""
+    grid, grad = _grid_case(cuda, xyz, c, zero_share, seed=c)
+    w = (0.3, 0.5, 0.7)
+    want = _tv_plain(grid, grad, w, dense)
+    got = grad.clone()
+    n0 = cuda_grid.tv_add_grad_.launches
+    assert cuda_grid.tv_add_grad_(grid, got, *w, dense) is got
+    assert cuda_grid.tv_add_grad_.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # +0.0 == -0.0, no NaN
+    if not dense:
+        assert _same_bits(got[grad == 0], grad[grad == 0])
+        assert _same_bits(got[grad != 0], want[grad != 0])
+    else:
+        assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_tv_add_grad_kernel_misaligned(cuda, dense):
+    """Views that start one float into their storage: the entry-by-entry
+    kernel, the same bits."""
+    grid, grad = _grid_case(cuda, (5, 7, 9), 9, 0.7, seed=3, misaligned=True)
+    assert grad.data_ptr() % 16 != 0
+    w = (1e-3, 1e-3, 2e-3)
+    want = _tv_plain(grid, grad, w, dense)
+    got = grad.new_empty(grad.numel() + 1)[1:].view(grad.shape).copy_(grad)
+    cuda_grid.tv_add_grad_(grid, got, *w, dense)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _adam_plain(p, g, m, v, step_size, masked, plr):
+    from fourk_nerf_torch.train import optim
+    optim.masked_adam_plain(p.view(-1), g.reshape(-1), m.view(-1),
+                            v.view(-1), step_size, masked,
+                            None if plr is None else plr.reshape(-1))
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("use_plr", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("zero_share", [0.0, 0.999, 1.0])
+@pytest.mark.parametrize("xyz,c", [((1, 1, 1), 1), ((2, 3, 1), 3),
+                                   ((5, 7, 9), 9), ((17, 13, 11), 12)])
+def test_masked_adam_kernel_matches_plain(cuda, xyz, c, zero_share, masked,
+                                          use_plr, misaligned):
+    """``masked_adam_`` against ``optim.masked_adam_plain`` on the card, two
+    chained steps (the second on the first's moments): params and moments
+    bit for bit; ``touched`` counts the entries with a non-zero gradient
+    (every entry unmasked)."""
+    p0, _ = _grid_case(cuda, xyz, c, 0.0, seed=1, misaligned=misaligned)
+    plr = (torch.rand(p0.shape, device=cuda) + 0.5) if use_plr else None
+    ref = [p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)]
+    got = [t.clone() for t in ref]
+    if misaligned:
+        got = [t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
+               for t in got]
+    for step, ss in enumerate((0.01, 0.0037)):
+        _, g = _grid_case(cuda, xyz, c, zero_share, seed=10 + step)
+        _adam_plain(*ref[:1], g, *ref[1:], ss, masked, plr)
+        touched = torch.zeros((), dtype=torch.int64, device=cuda)
+        n0 = cuda_grid.masked_adam_.launches
+        cuda_grid.masked_adam_(got[0], g, got[1], got[2], ss, masked, plr,
+                               touched)
+        assert cuda_grid.masked_adam_.launches == n0 + 1
+        torch.cuda.synchronize()
+        want_n = int((g != 0).sum()) if masked else g.numel()
+        assert int(touched) == want_n
+    for a, b in zip(got, ref):
+        assert _same_bits(a, b)
+
+
+def test_grid_update_kernels_at_the_pretrain_shape(cuda):
+    """The pretrain's k0 grid, [363, 405, 256, 9] (338.7M entries), a
+    gradient 75% zero: sparse TV, then masked Adam on its result, both
+    against the plain versions, bit for bit (±0 aside in the skipped
+    gradient)."""
+    grid, grad = _grid_case(cuda, (363, 405, 256), 9, 0.75, seed=5)
+    w = (2.2e-4, 2.2e-4, 1.3e-4)
+    want = _tv_plain(grid, grad, w, False)
+    cuda_grid.tv_add_grad_(grid, grad, *w, False)
+    torch.cuda.synchronize()
+    assert torch.equal(grad, want)
+    del want
+    m = torch.zeros_like(grid)
+    v = torch.zeros_like(grid)
+    p = grid.clone()
+    _adam_plain(grid, grad, m, v, 1e-3, True, None)
+    m2, v2 = torch.zeros_like(p), torch.zeros_like(p)
+    touched = torch.zeros((), dtype=torch.int64, device=cuda)
+    cuda_grid.masked_adam_(p, grad, m2, v2, 1e-3, True, None, touched)
+    torch.cuda.synchronize()
+    assert int(touched) == int((grad != 0).sum())
+    for a, b in ((p, grid), (m2, m), (v2, v)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_tv_add_grad_kernel_64bit_indices(cuda, dense):
+    """A grid of more than 2^31 entries, [2049, 1024, 1024, 1], takes the
+    64-bit index path: the last ten X planes (entry 2^31 starts plane 2048)
+    against the plain TV of a slab with one more plane, bit for bit (±0
+    aside in the skipped gradient); sparse TV leaves the zero gradient
+    before the slab untouched."""
+    shape = (2049, 1024, 1024, 1)
+    assert int(np.prod(shape)) > 2 ** 31
+    g = torch.Generator(device=cuda).manual_seed(7)
+    grid = torch.randn(shape, generator=g, device=cuda)
+    grad = torch.zeros(shape, device=cuda)
+    _, grad[2038:] = _grid_case(cuda, (11, 1024, 1024), 1, 0.5, seed=8)
+    w = (0.3, 0.5, 0.7)
+    want = _tv_plain(grid[2038:], grad[2038:], w, dense)[1:]
+    cuda_grid.tv_add_grad_(grid, grad, *w, dense)
+    torch.cuda.synchronize()
+    assert torch.equal(grad[2039:], want)
+    if not dense:
+        assert not bool(grad[:2038].any())
+
+
+def test_grid_update_kernels_refuse(cuda):
+    """A CUDA param or moment that is not contiguous float32 raises, as do
+    mismatched shapes; a refused call counts no launch."""
+    p = torch.zeros(4, 5, 6, 2, device=cuda)
+    g = torch.ones_like(p)
+    n_tv, n_adam = cuda_grid.tv_add_grad_.launches, \
+        cuda_grid.masked_adam_.launches
+    bad = {"strided": p.transpose(0, 1), "float64": p.double(),
+           "bfloat16": p.bfloat16()}
+    for name, t in bad.items():
+        for args in ((t, g, p.clone(), p.clone()), (p, g, t, p.clone()),
+                     (p, g, p.clone(), t)):
+            with pytest.raises(ValueError, match="contiguous float32"):
+                cuda_grid.masked_adam_(*args, 0.1, True)
+        with pytest.raises(ValueError):
+            cuda_grid.tv_add_grad_(t, g, 1.0, 1.0, 1.0, False)
+    with pytest.raises(ValueError):
+        cuda_grid.tv_add_grad_(p, g[:, :, :3], 1.0, 1.0, 1.0, False)
+    with pytest.raises(ValueError):
+        cuda_grid.masked_adam_(p, g, p.clone(), p.clone(), 0.1, True,
+                               touched=torch.zeros((), device=cuda))
+    assert cuda_grid.tv_add_grad_.launches == n_tv
+    assert cuda_grid.masked_adam_.launches == n_adam
 
 
 # --- the joint trainer on the card, and full float32 without TF32 ---------

@@ -120,10 +120,12 @@ def test_kernel_sources_are_present():
         path = os.path.join(_build.CSRC, f"{name}.cu")
         with open(path) as f:
             text = f.read()
-        # one launch function per kernel; a probe suite has one per probe
+        # one launch function per kernel; a probe suite has one per probe,
+        # the grid update one per stage
         entries = {"probe_floor": ("loop", "mma", "ring"),
                    "probe_ops": ("dot_tt", "dot_tt_bf16", "move",
-                                 "block_reduce")}.get(name, ("launch",))
+                                 "block_reduce"),
+                   "grid_update": ("tv", "adam")}.get(name, ("launch",))
         for entry in entries:
             assert f'extern "C" int {name}_{entry}(' in text
         assert f'extern "C" const char* {name}_error_string' in text
