@@ -287,6 +287,43 @@ class _RoundBF16(torch.autograd.Function):
         return grad
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis, with the gradient torch's own
+    backward gives, computed by the same ops for inputs with and without
+    zero factors alike. Torch's backward reads back whether the input holds
+    a zero to choose between the two, which holds the host until the device
+    has drained, once in every training step."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return grad
+        cumsum = (x == 0).cumsum(-1)
+        # before a row's first zero: the reversed cumsum of out * grad over x
+        before = cumsum == 0
+        g = ((out * grad).masked_fill(~before, 0.0).flip(-1).cumsum(-1)
+             .flip(-1).div_(x.masked_fill(~before, 1.0)))
+        # at the first zero: the gradient through the factors up to the next
+        mask = cumsum == 1
+        idx = mask.max(-1, keepdim=True).indices
+        first = torch.zeros_like(mask).scatter_(-1, idx, True) & mask
+        mask &= ~first
+        g0 = (x.masked_fill(~mask, 1.0).cumprod(-1)
+              .mul_(grad.masked_fill(cumsum != 1, 0.0))
+              .sum(-1, keepdim=True)
+              .mul_(torch.gather(out, -1, (idx - 1).relu_())
+                    .masked_fill_(idx == 0, 1.0)))
+        return torch.where(before, g, torch.where(first, g0, 0.0))
+
+
 def _origin(pos, n: int, window: int | None):
     """Start of each (tile, plane)'s ``window``-wide slice of an axis of
     ``n`` cells: ``floor(min over the tile's rays) - 1``, clipped to the
@@ -412,7 +449,7 @@ def sweep_all_tiles_train(density, k0, act_shift, mask, a_tiles, b_tiles,
         alive = torch.cat([torch.ones_like(t_all[..., :1], dtype=torch.bool),
                            t_all[..., :-1] >= render.EARLY_TERM_THRES], -1)
     alpha = torch.where(alive, alpha, zero)
-    t_post = torch.cumprod(1.0 - alpha, dim=-1)
+    t_post = _Cumprod.apply(1.0 - alpha)
     t_pre = torch.cat([torch.ones_like(t_post[..., :1]), t_post[..., :-1]],
                       dim=-1)
     w = t_pre * alpha

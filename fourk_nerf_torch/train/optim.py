@@ -115,14 +115,28 @@ def _at(tree, path):
     return tree
 
 
-def _update_tree(p, g, m, v, step_size: float) -> None:
+def _as_layout(g, p):
+    """``g`` in the shape and the strides of ``p``: a foreach op takes its
+    multi-tensor path only where its lists' tensors share strides, and a
+    conv's weight gradient may come channels-last, or with other strides
+    on its size-1 axes."""
+    g = g.reshape(p.shape)
+    if g.stride() == p.stride():
+        return g
+    if g.is_contiguous() and p.is_contiguous():
+        return g.as_strided(p.shape, p.stride())
+    return torch.empty_like(p).copy_(g)
+
+
+def _update_tree(p, g, m, v, step_size) -> None:
     """The plain (unmasked) update of every leaf of a group tree at once,
     by ``torch._foreach_*`` ops: a few launches for the whole tree instead
-    of a dozen a leaf (the generator has ~300 leaves). The arithmetic, and
-    its order, is :func:`_update_leaf`'s."""
+    of a dozen a leaf (the generator has ~460 leaves). The arithmetic, and
+    its order, is :func:`_update_leaf`'s. ``step_size``: a float, or a
+    float32 0-d tensor on the leaves' device."""
     paths = [path for path, _ in _leaves(p)]
     ps, gs, ms, vs = ([_at(t, path) for path in paths] for t in (p, g, m, v))
-    gs = [x.reshape(y.shape) for x, y in zip(gs, ps)]
+    gs = [_as_layout(x, y) for x, y in zip(gs, ps)]
     torch._foreach_mul_(ms, BETA1)
     torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - BETA1))
     g2 = torch._foreach_mul(gs, 1.0 - BETA2)
@@ -134,6 +148,35 @@ def _update_tree(p, g, m, v, step_size: float) -> None:
     delta = torch._foreach_mul(ms, step_size)
     torch._foreach_div_(delta, den)
     torch._foreach_sub_(ps, delta)
+
+
+class GraphedTreeUpdate:
+    """:func:`_update_tree` of one group tree captured in a CUDA graph and
+    replayed with the step size in a device scalar. Op by op, each foreach
+    op allocates an output for every leaf on the host, some 20 ms a step
+    for the generator's ~460 leaves; replayed, the update is two host
+    calls. The graph reads and writes the tensors it was captured on, so
+    it is captured again whenever a leaf of the params, the gradients or
+    the moments is another tensor than at the last call (a CUDA-graphed
+    backward returns the same gradient tensors at every step)."""
+
+    def __init__(self):
+        self.graph = self.key = self.step_size = None
+
+    def __call__(self, p, g, m, v, step_size: float) -> None:
+        key = tuple(t.data_ptr() for tree in (p, g, m, v)
+                    for _, t in _leaves(tree))
+        if key != self.key:
+            leaf = next(t for _, t in _leaves(p))
+            self.graph = None
+            self.step_size = torch.zeros((), dtype=torch.float32,
+                                         device=leaf.device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                _update_tree(p, g, m, v, self.step_size)
+            self.graph, self.key = graph, key
+        self.step_size.fill_(step_size)
+        self.graph.replay()
 
 
 def _update_window(p, g, m, v, step_size: float, origin) -> None:
@@ -153,7 +196,8 @@ def _update_window(p, g, m, v, step_size: float, origin) -> None:
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: dict, lrs: dict,
                   skip_zero_grad=frozenset(), per_lr: dict | None = None,
-                  windows: dict | None = None) -> None:
+                  windows: dict | None = None,
+                  tree_update=_update_tree) -> None:
     """One MaskedAdam step over a two-level params dict, in place.
 
     ``grads`` has the layout of ``params`` for the groups it holds; ``lrs``
@@ -163,7 +207,9 @@ def apply_updates(params: dict, grads: dict, state: dict, lrs: dict,
     group to the origin (leading-axis starts, host ints) of the window
     that its gradient covers: only that window of the param and of its
     moments is read and written. The gradient is zero outside the window
-    and the group is masked, so this is the full masked update."""
+    and the group is masked, so this is the full masked update.
+    ``tree_update`` updates an unmasked group tree (a
+    :class:`GraphedTreeUpdate` replays it on the card)."""
     state["step"] = step = state["step"] + 1
     bc = _bias_correction(step)
     for name, p in params.items():
@@ -182,8 +228,8 @@ def apply_updates(params: dict, grads: dict, state: dict, lrs: dict,
                            windows[name])
             continue
         if isinstance(p, dict) and not masked and plr is None:
-            _update_tree(p, g, state["exp_avg"][name],
-                         state["exp_avg_sq"][name], step_size)
+            tree_update(p, g, state["exp_avg"][name],
+                        state["exp_avg_sq"][name], step_size)
             continue
         for path, leaf in _leaves(p):
             plr_leaf = (plr if plr is not None and not path

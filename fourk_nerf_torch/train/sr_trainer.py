@@ -148,6 +148,76 @@ def _force_image_sampler(cfg_train):
 # ---------------------------------------------------------------------------
 
 _SR_STEP = trace.span("sr_step", root=True)
+_SR_RENDER = trace.span("sr.render")
+_SR_GENERATOR = trace.span("sr.generator")
+_SR_BACKWARD = trace.span("sr.backward")
+_SR_UPDATE_ENC = trace.span("sr.update.encoder")
+_SR_UPDATE_GEN = trace.span("sr.update.generator")
+
+
+class _GeneratorGraphs:
+    """The generator's forward and its backward at one input signature, each
+    a CUDA graph captured once. The backward graph writes the gradients of
+    the generator's parameters into tensors of its own, ``grads`` (the
+    generator's tree, the same tensors at every step), and hands autograd
+    only those of the two inputs: taking each of the ~460 parameters'
+    gradients through autograd's engine costs the host more than the whole
+    replay."""
+
+    def __init__(self, sr_model, sr_params, x, cond):
+        params = list(sr_model.parameters())
+        self.x = x.detach().clone().requires_grad_(x.requires_grad)
+        self.cond = cond.detach().clone().requires_grad_(cond.requires_grad)
+        ins = [t for t in (self.x, self.cond) if t.requires_grad]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # cuDNN's plans and workspaces
+            for _ in range(3):
+                out = sr_model(self.x, self.cond)
+                torch.autograd.grad(out, ins + params, torch.ones_like(out),
+                                    allow_unused=True)
+        torch.cuda.current_stream().wait_stream(side)
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        # thread-local: a checkpoint writer's thread may copy meanwhile
+        with torch.cuda.graph(self.fwd, capture_error_mode="thread_local"):
+            out = sr_model(self.x, self.cond)
+        self.g_out = torch.empty_like(out)
+        with torch.cuda.graph(self.bwd, pool=self.fwd.pool(),
+                              capture_error_mode="thread_local"):
+            grads = torch.autograd.grad(out, ins + params, self.g_out,
+                                        allow_unused=True)
+        self.out = out.detach()
+        it = iter(grads)
+        self.g_x = next(it) if self.x.requires_grad else None
+        self.g_cond = next(it) if self.cond.requires_grad else None
+        by_id = {id(p): torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, it)}
+
+        def tree(t):
+            return ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                    else by_id[id(t)])
+        self.grads = tree(sr_params)
+
+
+class _Replay(torch.autograd.Function):
+    """The generator's output by :class:`_GeneratorGraphs`' forward graph;
+    going back, its backward graph."""
+
+    @staticmethod
+    def forward(ctx, graphs, x, cond):
+        ctx.graphs = graphs
+        graphs.x.copy_(x)
+        graphs.cond.copy_(cond)
+        graphs.fwd.replay()
+        return graphs.out.detach()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        graphs = ctx.graphs
+        graphs.g_out.copy_(g_out)
+        graphs.bwd.replay()
+        return None, graphs.g_x, graphs.g_cond
 
 
 class SRTrainStep:
@@ -157,6 +227,17 @@ class SRTrainStep:
     gradients by autograd, the TV gradients, then the encoder's and the
     generator's MaskedAdam in place, then, with a GAN weight, the
     discriminator's step. Runs in full float32 (no TF32).
+
+    Spans under the root ``sr_step``: ``sr.render`` (the patch render),
+    ``sr.generator`` (the generator and the loss terms), ``sr.backward``
+    (the gradients and the zero fill), ``sr.tv``, ``sr.update.encoder`` and
+    ``sr.update.generator`` (the two MaskedAdam steps); while tracing is
+    on, the counter ``sr.hr_pixels`` adds the high-resolution pixels
+    decoded.
+
+    On the card the generator's forward, backward and Adam replay CUDA
+    graphs (:meth:`generator`); ``graph_generator = False`` runs them op by
+    op.
 
     ``perceptual``: a :class:`~fourk_nerf_torch.train.sr_losses.
     PerceptualLoss` (the perceptual and style terms) or None;
@@ -187,6 +268,34 @@ class SRTrainStep:
         self.rand_bkgd = bool(render_kwargs.get("rand_bkgd", False))
         self.weight_tv_density = float(cfg_train.weight_tv_density)
         self.weight_tv_k0 = float(cfg_train.weight_tv_k0)
+        self.graph_generator = True
+        self._graphs, self._replayed = {}, None
+        self._gen_update = optim.GraphedTreeUpdate()
+        self._bounds = {}
+
+    def generator(self, x, cond):
+        """The generator on ``x`` and ``cond``. On the card, in a training
+        step, its forward and its backward replay CUDA graphs
+        (:class:`_GeneratorGraphs`, one pair for each input signature,
+        captured at the first call), which the step remembers
+        (``_replayed``) to read the generator's gradients from: run op by
+        op, each of the net's hundreds of small ops a step is paid on the
+        host, which paced the joint step by the host's speed. The graphs
+        replay the same kernels on the generator's own parameters, which
+        the optimizer updates in place."""
+        self._replayed = None
+        if not (self.graph_generator and x.is_cuda
+                and torch.is_grad_enabled()
+                and (x.requires_grad or cond.requires_grad)):
+            return self.sr_model(x, cond)
+        key = (tuple(x.shape), tuple(cond.shape), x.dtype, x.requires_grad,
+               cond.requires_grad)
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            graphs = self._graphs[key] = _GeneratorGraphs(
+                self.sr_model, self.sr_params, x, cond)
+        self._replayed = graphs
+        return _Replay.apply(graphs, x, cond)
 
     def path(self, params, buffers, apply_tv: bool) -> str:
         """``"window"``, ``"sweep"`` or ``"gather"``: the JAX step's rule
@@ -211,13 +320,13 @@ class SRTrainStep:
     def _affine(self, rays_o, rays_d):
         X, Y, Z = self.model_cfg.world_size
         dev = rays_o.device
-        return plane_sweep.affine_coeffs(
-            rays_o, rays_d,
-            torch.tensor(self.model_cfg.xyz_min, dtype=torch.float32,
-                         device=dev),
-            torch.tensor(self.model_cfg.xyz_max, dtype=torch.float32,
-                         device=dev),
-            torch.tensor([X, Y], dtype=torch.float32, device=dev), Z)
+        if dev not in self._bounds:  # made once: a copy from the host waits
+            self._bounds[dev] = tuple(
+                torch.tensor(v, dtype=torch.float32, device=dev)
+                for v in (self.model_cfg.xyz_min, self.model_cfg.xyz_max,
+                          [X, Y]))
+        return plane_sweep.affine_coeffs(rays_o, rays_d, *self._bounds[dev],
+                                         Z)
 
     def _condition(self, depth, viewdirs):
         """The generator's condition ``[1, p, p, num_cond]``
@@ -282,8 +391,8 @@ class SRTrainStep:
         rgb = out["rgb_feature"]
         loss = ct.weight_main * (rgb - target).abs().mean()
         terms = {"loss_photo": loss}
-        rgb_sr = self.sr_model(rgb.reshape(1, p, p, -1),
-                               self._condition(out["depth"], viewdirs))
+        rgb_sr = self.generator(rgb.reshape(1, p, p, -1),
+                                self._condition(out["depth"], viewdirs))
         rgb_hr = target_hr.reshape(1, p * r, p * r, 3)
         loss_sr = (rgb_sr - rgb_hr).abs().mean()
         terms["loss_l1"] = loss_sr
@@ -337,19 +446,27 @@ class SRTrainStep:
                 view[k] = params[k][origin[0]:origin[0] + gw,
                                     origin[1]:origin[1] + gw]
         live = {k: trainer._detached_leaves(view[k]) for k in groups}
-        out = self.render({**view, **live}, buffers, rays_o, rays_d, viewdirs,
-                          path=path, bg_noise=bg_noise, origin=origin)
-        loss, terms, psnr_sr, rgb_sr, rgb_hr = self.loss(out, batch)
+        with _SR_RENDER:
+            out = self.render({**view, **live}, buffers, rays_o, rays_d,
+                              viewdirs, path=path, bg_noise=bg_noise,
+                              origin=origin)
+        with _SR_GENERATOR:
+            loss, terms, psnr_sr, rgb_sr, rgb_hr = self.loss(out, batch)
+            if trace.on():
+                trace.count("sr.hr_pixels", rgb_sr.shape[1] * rgb_sr.shape[2])
+        graphs = self._replayed
         enc_leaves = trainer._flatten(live, [])
-        sr_leaves = trainer._flatten(self.sr_params, [])
-        grads = torch.autograd.grad(loss, enc_leaves + sr_leaves,
-                                    allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(enc_leaves + sr_leaves, grads)]
+        sr_leaves = [] if graphs else trainer._flatten(self.sr_params, [])
+        with _SR_BACKWARD:
+            grads = torch.autograd.grad(loss, enc_leaves + sr_leaves,
+                                        allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(enc_leaves + sr_leaves, grads)]
         n = len(enc_leaves)
+        sr_grads = (graphs.grads if graphs else
+                    trainer._unflatten(self.sr_params, iter(grads[n:])))
         return (loss.detach(), {k: v.detach() for k, v in terms.items()},
-                psnr_sr, trainer._unflatten(live, iter(grads[:n])),
-                trainer._unflatten(self.sr_params, iter(grads[n:])),
+                psnr_sr, trainer._unflatten(live, iter(grads[:n])), sr_grads,
                 (path, origin), (rgb_sr.detach(), rgb_hr))
 
     def d_loss_and_grads(self, rgb_sr, rgb_hr, cond):
@@ -374,6 +491,7 @@ class SRTrainStep:
                             {"d": lr})
         return {"loss_d_real": l_real, "loss_d_fake": l_fake}
 
+    @trace.span("sr.tv")
     @torch.no_grad()
     def add_tv(self, params, grads, tv_dense: bool) -> None:
         """Add the TV gradients of the density and k0 grids, scaled by the
@@ -388,13 +506,20 @@ class SRTrainStep:
         """The encoder's MaskedAdam (on the window at ``window`` where
         given), then the generator's, in place."""
         path, origin = window
-        optim.apply_updates(
-            params, enc_grads, enc_opt, lrs["enc"],
-            skip_zero_grad=self.skip_zero_grad,
-            windows={"density": origin, "k0": origin}
-            if path == "window" else None)
-        optim.apply_updates({"srnet": self.sr_params}, {"srnet": sr_grads},
-                            sr_opt, {"srnet": lrs["srnet"]})
+        with _SR_UPDATE_ENC:
+            optim.apply_updates(
+                params, enc_grads, enc_opt, lrs["enc"],
+                skip_zero_grad=self.skip_zero_grad,
+                windows={"density": origin, "k0": origin}
+                if path == "window" else None)
+        graphed = (self._replayed is not None
+                   and sr_grads is self._replayed.grads)
+        with _SR_UPDATE_GEN:
+            optim.apply_updates({"srnet": self.sr_params},
+                                {"srnet": sr_grads}, sr_opt,
+                                {"srnet": lrs["srnet"]},
+                                tree_update=self._gen_update if graphed
+                                else optim._update_tree)
 
     def __call__(self, params, buffers, enc_opt, sr_opt, batch, lrs,
                  bg_noise=None, *, apply_tv: bool, tv_dense: bool,
@@ -677,6 +802,164 @@ def _inmask_patches(model_cfg, buffers, flat, patch: int, stepsize: float):
     return np.asarray(hits)
 
 
+def steps_since_reset_at(pg_scale, start: int) -> int:
+    """Optimizer steps since the last progressive-scaling boundary at or
+    before ``start`` (the global step a run starts after)."""
+    prior = [b for b in pg_scale if b <= start]
+    return start - (max(prior) if prior else 0)
+
+
+class JointSteps:
+    """The joint loop's per-step pieces, shared by
+    :func:`scene_rep_reconstruction_sr_patch` and any driver of its steps:
+    the patch sampler and the gather of a patch's rays, targets and
+    high-resolution targets, the sweep's slice and grid window with the
+    window origins from host copies of the rays' affine coefficients, the
+    decayed lrs, the step's background noise, the TV switch, and the call
+    of :class:`SRTrainStep`. :meth:`rebuild` makes the step for a model
+    configuration (once, and again after each progressive-scaling
+    boundary); :meth:`draw` makes a step's inputs; a call runs one step.
+
+    ``flat``: the rays and targets in image layout (``[V, H, W, 3]``);
+    ``hr``: the high-resolution targets ``[V, H*r, W*r, 3]`` on the
+    device; ``w2c``: the views' rotations ``[V, 3, 3]`` on the device."""
+
+    def __init__(self, model_mod, cfg_train, cfg_model, *,
+                 render_kwargs: dict, flat: dict, hr, w2c, sr_model,
+                 patch: int, sr_ratio: int, seed: int, inmask=None,
+                 perceptual=None, d_model=None):
+        self.model_mod, self.cfg_train = model_mod, cfg_train
+        self.cfg_model, self.rk = cfg_model, render_kwargs
+        self.flat, self.hr, self.w2c = flat, hr, w2c
+        self.sr_model, self.perceptual, self.d_model = (sr_model, perceptual,
+                                                        d_model)
+        self.patch, self.sr_ratio, self.seed = patch, sr_ratio, seed
+        self.n_views, H, W = flat["rgb"].shape[:3]
+        self.device = flat["rgb"].device
+        self.sample_patch = make_patch_sampler(self.n_views, H, W, patch, seed,
+                                               inmask=inmask)
+        self.skip_zero = frozenset(cfg_train.skip_zero_grad_fields)
+        self.lr_srnet0 = float(cfg_train.get("lrate_srnet", 2e-4))
+        self.base_lrs = None
+        self.model_cfg = self.step = self.ab = None
+
+    def _sweep_sizes(self, mcfg):
+        """The sweep's slice size and grid window at the current grid size
+        (None where they do not fit), and the host copies of the rays'
+        affine coefficients that the window origins come from."""
+        if not self.rk.get("ndc_planes"):
+            return None, None, None
+        X, Y, Z = mcfg.world_size
+        dev = self.device
+        sizes = torch.tensor([X, Y], dtype=torch.float32, device=dev)
+        mn = torch.tensor(mcfg.xyz_min, dtype=torch.float32, device=dev)
+        mx = torch.tensor(mcfg.xyz_max, dtype=torch.float32, device=dev)
+        a_all, b_all = (t.cpu().numpy() for t in plane_sweep.affine_coeffs(
+            self.flat["rays_o"], self.flat["rays_d"], mn, mx, sizes, Z))
+        rows, cols = self.sample_patch.rows, self.sample_patch.cols
+        sp = sweep_patch_size_for(mcfg, a_all, b_all, rows, cols, self.patch)
+        gw = (sweep_window_size_for(mcfg, a_all, b_all, rows, cols,
+                                    self.patch, sp)
+              if sp is not None else None)
+        print(f"sr: plane-sweep patch rendering "
+              f"{'ON (slice ' + str(sp) + ')' if sp else 'OFF (footprint too large)'}"
+              f"{', grid window ' + str(gw) if gw else ''}"
+              f" at world_size {tuple(mcfg.world_size)}")
+        return sp, gw, (a_all, b_all)
+
+    def rebuild(self, model_cfg, params, buffers) -> SRTrainStep:
+        """The step of ``model_cfg`` (the slice and the window re-derived:
+        after the grid grows a stale size would read zeros)."""
+        sp, gw, ab = self._sweep_sizes(model_cfg)
+        st = SRTrainStep(self.model_mod, model_cfg, self.cfg_train,
+                         self.cfg_model, render_kwargs=self.rk,
+                         skip_zero_grad=self.skip_zero,
+                         sr_model=self.sr_model, n_views=self.n_views,
+                         patch=self.patch, sr_ratio=self.sr_ratio,
+                         sweep_patch=sp, grid_window=gw,
+                         perceptual=self.perceptual, d_model=self.d_model)
+        mask = tuple(buffers["mask_cache"].shape)
+        print(f"sr: steps without TV take the "
+              f"{_PATH_NAMES[st.path(params, buffers, apply_tv=False)]}, the "
+              f"mask {mask} read in "
+              f"{'CHANNEL' if mask == tuple(model_cfg.world_size) else 'NATIVE'}"
+              " mode")
+        self.model_cfg, self.step, self.ab = model_cfg, st, ab
+        self.base_lrs = optim.build_group_lrs(self.cfg_train, params)
+        return st
+
+    def gather(self, v: int, r: int, c: int):
+        """The batch of patch ``(v, r, c)``: ``(rays_o, rays_d, viewdirs,
+        rgb, rgb_hr, w2c)``."""
+        p, s = self.patch, self.sr_ratio
+
+        def sl(t):
+            return t[v, r:r + p, c:c + p].reshape(-1, 3)
+        hr = self.hr[v, r * s:(r + p) * s, c * s:(c + p) * s].reshape(-1, 3)
+        flat = self.flat
+        return (sl(flat["rays_o"]), sl(flat["rays_d"]), sl(flat["viewdirs"]),
+                sl(flat["rgb"]), hr, self.w2c[v])
+
+    def window_origin(self, v: int, r: int, c: int):
+        """The grid window's origin of patch ``(v, r, c)`` (host ints, from
+        the host copies of the affine coefficients)."""
+        X, Y, Z = self.model_cfg.world_size
+        p = self.patch
+        a = torch.from_numpy(self.ab[0][v, r:r + p, c:c + p].reshape(-1, 2))
+        b = torch.from_numpy(self.ab[1][v, r:r + p, c:c + p].reshape(-1, 2))
+        return plane_sweep.sweep_window_origin(a, b, Z, X, Y,
+                                               self.step.grid_window)
+
+    def lrs(self, steps_since_reset: int) -> dict:
+        """Every group's lr decayed over ``steps_since_reset`` steps."""
+        def decayed(lr0):
+            return optim.group_lr(lr0, steps_since_reset,
+                                  self.cfg_train.lrate_decay)
+        return {"enc": {k: decayed(v0) for k, v0 in self.base_lrs.items()},
+                "srnet": decayed(self.lr_srnet0),
+                "d": decayed(self.lr_srnet0)}
+
+    def noise(self, global_step: int):
+        """The background noise of ``global_step`` (None without
+        ``rand_bkgd``)."""
+        if not self.rk["rand_bkgd"]:
+            return None
+        return trainer.bkgd_noise(self.seed, global_step,
+                                  self.patch * self.patch, self.device)
+
+    def apply_tv(self, global_step: int) -> bool:
+        ct = self.cfg_train
+        return bool(ct.tv_after < global_step < ct.tv_before
+                    and global_step % ct.tv_every == 0)
+
+    def draw(self, global_step: int, params, buffers) -> dict:
+        """The inputs of ``global_step``: ``patch`` ``(v, r, c)``,
+        ``batch``, ``noise``, ``apply_tv``, ``tv_dense``, ``path`` and the
+        window ``origin`` (None off the window path)."""
+        v, r, c = self.sample_patch(global_step - 1)
+        batch = self.gather(v, r, c)
+        noise = self.noise(global_step)
+        apply_tv = self.apply_tv(global_step)
+        path = self.step.path(params, buffers, apply_tv)
+        origin = self.window_origin(v, r, c) if path == "window" else None
+        return {"patch": (v, r, c), "batch": batch, "noise": noise,
+                "apply_tv": apply_tv,
+                "tv_dense": bool(global_step
+                                 < self.cfg_train.tv_dense_before),
+                "path": path, "origin": origin}
+
+    def __call__(self, global_step: int, steps_since_reset: int, params,
+                 buffers, enc_opt, sr_opt, d_opt=None, drawn=None):
+        """One step at ``global_step`` on ``drawn`` (default: its
+        :meth:`draw`); updates the params, the generator and the optimizer
+        states in place. Returns (loss, psnr_sr, terms)."""
+        d = drawn or self.draw(global_step, params, buffers)
+        return self.step(params, buffers, enc_opt, sr_opt, d["batch"],
+                         self.lrs(steps_since_reset), d["noise"],
+                         apply_tv=d["apply_tv"], tv_dense=d["tv_dense"],
+                         origin=d["origin"], d_opt=d_opt)
+
+
 def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                                       xyz_min, xyz_max, data_dict,
                                       stage: str, writer=None, device=None,
@@ -783,7 +1066,6 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     # --- rays (image layout) and the aligned HR targets ----------------------
     flat, _ = trainer.gather_training_rays(
         cfg, _force_image_sampler(cfg_train), data_dict, dev)
-    V, H, W = flat["rgb"].shape[:3]
     dev_hr = torch.as_tensor(
         np.ascontiguousarray(_nhwc(data_dict["srgt"])[i_train]),
         dtype=torch.float32, device=dev)  # [V, H*r, W*r, 3]
@@ -794,49 +1076,20 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                                  render_kwargs["stepsize"])
         print(f"sr: patch_inmask keeps {int(inmask.sum())}/{len(inmask)} "
               "patches")
-    sample_patch = make_patch_sampler(V, H, W, patch, seed, inmask=inmask)
-
-    def compute_sweep_patch(mcfg):
-        """The sweep's slice size and grid window at the current grid size
-        (None where they do not fit), and the host copies of the rays'
-        affine coefficients that the window origins come from."""
-        if not render_kwargs.get("ndc_planes"):
-            return None, None, None
-        X, Y, Z = mcfg.world_size
-        sizes = torch.tensor([X, Y], dtype=torch.float32, device=dev)
-        mn = torch.tensor(mcfg.xyz_min, dtype=torch.float32, device=dev)
-        mx = torch.tensor(mcfg.xyz_max, dtype=torch.float32, device=dev)
-        a_all, b_all = (t.cpu().numpy() for t in plane_sweep.affine_coeffs(
-            flat["rays_o"], flat["rays_d"], mn, mx, sizes, Z))
-        rows, cols = sample_patch.rows, sample_patch.cols
-        sp = sweep_patch_size_for(mcfg, a_all, b_all, rows, cols, patch)
-        gw = (sweep_window_size_for(mcfg, a_all, b_all, rows, cols, patch, sp)
-              if sp is not None else None)
-        print(f"sr: plane-sweep patch rendering "
-              f"{'ON (slice ' + str(sp) + ')' if sp else 'OFF (footprint too large)'}"
-              f"{', grid window ' + str(gw) if gw else ''}"
-              f" at world_size {tuple(mcfg.world_size)}")
-        return sp, gw, (a_all, b_all)
-
-    def make_step(mcfg):
-        sp, gw, ab = compute_sweep_patch(mcfg)
-        st = SRTrainStep(model_mod, mcfg, cfg_train, cfg_model,
-                         render_kwargs=render_kwargs,
-                         skip_zero_grad=skip_zero, sr_model=sr_model,
-                         n_views=V, patch=patch, sr_ratio=sr_ratio,
-                         sweep_patch=sp, grid_window=gw,
-                         perceptual=perceptual, d_model=d_model)
-        mask = tuple(buffers["mask_cache"].shape)
-        print(f"sr: steps without TV take the "
-              f"{_PATH_NAMES[st.path(params, buffers, apply_tv=False)]}, the "
-              f"mask {mask} read in "
-              f"{'CHANNEL' if mask == tuple(mcfg.world_size) else 'NATIVE'}"
-              " mode")
-        return st, ab
+    w2c_all = np.asarray(data_dict.get("w2c", 0))
+    if w2c_all.ndim != 3:
+        # the Blender loader gives no w2c (0): zeros, where the JAX
+        # package's loop fails to index the scalar
+        w2c_all = np.zeros((len(data_dict["poses"]), 3, 3), np.float32)
+    steps = JointSteps(
+        model_mod, cfg_train, cfg_model, render_kwargs=render_kwargs,
+        flat=flat, hr=dev_hr,
+        w2c=torch.as_tensor(w2c_all[i_train], dtype=torch.float32,
+                            device=dev),
+        sr_model=sr_model, patch=patch, sr_ratio=sr_ratio, seed=seed,
+        inmask=inmask, perceptual=perceptual, d_model=d_model)
 
     # --- optimizers ----------------------------------------------------------
-    base_lrs = optim.build_group_lrs(cfg_train, params)
-    skip_zero = frozenset(cfg_train.skip_zero_grad_fields)
     enc_opt = optim.init_state(params)
     sr_opt = optim.init_state({"srnet": weights.sftnet_params(sr_model)})
     d_opt = (optim.init_state({"d": sr_unetdisc.disc_params(d_model)})
@@ -853,40 +1106,14 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
             print(f"sr ({stage}): restored optimizer state from joint "
                   "checkpoint")
     del opt_l
-    lr_srnet0 = float(cfg_train.get("lrate_srnet", 2e-4))
-    step_fn, ab = make_step(model_cfg)
-
-    # the views' w2c rotations, the pose discriminator's condition; the
-    # Blender loader gives none (w2c 0): zeros, where the JAX package's
-    # loop fails to index the scalar
-    w2c_all = np.asarray(data_dict.get("w2c", 0))
-    if w2c_all.ndim != 3:
-        w2c_all = np.zeros((len(data_dict["poses"]), 3, 3), np.float32)
-    w2c_train = torch.as_tensor(w2c_all[i_train], dtype=torch.float32,
-                                device=dev)
-
-    def gather(v: int, r: int, c: int):
-        def sl(t):
-            return t[v, r:r + patch, c:c + patch].reshape(-1, 3)
-        hr = dev_hr[v, r * sr_ratio:(r + patch) * sr_ratio,
-                    c * sr_ratio:(c + patch) * sr_ratio].reshape(-1, 3)
-        return (sl(flat["rays_o"]), sl(flat["rays_d"]), sl(flat["viewdirs"]),
-                sl(flat["rgb"]), hr, w2c_train[v])
-
-    def window_origin(v: int, r: int, c: int):
-        X, Y, Z = model_cfg.world_size
-        a = torch.from_numpy(ab[0][v, r:r + patch, c:c + patch].reshape(-1, 2))
-        b = torch.from_numpy(ab[1][v, r:r + patch, c:c + patch].reshape(-1, 2))
-        return plane_sweep.sweep_window_origin(a, b, Z, X, Y,
-                                               step_fn.grid_window)
+    steps.rebuild(model_cfg, params, buffers)
 
     collector = stats_mod.Collector()
     best_lpips, best_psnr = np.inf, -np.inf
     if "steps_since_reset" in meta_l:
         steps_since_reset = int(meta_l["steps_since_reset"])
     else:
-        prior = [b for b in cfg_train.pg_scale if b <= start]
-        steps_since_reset = start - (max(prior) if prior else 0)
+        steps_since_reset = steps_since_reset_at(cfg_train.pg_scale, start)
     time0 = time.time()
     saver = checkpoints.AsyncSaver()
     try:
@@ -904,30 +1131,10 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                     cfg_train.decay_after_scale)
                 enc_opt = optim.init_state(params)
                 steps_since_reset = 0
-                # the grid grew: re-derive the slice and the window (a stale
-                # size would read zeros), or drop the sweep
-                step_fn, ab = make_step(model_cfg)
+                steps.rebuild(model_cfg, params, buffers)
 
-            v, r, c = sample_patch(global_step - 1)
-            batch = gather(v, r, c)
-
-            def decayed(lr0):
-                return optim.group_lr(lr0, steps_since_reset,
-                                      cfg_train.lrate_decay)
-
-            lrs = {"enc": {k: decayed(v0) for k, v0 in base_lrs.items()},
-                   "srnet": decayed(lr_srnet0), "d": decayed(lr_srnet0)}
-            noise = (trainer.bkgd_noise(seed, global_step, patch * patch, dev)
-                     if render_kwargs["rand_bkgd"] else None)
-            apply_tv = (cfg_train.tv_after < global_step < cfg_train.tv_before
-                        and global_step % cfg_train.tv_every == 0)
-            origin = (window_origin(v, r, c) if step_fn.path(
-                params, buffers, bool(apply_tv)) == "window" else None)
-            _, psnr_sr, terms = step_fn(
-                params, buffers, enc_opt, sr_opt, batch, lrs, noise,
-                apply_tv=bool(apply_tv),
-                tv_dense=bool(global_step < cfg_train.tv_dense_before),
-                origin=origin, d_opt=d_opt)
+            _, psnr_sr, terms = steps(global_step, steps_since_reset, params,
+                                      buffers, enc_opt, sr_opt, d_opt)
             steps_since_reset += 1
             collector.report("train/psnr_sr", stats_mod.moments(psnr_sr))
             for k, t in terms.items():

@@ -772,6 +772,118 @@ def test_joint_step_ignores_tf32(cuda_tf32_on):
         assert float((got - want).abs().max()) <= tol, k
 
 
+def test_graphed_joint_steps_match_op_by_op(cuda):
+    """Three joint steps whose generator forward, backward and Adam replay
+    CUDA graphs against the same steps run op by op: the first loss bit for
+    bit, the generator's first gradient (its first moment) within 1e-5 of
+    each leaf's largest entry and the later losses within 1e-5 relative.
+    Not bit for bit: cuDNN's weight gradient and the encoder's gathers sum
+    with atomic adds, in another order on every run, graphed or not; a
+    generator update left out moves the later losses by far more."""
+    from fourk_nerf_torch.config import ConfigDict
+    from fourk_nerf_torch.ops import rays
+    from fourk_nerf_torch.train import checkpoints, optim, sr_trainer
+    out = {}
+    for graphed in (False, True):
+        cfg, params, buffers = _joint_tiny(cuda)
+        sr = _sftnet(cuda, num_feat=32, num_block=1, num_grow_ch=16)
+        ct = ConfigDict(dict(weight_main=1.0, weight_entropy_last=1e-3,
+                             weight_distortion=0.01, weight_rgbper=0.01,
+                             weight_tv_density=0, weight_tv_k0=0))
+        step = sr_trainer.SRTrainStep(
+            dmpigo, cfg, ct, ConfigDict({}),
+            render_kwargs={"stepsize": 1.0, "bg": 0.0, "ndc_planes": True},
+            skip_zero_grad={"density", "k0"}, sr_model=sr, n_views=1,
+            patch=8, sr_ratio=4)
+        step.graph_generator = graphed
+        K, c2w = sweep_camera(32, 40)
+        full = rays.get_rays_of_a_view(32, 40, K, c2w, ndc=True,
+                                       inverse_y=False, flip_x=False,
+                                       flip_y=False, device=cuda)
+        g = torch.Generator().manual_seed(3)
+        enc_opt = optim.init_state(params)
+        sr_opt = optim.init_state({"srnet": weights.sftnet_params(sr)})
+        losses = []
+        for i in range(3):
+            r, c = 4 + 6 * i, 8 + 5 * i
+            ro, rd, vd = (t[r:r + 8, c:c + 8].reshape(-1, 3) for t in full)
+            batch = (ro, rd, vd, torch.rand(64, 3, generator=g).to(cuda),
+                     torch.rand(1024, 3, generator=g).to(cuda))
+            loss, _, _ = step(params, buffers, enc_opt, sr_opt, batch,
+                              {"enc": {"k0": 0.1, "density": 0.1},
+                               "srnet": 1e-2},
+                              apply_tv=False, tv_dense=False)
+            losses.append(loss.item())
+            if i == 0:
+                first = {k: v.clone() for k, v in
+                         checkpoints.tree_to_flat_dict(
+                             sr_opt["exp_avg"]).items()}
+        assert bool(step._graphs) == graphed
+        out[graphed] = (losses, first)
+    (l0, m0), (l1, m1) = out[False], out[True]
+    assert l1[0] == l0[0]
+    np.testing.assert_allclose(l1[1:], l0[1:], rtol=1e-5)
+    for k, want in m0.items():
+        tol = 1e-5 * float(want.abs().max())
+        assert float((m1[k] - want).abs().max()) <= tol, k
+
+
+def test_graphed_tree_update_equals_op_by_op(cuda):
+    """``optim.GraphedTreeUpdate`` over three steps of changing step sizes
+    equals ``optim._update_tree`` bit for bit, on gradients of other
+    strides than their leaves, and is captured again when a gradient is
+    another tensor."""
+    from fourk_nerf_torch.train import optim
+    g = torch.Generator().manual_seed(6)
+
+    def tree():
+        return {"a": torch.randn((16, 3, 3, 3), generator=g).to(cuda),
+                "b": {"w": torch.randn((16, 16, 1, 1), generator=g).to(cuda),
+                      "bias": torch.randn((16,), generator=g).to(cuda)}}
+    p = tree()
+    p2 = {"a": p["a"].clone(), "b": {k: v.clone() for k, v in p["b"].items()}}
+    m, v = optim._zeros_like_tree(p), optim._zeros_like_tree(p)
+    m2, v2 = optim._zeros_like_tree(p), optim._zeros_like_tree(p)
+    grads = tree()
+    grads["a"] = grads["a"].to(memory_format=torch.channels_last)
+    upd = optim.GraphedTreeUpdate()
+    for i, lr in enumerate((1e-3, 5e-4, 2e-4)):
+        fresh = tree()
+        for path, leaf in optim._leaves(fresh):
+            optim._at(grads, path).copy_(leaf)
+        optim._update_tree(p, grads, m, v, lr)
+        upd(p2, grads, m2, v2, lr)
+        graph = upd.graph
+    for path, leaf in optim._leaves(p):
+        assert torch.equal(optim._at(p2, path), leaf), path
+        assert torch.equal(optim._at(m2, path), optim._at(m, path)), path
+    grads["b"]["bias"] = grads["b"]["bias"].clone()
+    upd(p2, grads, m2, v2, 1e-4)
+    assert upd.graph is not graph
+
+
+def test_sweep_cumprod_gradient_cuda_is_torchs(cuda):
+    """The sweep's transmittance product on the card takes torch's own
+    cumprod gradient bit for bit, with and without zero factors, and reads
+    nothing back from the device."""
+    from fourk_nerf_torch.ops import plane_sweep
+    g = torch.Generator().manual_seed(7)
+    for share in (0.0, 0.05):
+        x = torch.rand((64, 4, 256), generator=g)
+        x[torch.rand(x.shape, generator=g) < share] = 0.0
+        x, grad = x.to(cuda), torch.randn(x.shape, generator=g).to(cuda)
+        a = x.clone().requires_grad_(True)
+        b = x.clone().requires_grad_(True)
+        want, = torch.autograd.grad(torch.cumprod(a, -1), a, grad)
+        out = plane_sweep._Cumprod.apply(b)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, = torch.autograd.grad(out, b, grad)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got, want)
+
+
 def test_joint_steps_cuda_match_cpu(cuda, tmp_path):
     """Six joint steps of the tiny joint scene (``tools/tiny_scene.py``,
     the full-grid sweep with TV, then the grid window) on the card and on
