@@ -201,10 +201,34 @@ def sample_ray(cfg: Config, rays_o, rays_d, *, near, far, stepsize: float):
         stepsize * cfg.voxel_size, cfg.n_samples(stepsize))
 
 
+def _colour(cfg: Config, params: dict, ind01, vdir_emb):
+    """Raw colour ``[..., 3]`` at normalised ``[..., 3]`` coordinates:
+    k0 through a sigmoid, or the rgbnet on k0 and the viewdir embedding
+    ``vdir_emb [..., E]``."""
+    k0 = None if cfg.rgbnet_full_implicit else \
+        common.grid_query(cfg.k0_type, params["k0"], ind01)
+    if cfg.rgbnet_dim <= 0:
+        return torch.sigmoid(k0)
+    if cfg.rgbnet_full_implicit:
+        rgb_feat = vdir_emb
+    elif cfg.rgbnet_direct:
+        rgb_feat = torch.cat([k0, vdir_emb], dim=-1)
+    else:
+        rgb_feat = torch.cat([k0[..., 3:], vdir_emb], dim=-1)
+    rgb_logit = common.mlp_apply(params["rgbnet"], rgb_feat,
+                                 common.activation(cfg.act_type))
+    if cfg.rgbnet_direct or cfg.rgbnet_full_implicit:
+        return torch.sigmoid(rgb_logit)
+    return torch.sigmoid(rgb_logit + k0[..., :3])
+
+
 def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
             viewdirs, *, stepsize: float, near, far, bg: float = 0.0,
             render_depth: bool = False, **unused) -> dict:
-    """Volume-render N rays densely (eval: no random background)."""
+    """Volume-render N rays over their K static samples (eval: no random
+    background). With ``fast_color_thres > 0`` k0 and the rgbnet run only
+    on the samples whose weight survives the threshold, found by one
+    read-back, and ``raw_rgb`` is 0 at the others."""
     params = common.gathered(params)
     N = rays_o.shape[0]
     xyz_min, xyz_max = _xyz_minmax(cfg, rays_o.device)
@@ -224,32 +248,30 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
         valid = valid & (alpha > cfg.fast_color_thres)
 
     weights, alphainv_last, _ = render.alpha2weight(alpha, valid)
+    vdir_emb = None if cfg.rgbnet_dim <= 0 else \
+        ray_ops.positional_encoding(viewdirs, cfg.viewbase_pe)
     if cfg.fast_color_thres > 0:
         weights = torch.where(weights > cfg.fast_color_thres, weights,
                               torch.zeros_like(weights))
-    if trace.on():  # the rows the dense k0 gather and rgbnet compute
-        trace.count("samples.k0", N * K)
+        # colour only the samples that carry weight (the reference's
+        # ``weights > fast_color_thres``): a weight-0 sample adds 0 to every
+        # output and, past the two thresholds, passes no gradient back
+        rows = torch.nonzero(weights.reshape(-1) > 0).squeeze(1)
+        if vdir_emb is not None:
+            vdir_emb = vdir_emb[rows // K]
+        rgb_rows = _colour(cfg, params, ind01.reshape(-1, 3)[rows], vdir_emb)
+        rgb_raw = torch.zeros((N * K, 3), dtype=rgb_rows.dtype,
+                              device=rgb_rows.device).index_put(
+            (rows,), rgb_rows).reshape(N, K, 3)
+        n_rows = rows.numel()
+    else:  # a valid sample of alpha 0 still has a gradient through colour
+        if vdir_emb is not None:
+            vdir_emb = vdir_emb[:, None, :].expand(N, K, vdir_emb.shape[-1])
+        rgb_raw = _colour(cfg, params, ind01, vdir_emb)
+        n_rows = N * K
+    if trace.on():  # the rows the k0 gather and rgbnet compute
+        trace.count("samples.k0", n_rows)
         trace.count("samples.weighted", (weights > 0).sum())
-
-    k0 = None if cfg.rgbnet_full_implicit else \
-        common.grid_query(cfg.k0_type, params["k0"], ind01)
-    if cfg.rgbnet_dim <= 0:
-        rgb_raw = torch.sigmoid(k0)
-    else:
-        vdir_emb = ray_ops.positional_encoding(viewdirs, cfg.viewbase_pe)
-        vdir_emb = vdir_emb[:, None, :].expand(N, K, vdir_emb.shape[-1])
-        if cfg.rgbnet_full_implicit:
-            rgb_feat = vdir_emb
-        elif cfg.rgbnet_direct:
-            rgb_feat = torch.cat([k0, vdir_emb], dim=-1)
-        else:
-            rgb_feat = torch.cat([k0[..., 3:], vdir_emb], dim=-1)
-        rgb_logit = common.mlp_apply(params["rgbnet"], rgb_feat,
-                                     common.activation(cfg.act_type))
-        if cfg.rgbnet_direct or cfg.rgbnet_full_implicit:
-            rgb_raw = torch.sigmoid(rgb_logit)
-        else:
-            rgb_raw = torch.sigmoid(rgb_logit + k0[..., :3])
 
     rgb_feature = render.composite(weights, rgb_raw)
     rgb_marched = rgb_feature + alphainv_last[:, None] * bg

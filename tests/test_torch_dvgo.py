@@ -48,9 +48,17 @@ def test_dvgo_forward_matches_jax(mode, mask_res):
                      **kw)
     assert float(np.abs(np.asarray(ref["rgb_marched"]) - 0.7).max()) > 0.05
     for k in ("rgb_marched", "rgb_feature", "depth", "alphainv_last",
-              "weights", "raw_alpha", "raw_rgb", "s"):
+              "weights", "raw_alpha", "s"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
                                    atol=TOL, err_msg=k)
+    # the port colours only the weighted samples (fast_color_thres > 0):
+    # raw_rgb is JAX's there and 0 at the others, which no output reads
+    on = got["weights"].numpy() > 0
+    assert tcfg.fast_color_thres > 0 and 0 < on.sum() < on.size
+    rgb = got["raw_rgb"].numpy()
+    np.testing.assert_allclose(rgb[on], np.asarray(ref["raw_rgb"])[on],
+                               atol=TOL)
+    assert not rgb[~on].any()
     assert got["n_max"] == ref["n_max"]
 
 

@@ -110,11 +110,25 @@ CFG_TRAIN = ConfigDict(dict(weight_main=1.0, weight_entropy_last=0.01,
                             weight_tv_k0=0.0))
 
 
-@pytest.mark.parametrize("rgbnet_dim", [0, 6])
-def test_training_loss_and_grads_match_jax(rgbnet_dim):
+def _blob_scene(rgbnet_dim):
+    """:func:`_scene` with the density of a trained bounded scene: an
+    opaque ball of radius 0.45 around the centre, empty space around it,
+    so that few of a ray's samples carry weight."""
     cfg, params, buffers = _scene(rgbnet_dim=rgbnet_dim)
-    ro, rd, vd, _ = _views(1)[0]
-    ro, rd, vd = (a.reshape(-1, 3)[::2] for a in (ro, rd, vd))
+    rng = np.random.default_rng(5)
+    xyz = np.stack(np.meshgrid(*[np.linspace(cfg.xyz_min[d], cfg.xyz_max[d],
+                                             cfg.world_size[d])
+                                 for d in range(3)], indexing="ij"), -1)
+    ball = (xyz ** 2).sum(-1) < 0.45 ** 2
+    dens = np.where(ball, rng.normal(6.0, 2.0, ball.shape),
+                    rng.normal(-8.0, 0.5, ball.shape))
+    params["density"] = dens[..., None].astype(np.float32)
+    return cfg, params, buffers
+
+
+def _check_loss_and_grads(cfg, params, buffers, ro, rd, vd):
+    """The port's training loss, its terms and every gradient against the
+    JAX step's on the rays ``ro, rd, vd``; returns the port's weights."""
     target = np.random.default_rng(1).uniform(0, 1, ro.shape).astype(
         np.float32)
     kw = dict(stepsize=0.5, near=0.2, far=6.0, bg=1.0)
@@ -131,9 +145,8 @@ def test_training_loss_and_grads_match_jax(rgbnet_dim):
     tcfg, tp, tb = _port(cfg, params, buffers)
     step = tt.TrainStep(td, tcfg, CFG_TRAIN,
                         render_kwargs=dict(kw, rand_bkgd=True))
-    lt, tt_terms, gt = step.loss_and_grads(
-        tp, tb, tuple(torch.as_tensor(a) for a in (ro, rd, vd, target)),
-        list(params))
+    batch = tuple(torch.as_tensor(a) for a in (ro, rd, vd, target))
+    lt, tt_terms, gt = step.loss_and_grads(tp, tb, batch, list(params))
     np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
     assert set(tt_terms) == set(tj)
     for k, v in tj.items():
@@ -145,6 +158,28 @@ def test_training_loss_and_grads_match_jax(rgbnet_dim):
         assert np.abs(w).max() > 0, k
         np.testing.assert_allclose(got[k], w, rtol=0,
                                    atol=1e-5 * np.abs(w).max(), err_msg=k)
+    return td.forward(tcfg, tp, tb, *batch[:3], **kw)["weights"]
+
+
+@pytest.mark.parametrize("rgbnet_dim", [0, 6])
+def test_training_loss_and_grads_match_jax(rgbnet_dim):
+    cfg, params, buffers = _scene(rgbnet_dim=rgbnet_dim)
+    ro, rd, vd, _ = _views(1)[0]
+    ro, rd, vd = (a.reshape(-1, 3)[::2] for a in (ro, rd, vd))
+    _check_loss_and_grads(cfg, params, buffers, ro, rd, vd)
+
+
+@pytest.mark.parametrize("rgbnet_dim", [0, 6])
+def test_training_on_few_weighted_samples_matches_jax(rgbnet_dim):
+    """The port colours only the weighted samples, the JAX step all of
+    them: on a scene where under 5% of the samples carry weight (as in a
+    trained scene's fine stage) the loss and the gradients still agree."""
+    cfg, params, buffers = _blob_scene(rgbnet_dim)
+    ro, rd, vd, _ = _views(1)[0]
+    ro, rd, vd = (a.reshape(-1, 3) for a in (ro, rd, vd))
+    w = _check_loss_and_grads(cfg, params, buffers, ro, rd, vd)
+    share = float((w > 0).float().mean())
+    assert 0.005 < share < 0.05, share
 
 
 def test_depth_carries_no_gradient():

@@ -1119,3 +1119,58 @@ def test_tensorf_forward_and_gradients_cuda_match_cpu(cuda, family):
     from fourk_nerf_torch.tools import device_parity
     _check_parity(device_parity.compare(
         (torch.device("cpu"), cuda), *device_parity.tensorf_case(family)))
+
+
+def test_dvgo_fine_step_cuda_matches_cpu(cuda):
+    """One fine-stage step of the benchmark's chair DirectVoxGO at its own
+    grid (160^3, the seeded ball scene, ``fast_color_thres`` 1e-4) on 1024
+    rays through the ball, on the card and on the CPU: the forward colours
+    only the weighted samples on both (``samples.k0`` equals
+    ``samples.weighted``), the loss agrees within 1e-4 relative and every
+    gradient within :data:`PARITY_TOL` of its leaf's largest entry."""
+    from fourk_nerf_torch.config import ConfigDict
+    from fourk_nerf_torch.train import trainer
+    from fourk_nerf_torch.utils import trace
+    from portbench import inputs, program
+
+    cfg = inputs.config("chair_syn")
+    mcfg = program.model_config(cfg)
+    cam, t = cfg["camera"], cfg["train"]
+    params, buffers = inputs.scene(cfg, 7, torch.device("cpu"))
+    rng = np.random.default_rng(7)
+    ro = rng.normal(size=(1024, 3))
+    ro *= 4.0311 / np.linalg.norm(ro, axis=1, keepdims=True)
+    vd = rng.uniform(-0.4, 0.4, (1024, 3)) - ro
+    vd /= np.linalg.norm(vd, axis=1, keepdims=True)
+    rays = [torch.as_tensor(a, dtype=torch.float32)
+            for a in (ro, vd, vd, rng.uniform(0, 1, (1024, 3)))]
+    step = trainer.TrainStep(
+        program.model_module(cfg), mcfg, ConfigDict(t),
+        render_kwargs={"near": cam["near"], "far": cam["far"],
+                       "bg": cam["bg"], "stepsize": cfg["model"]["stepsize"]})
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = {k: ({n: w.to(dev) for n, w in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in params.items()}
+        b = {k: v.to(dev) for k, v in buffers.items()}
+        trace.reset()
+        trace.enable()
+        try:
+            loss, _, grads = step.loss_and_grads(
+                p, b, [r.to(dev) for r in rays], list(p))
+            c = trace.summary()["counters"]
+        finally:
+            trace.disable()
+            trace.reset()
+        assert c["samples.k0"] == c["samples.weighted"]
+        assert 0 < c["samples.k0"] < 1024 * mcfg.n_samples(
+            cfg["model"]["stepsize"]) // 20
+        leaves = [grads["density"], grads["k0"], *grads["rgbnet"].values()]
+        res[dev.type] = (float(loss), [g.cpu() for g in leaves])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    for g, w in zip(g_gpu, g_cpu):
+        ref = float(w.abs().max())
+        assert ref > 0
+        assert float((g - w).abs().max()) <= PARITY_TOL * ref

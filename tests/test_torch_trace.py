@@ -4,6 +4,8 @@ the profiler's clock, the spans of a frame and of a train step, the dense
 forward's sample counters, the record cap, and the benchmark's readers
 of them."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -217,15 +219,22 @@ def test_a_train_step_emits_its_span_tree():
     assert order[:5] == ["train_step", "train.forward", "train.backward",
                          "train.tv", "train.adam"]
     c = trace.summary()["counters"]
-    assert c["samples.k0"] > c["samples.weighted"] > 0
+    # DirectVoxGO colours only its weighted samples
+    assert c["samples.k0"] == c["samples.weighted"] > 0
 
 
-@pytest.mark.parametrize("name,mod,ndc,kw", [
-    ("chair_syn", dvgo, False, {"near": 2.0, "far": 6.0}),
-    ("fern_lg", dmpigo, True, {"ndc_planes": True}),
-], ids=["dvgo", "dmpigo"])
-def test_dense_forward_counts_its_rows(name, mod, ndc, kw):
+@pytest.mark.parametrize("name,mod,ndc,kw,thres", [
+    ("chair_syn", dvgo, False, {"near": 2.0, "far": 6.0}, None),
+    ("chair_syn", dvgo, False, {"near": 2.0, "far": 6.0}, 0.0),
+    ("fern_lg", dmpigo, True, {"ndc_planes": True}, None),
+], ids=["dvgo", "dvgo_thres0", "dmpigo"])
+def test_dense_forward_counts_its_rows(name, mod, ndc, kw, thres):
+    """``samples.k0`` counts the rows the k0 gather and the rgbnet
+    compute: DirectVoxGO's weighted rows where its ``fast_color_thres`` is
+    above 0, every row of a DirectVoxGO at 0 and of a DirectMPIGO."""
     cfg, mcfg, params, buffers = _scene(name)
+    if thres is not None:
+        mcfg = dataclasses.replace(mcfg, fast_color_thres=thres)
     ro, rd, vd = _rays(96, ndc=ndc, seed=2)
     fwd = dict(stepsize=cfg["model"]["stepsize"], bg=1.0, **kw)
     mod.forward(mcfg, params, buffers, ro, rd, vd, **fwd)
@@ -235,10 +244,14 @@ def test_dense_forward_counts_its_rows(name, mod, ndc, kw):
             for _ in range(2)]
     c = trace.summary()["counters"]
     w = outs[0]["weights"]
+    n_rows = 2 * w.shape[0] * w.shape[1]
     assert w.shape[0] == 96
-    assert c["samples.k0"] == 2 * w.shape[0] * w.shape[1]
     assert c["samples.weighted"] == 2 * int((w > 0).sum())
-    assert 0 < c["samples.weighted"] < c["samples.k0"]
+    assert 0 < c["samples.weighted"] < n_rows
+    if mod is dvgo and mcfg.fast_color_thres > 0:
+        assert c["samples.k0"] == c["samples.weighted"]
+    else:
+        assert c["samples.k0"] == n_rows
 
 
 def test_records_past_the_limit_are_dropped_and_counted(monkeypatch):
