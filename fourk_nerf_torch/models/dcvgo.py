@@ -352,6 +352,4 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
 # xyz_min..xyz_max (the contracted cube) as a DirectVoxGO's span its box.
 update_occupancy_cache = dvgo.update_occupancy_cache
 scale_volume_grid = dvgo.scale_volume_grid
-density_tv_grad = dvgo.density_tv_grad
-k0_tv_grad = dvgo.k0_tv_grad
 tv_weights = dvgo.tv_weights

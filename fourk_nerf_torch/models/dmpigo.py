@@ -391,20 +391,3 @@ def tv_weights(cfg: Config, weight: float, n_rays: int):
     wxy = w * max(cfg.world_size[:2]) / 128.0
     return wxy, wxy, w * cfg.mpi_depth / 128.0
 
-
-def density_tv_grad(cfg: Config, params: dict, weight: float,
-                    dense_mode: bool, n_rays: int, density_grad):
-    """TV gradient of the density grid; in sparse mode (``dense_mode``
-    false) only where ``density_grad`` is non-zero. TensoRF factors get the
-    gradient of their smooth-L1 loss (``common.grid_tv_grad``)."""
-    return common.grid_tv_grad(cfg.density_type, params["density"],
-                               *tv_weights(cfg, weight, n_rays),
-                               None if dense_mode else density_grad)
-
-
-def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
-               n_rays: int, k0_grad):
-    """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
-    return common.grid_tv_grad(cfg.k0_type, params["k0"],
-                               *tv_weights(cfg, weight, n_rays),
-                               None if dense_mode else k0_grad)

@@ -481,20 +481,3 @@ def tv_weights(cfg: Config, weight: float, n_rays: int):
     w = weight / n_rays * max(cfg.world_size) / 128.0
     return w, w, w
 
-
-def density_tv_grad(cfg: Config, params: dict, weight: float,
-                    dense_mode: bool, n_rays: int, density_grad):
-    """TV gradient of the density grid; in sparse mode (``dense_mode``
-    false) only where ``density_grad`` is non-zero. TensoRF factors get the
-    gradient of their smooth-L1 loss (``common.grid_tv_grad``)."""
-    return common.grid_tv_grad(cfg.density_type, params["density"],
-                               *tv_weights(cfg, weight, n_rays),
-                               None if dense_mode else density_grad)
-
-
-def k0_tv_grad(cfg: Config, params: dict, weight: float, dense_mode: bool,
-               n_rays: int, k0_grad):
-    """TV gradient of the k0 grid, as :func:`density_tv_grad`."""
-    return common.grid_tv_grad(cfg.k0_type, params["k0"],
-                               *tv_weights(cfg, weight, n_rays),
-                               None if dense_mode else k0_grad)

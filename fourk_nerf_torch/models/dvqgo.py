@@ -147,5 +147,4 @@ def forward(cfg: Config, params: dict, buffers: dict, rays_o, rays_d,
 # the MPI geometry's maintenance is DirectMPIGO's
 update_occupancy_cache = dmpigo.update_occupancy_cache
 decay_act_shift = dmpigo.decay_act_shift
-density_tv_grad = dmpigo.density_tv_grad
 tv_weights = dmpigo.tv_weights

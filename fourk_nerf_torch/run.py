@@ -149,17 +149,15 @@ def run(args, cfg, data_dict) -> dict:
             model_mod, model_cfg, params, buffers = trainer.train(
                 args, cfg, data_dict, writer=writer, device=dev)
         else:
-            model_mod = trainer._select_model_mod(cfg)
+            model_mod = trainer.select_model_mod(cfg)
             ckpt = args.ft_path or os.path.join(rundir, "fine_last.npz")
             kwargs, params, buffers, *_ = checkpoints.load_checkpoint(
                 ckpt, device=dev)
             model_cfg = model_mod.make_config(**kwargs)
 
         data = trainer.DataFlags.from_config(cfg.data)
-        render_kwargs = {
-            "near": float(data_dict["near"]), "far": float(data_dict["far"]),
-            "bg": 1.0 if cfg.data.white_bkgd else 0.0,
-            "stepsize": float(cfg.fine_model_and_render.stepsize)}
+        render_kwargs = trainer.stage_render_kwargs(
+            model_mod, model_cfg, cfg, cfg.fine_model_and_render, data_dict)
         results = {}
 
         def render_split(idx, name):

@@ -161,11 +161,7 @@ def run(args, cfg, data_dict) -> dict:
                 raise ValueError(f"the checkpoint's generator is x"
                                  f"{sr_model.scale}, the config's x{sr_ratio}")
             if args.sr_path:
-                sd = checkpoints._torch_load(args.sr_path)
-                for pk in ("params_ema", "params"):
-                    if isinstance(sd, dict) and pk in sd:
-                        sd = sd[pk]
-                        break
+                sd = checkpoints.reference_sr_state_dict(args.sr_path)
                 sr_esrnet.load_reference_state_dict(sr_model, sd)
             model = (model_mod, model_cfg, params, buffers, sr_model)
         results["model"] = model

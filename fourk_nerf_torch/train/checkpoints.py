@@ -195,6 +195,16 @@ def _torch_load(path):
         return torch.load(path, map_location="cpu", weights_only=False)
 
 
+def reference_sr_state_dict(path: str) -> dict:
+    """The generator's state dict in a reference (basicsr) checkpoint: its
+    ``params_ema``, else its ``params``, else the file's own dict."""
+    sd = _torch_load(path)
+    for key in ("params_ema", "params"):
+        if isinstance(sd, dict) and key in sd:
+            return sd[key]
+    return sd
+
+
 def _grid_to_channel_last(t) -> np.ndarray:
     """``[1, C, X, Y, Z] -> [X, Y, Z, C]``."""
     arr = np.asarray(t.detach().numpy() if hasattr(t, "detach") else t,

@@ -36,7 +36,7 @@ int32 ``step`` each.
 from __future__ import annotations
 
 import copy
-import glob
+import functools
 import os
 import time
 
@@ -57,13 +57,6 @@ from fourk_nerf_torch.utils import metrics, stats as stats_mod, trace
 # aligned LR/HR patch sampling
 # ---------------------------------------------------------------------------
 
-def patch_origins(H: int, W: int, patch: int):
-    """Grid-aligned patch rows and columns, clamped to the border."""
-    rows = sorted({min(r, H - patch) for r in range(0, H, patch)})
-    cols = sorted({min(c, W - patch) for c in range(0, W, patch)})
-    return rows, cols
-
-
 def make_patch_sampler(n_views: int, H: int, W: int, patch: int, seed: int,
                        inmask: np.ndarray | None = None):
     """``sample(step) -> (view, row0, col0)`` for the 0-based draw ``step``:
@@ -71,22 +64,13 @@ def make_patch_sampler(n_views: int, H: int, W: int, patch: int, seed: int,
     ``default_rng((seed, epoch)).permutation``. ``inmask [n_combos]`` drops
     the patches whose rays all miss the occupancy cache (never all of
     them). The JAX package's sampler, draw for draw."""
-    rows, cols = patch_origins(H, W, patch)
+    rows, cols = trainer.patch_origins(H, W, patch)
     combos = [(v, r, c) for v in range(n_views) for r in rows for c in cols]
     if inmask is not None:
         kept = [cb for cb, m in zip(combos, inmask) if m]
         if kept:
             combos = kept
-    cache = {"epoch": -1, "order": None}
-
-    def sample(step: int):
-        epoch, i = divmod(step, len(combos))
-        if cache["epoch"] != epoch:
-            cache["epoch"] = epoch
-            cache["order"] = np.random.default_rng((seed, epoch)).permutation(
-                len(combos))
-        return combos[cache["order"][i]]
-
+    sample = trainer.epoch_sampler(combos, seed)
     sample.rows, sample.cols = rows, cols
     return sample
 
@@ -264,8 +248,7 @@ class SRTrainStep:
         self.n_views, self.patch, self.sr_ratio = n_views, patch, sr_ratio
         self.sweep_patch, self.grid_window = sweep_patch, grid_window
         self.num_cond = int(cfg_model.get("num_cond", 1))
-        self.rk = dict(render_kwargs)
-        self.rand_bkgd = bool(render_kwargs.get("rand_bkgd", False))
+        self.fwd_kw = trainer.forward_kwargs(model_mod, render_kwargs)
         self.weight_tv_density = float(cfg_train.weight_tv_density)
         self.weight_tv_k0 = float(cfg_train.weight_tv_k0)
         self.graph_generator = True
@@ -345,8 +328,8 @@ class SRTrainStep:
         """The encoder's patch render (the dense dict of
         ``dmpigo.forward``); ``params`` may hold grid windows (path
         ``"window"``, at ``origin``)."""
-        stepsize, bg = self.rk["stepsize"], self.rk["bg"]
-        noise = bg_noise if self.rand_bkgd else None
+        stepsize, bg = self.fwd_kw["stepsize"], self.fwd_kw["bg"]
+        noise = bg_noise if self.fwd_kw["rand_bkgd"] else None
         if path == "window":
             a, b = self._affine(rays_o, rays_d)
             gw = self.grid_window
@@ -364,13 +347,9 @@ class SRTrainStep:
                 self.model_cfg, params, buffers, rays_o, rays_d, viewdirs,
                 stepsize=stepsize, bg=bg, bg_noise=noise,
                 patch=self.sweep_patch, check=False)
-        kw = (dict(near=self.rk["near"], far=self.rk["far"])
-              if self.model_mod is dvgo else {})
         return self.model_mod.forward(
             self.model_cfg, params, buffers, rays_o, rays_d, viewdirs,
-            stepsize=stepsize, bg=bg, rand_bkgd=self.rand_bkgd,
-            is_train=True, bg_noise=bg_noise, render_depth=True,
-            ndc_planes=bool(self.rk.get("ndc_planes", False)), **kw)
+            bg_noise=bg_noise, render_depth=True, **self.fwd_kw)
 
     def d_condition(self, batch):
         """The discriminator's condition for ``batch`` (None for ``Unet``;
@@ -445,7 +424,7 @@ class SRTrainStep:
             for k in ("density", "k0"):
                 view[k] = params[k][origin[0]:origin[0] + gw,
                                     origin[1]:origin[1] + gw]
-        live = {k: trainer._detached_leaves(view[k]) for k in groups}
+        live = trainer.live_groups(view, groups)
         with _SR_RENDER:
             out = self.render({**view, **live}, buffers, rays_o, rays_d,
                               viewdirs, path=path, bg_noise=bg_noise,
@@ -455,19 +434,16 @@ class SRTrainStep:
             if trace.on():
                 trace.count("sr.hr_pixels", rgb_sr.shape[1] * rgb_sr.shape[2])
         graphs = self._replayed
-        enc_leaves = trainer._flatten(live, [])
-        sr_leaves = [] if graphs else trainer._flatten(self.sr_params, [])
         with _SR_BACKWARD:
-            grads = torch.autograd.grad(loss, enc_leaves + sr_leaves,
-                                        allow_unused=True)
-            grads = [torch.zeros_like(x) if g is None else g
-                     for x, g in zip(enc_leaves + sr_leaves, grads)]
-        n = len(enc_leaves)
-        sr_grads = (graphs.grads if graphs else
-                    trainer._unflatten(self.sr_params, iter(grads[n:])))
+            if graphs:  # its backward graph writes the generator's grads
+                enc_grads, = trainer.tree_grads(loss, live)
+                sr_grads = graphs.grads
+            else:
+                enc_grads, sr_grads = trainer.tree_grads(loss, live,
+                                                         self.sr_params)
         return (loss.detach(), {k: v.detach() for k, v in terms.items()},
-                psnr_sr, trainer._unflatten(live, iter(grads[:n])), sr_grads,
-                (path, origin), (rgb_sr.detach(), rgb_hr))
+                psnr_sr, enc_grads, sr_grads, (path, origin),
+                (rgb_sr.detach(), rgb_hr))
 
     def d_loss_and_grads(self, rgb_sr, rgb_hr, cond):
         """The discriminator's loss on the truth and on the (detached) SR
@@ -478,10 +454,8 @@ class SRTrainStep:
         l_real = sr_losses.gan_loss(real, True, is_disc=True)
         fake = sr_unetdisc.apply(self.d_model, rgb_sr.detach(), cond, True)
         l_fake = sr_losses.gan_loss(fake, False, is_disc=True)
-        grads = torch.autograd.grad(l_real + l_fake,
-                                    trainer._flatten(self.d_params, []))
-        return (l_real.detach(), l_fake.detach(),
-                trainer._unflatten(self.d_params, iter(grads)))
+        grads, = trainer.tree_grads(l_real + l_fake, self.d_params)
+        return l_real.detach(), l_fake.detach(), grads
 
     def d_step(self, rgb_sr, rgb_hr, cond, d_opt, lr) -> dict:
         """The discriminator's step: its loss and gradients, then its
@@ -514,12 +488,13 @@ class SRTrainStep:
                 if path == "window" else None)
         graphed = (self._replayed is not None
                    and sr_grads is self._replayed.grads)
+        gen = ({"srnet": self.sr_params}, {"srnet": sr_grads}, sr_opt,
+               {"srnet": lrs["srnet"]})
         with _SR_UPDATE_GEN:
-            optim.apply_updates({"srnet": self.sr_params},
-                                {"srnet": sr_grads}, sr_opt,
-                                {"srnet": lrs["srnet"]},
-                                tree_update=self._gen_update if graphed
-                                else optim._update_tree)
+            if graphed:
+                optim.apply_updates(*gen, tree_update=self._gen_update)
+            else:
+                optim.apply_updates(*gen)
 
     def __call__(self, params, buffers, enc_opt, sr_opt, batch, lrs,
                  bg_noise=None, *, apply_tv: bool, tv_dense: bool,
@@ -603,31 +578,12 @@ def _port_opt(opt, device):
             if k in ("sr", "d") else v for k, v in opt.items()}
 
 
-def _periodic_step(path: str, stage: str):
-    name = os.path.basename(path)
-    if not (name.startswith(f"{stage}_") and name.endswith(".npz")):
-        return None
-    tail = name[len(stage) + 1:-len(".npz")]
-    return int(tail) if tail.isdigit() else None
-
-
-def find_reload_path(args, rundir: str, stage: str):
-    """The checkpoint a joint run starts from: ``--ftdv_path``, else the
-    stage's last checkpoint, else the periodic one under ``ckpt_saved/``
-    with the largest step (by the parsed integer: ``fine_1000000`` comes
-    after ``fine_999999``; temporary files do not parse), else None.
-    ``--no_reload`` gives None."""
-    if getattr(args, "no_reload", False):
-        return None
-    if getattr(args, "ftdv_path", ""):
-        return args.ftdv_path
-    last = os.path.join(rundir, f"{stage}_last.npz")
-    if os.path.isfile(last):
-        return last
-    steps = {p: _periodic_step(p, stage) for p in glob.glob(
-        os.path.join(rundir, "ckpt_saved", f"{stage}_*.npz"))}
-    steps = {p: s for p, s in steps.items() if s is not None}
-    return max(steps, key=steps.get) if steps else None
+# the joint run's checkpoint search (--ftdv_path, periodic files under
+# ckpt_saved/), and its lr clock, which portbench's joint cell reads here
+find_reload_path = functools.partial(trainer.find_reload_path,
+                                     flag="ftdv_path",
+                                     periodic_dir="ckpt_saved")
+steps_since_reset_at = trainer.steps_since_reset_at
 
 
 # ---------------------------------------------------------------------------
@@ -779,7 +735,7 @@ def _inmask_patches(model_cfg, buffers, flat, patch: int, stepsize: float):
     """[n_combos] bool: whether any ray of a sampler patch meets the
     occupancy cache (the 'patch_inmask' filter, lib/dvgo.py:786-820)."""
     V, H, W = flat["rgb"].shape[:3]
-    rows, cols = patch_origins(H, W, patch)
+    rows, cols = trainer.patch_origins(H, W, patch)
     K_s = model_cfg.n_samples(stepsize)
     dev = flat["rgb"].device
     mn = torch.tensor(model_cfg.xyz_min, dtype=torch.float32, device=dev)
@@ -800,13 +756,6 @@ def _inmask_patches(model_cfg, buffers, flat, patch: int, stepsize: float):
         hits += [bool(hv[r:r + patch, c:c + patch].any())
                  for r in rows for c in cols]
     return np.asarray(hits)
-
-
-def steps_since_reset_at(pg_scale, start: int) -> int:
-    """Optimizer steps since the last progressive-scaling boundary at or
-    before ``start`` (the global step a run starts after)."""
-    prior = [b for b in pg_scale if b <= start]
-    return start - (max(prior) if prior else 0)
 
 
 class JointSteps:
@@ -927,11 +876,6 @@ class JointSteps:
         return trainer.bkgd_noise(self.seed, global_step,
                                   self.patch * self.patch, self.device)
 
-    def apply_tv(self, global_step: int) -> bool:
-        ct = self.cfg_train
-        return bool(ct.tv_after < global_step < ct.tv_before
-                    and global_step % ct.tv_every == 0)
-
     def draw(self, global_step: int, params, buffers) -> dict:
         """The inputs of ``global_step``: ``patch`` ``(v, r, c)``,
         ``batch``, ``noise``, ``apply_tv``, ``tv_dense``, ``path`` and the
@@ -939,14 +883,12 @@ class JointSteps:
         v, r, c = self.sample_patch(global_step - 1)
         batch = self.gather(v, r, c)
         noise = self.noise(global_step)
-        apply_tv = self.apply_tv(global_step)
+        apply_tv, tv_dense = trainer.tv_schedule(self.cfg_train, global_step)
         path = self.step.path(params, buffers, apply_tv)
         origin = self.window_origin(v, r, c) if path == "window" else None
         return {"patch": (v, r, c), "batch": batch, "noise": noise,
-                "apply_tv": apply_tv,
-                "tv_dense": bool(global_step
-                                 < self.cfg_train.tv_dense_before),
-                "path": path, "origin": origin}
+                "apply_tv": apply_tv, "tv_dense": tv_dense, "path": path,
+                "origin": origin}
 
     def __call__(self, global_step: int, steps_since_reset: int, params,
                  buffers, enc_opt, sr_opt, d_opt=None, drawn=None):
@@ -974,9 +916,6 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     # DirectVoxGO (an unbounded scene's too: no contraction), as in the
     # JAX package and load_joint
     model_mod = dmpigo if cfg.data.ndc else dvgo
-    if abs(cfg_model.world_bound_scale - 1) > 1e-9:
-        xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
-        xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift
     i_train, i_val = data_dict["i_train"], data_dict["i_val"]
     sr_ratio = int(cfg.data.factor / cfg.data.load_sr) \
         if cfg.data.load_sr else 4
@@ -986,43 +925,24 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     last_ckpt_path = os.path.join(rundir, f"{stage}_last.npz")
 
     # --- encoder: reload (pretrained / joint resume) or new -----------------
-    start, loaded_sr, loaded_d, loaded_d_state = 0, None, None, None
-    opt_l, meta_l = {}, {}
     reload_path = find_reload_path(args, rundir, stage)
     if reload_path:
         print(f"sr ({stage}): reload encoder from {reload_path}")
-        if reload_path.endswith(".tar"):
-            kwargs_l, p_np, b_np, start = \
-                checkpoints.import_torch_encoder_checkpoint(reload_path)
-            params, buffers = (weights.to_torch(t, dev)
-                               for t in (p_np, b_np))
-        else:
-            kwargs_l, params, buffers, opt_raw, start, meta_l = \
-                checkpoints.load_checkpoint(reload_path, device=dev)
-            if meta_l.get("pipeline") == "joint_sr":
-                # the generator and the discriminator ride in the encoder's
-                # tree of a joint file
-                loaded_sr = params.pop("__sr__", None)
-                loaded_d = params.pop("__disc__", None)
-                loaded_d_state = params.pop("__disc_state__", None)
-                opt_l = _port_opt(opt_raw, dev) or {}
-        model_cfg = model_mod.make_config(**kwargs_l)
-    else:
-        model_kwargs = dict(cfg_model)
-        num_voxels = model_kwargs.pop("num_voxels")
-        if len(cfg_train.pg_scale):
-            num_voxels = int(num_voxels / (2 ** len(cfg_train.pg_scale)))
-        model_cfg = trainer._make_cfg(model_mod, xyz_min, xyz_max, num_voxels,
-                                      model_kwargs)
-        mask_kw = {}
-        if model_mod is dvgo and coarse_ckpt_path:
-            # the free-space mask of the coarse stage (--ftdvcoa_path)
-            mask_kw["init_mask"] = trainer.coarse_mask_on_grid(
-                model_cfg, coarse_ckpt_path, cfg_model.mask_cache_thres, dev)
-            print(f"sr ({stage}): mask bootstrapped from {coarse_ckpt_path}")
-        params, buffers = model_mod.init(
-            model_cfg, generator=torch.Generator().manual_seed(seed),
-            device=dev, **mask_kw)
+    enc = trainer.EncoderStage(
+        model_mod, cfg, cfg_model, cfg_train, xyz_min, xyz_max, data_dict,
+        reload_path=reload_path, coarse_ckpt_path=coarse_ckpt_path,
+        seed=seed, device=dev)
+    # the generator and the discriminator ride in the encoder's tree of a
+    # joint file
+    joint = enc.meta.get("pipeline") == "joint_sr"
+    loaded_sr, loaded_d, loaded_d_state = (
+        enc.params.pop(k, None) if joint else None
+        for k in ("__sr__", "__disc__", "__disc_state__"))
+    opt_l = (_port_opt(enc.opt_loaded, dev) or {}) if joint else {}
+    enc.opt_loaded = None
+    if reload_path is None and model_mod is dvgo and coarse_ckpt_path:
+        # the free-space mask of the coarse stage (--ftdvcoa_path)
+        print(f"sr ({stage}): mask bootstrapped from {coarse_ckpt_path}")
 
     # --- the generator -------------------------------------------------------
     num_cond = int(cfg_model.get("num_cond", 1))
@@ -1032,15 +952,11 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     sr_esrnet.init_like_jax(sr_model, torch.Generator().manual_seed(seed))
     sr_model = sr_model.to(dev)
     if loaded_sr is not None:
-        weights._load_flax_convs(sr_model, loaded_sr)
+        weights.load_flax_convs(sr_model, loaded_sr)
         print(f"sr ({stage}): restored SR generator from joint checkpoint")
     elif getattr(args, "ftsr_path", ""):
-        sd = checkpoints._torch_load(args.ftsr_path)
-        for pk in ("params_ema", "params"):
-            if isinstance(sd, dict) and pk in sd:
-                sd = sd[pk]
-                break
-        sr_esrnet.load_reference_state_dict(sr_model, sd)
+        sr_esrnet.load_reference_state_dict(
+            sr_model, checkpoints.reference_sr_state_dict(args.ftsr_path))
         print(f"sr ({stage}): imported SR init from {args.ftsr_path}")
 
     # --- losses and the discriminator ---------------------------------------
@@ -1053,15 +969,7 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
             print(f"sr ({stage}): restored discriminator from joint "
                   "checkpoint")
 
-    render_kwargs = {
-        "near": float(data_dict["near"]), "far": float(data_dict["far"]),
-        "bg": 1.0 if cfg.data.white_bkgd else 0.0,
-        "rand_bkgd": bool(cfg.data.rand_bkgd),
-        "stepsize": float(cfg_model.stepsize),
-    }
-    if model_mod is dmpigo:
-        render_kwargs["ndc_planes"] = dmpigo.plane_aligned_ok(
-            model_cfg, render_kwargs["stepsize"], cfg.data.ndc)
+    render_kwargs = enc.render_kwargs
 
     # --- rays (image layout) and the aligned HR targets ----------------------
     flat, _ = trainer.gather_training_rays(
@@ -1072,7 +980,7 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
     inmask = None
     if (str(cfg_train.get("ray_sampler", "")) == "patch_inmask"
             and model_mod is dmpigo):
-        inmask = _inmask_patches(model_cfg, buffers, flat, patch,
+        inmask = _inmask_patches(enc.model_cfg, enc.buffers, flat, patch,
                                  render_kwargs["stepsize"])
         print(f"sr: patch_inmask keeps {int(inmask.sum())}/{len(inmask)} "
               "patches")
@@ -1090,12 +998,12 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
         inmask=inmask, perceptual=perceptual, d_model=d_model)
 
     # --- optimizers ----------------------------------------------------------
-    enc_opt = optim.init_state(params)
+    enc.opt = optim.init_state(enc.params)
     sr_opt = optim.init_state({"srnet": weights.sftnet_params(sr_model)})
     d_opt = (optim.init_state({"d": sr_unetdisc.disc_params(d_model)})
              if d_model is not None else None)
     if not getattr(args, "no_reload_optimizer", False) and opt_l:
-        enc_opt, r1 = optim.restore_state(opt_l.get("enc"), enc_opt,
+        enc.opt, r1 = optim.restore_state(opt_l.get("enc"), enc.opt,
                                           label="encoder opt")
         sr_opt, r2 = optim.restore_state(opt_l.get("sr"), sr_opt,
                                          label="srnet opt")
@@ -1106,36 +1014,20 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
             print(f"sr ({stage}): restored optimizer state from joint "
                   "checkpoint")
     del opt_l
-    steps.rebuild(model_cfg, params, buffers)
+    steps.rebuild(enc.model_cfg, enc.params, enc.buffers)
 
     collector = stats_mod.Collector()
     best_lpips, best_psnr = np.inf, -np.inf
-    if "steps_since_reset" in meta_l:
-        steps_since_reset = int(meta_l["steps_since_reset"])
-    else:
-        steps_since_reset = steps_since_reset_at(cfg_train.pg_scale, start)
     time0 = time.time()
     saver = checkpoints.AsyncSaver()
     try:
-        for global_step in range(1 + start, 1 + cfg_train.N_iters):
-            if (global_step + 500) % 1000 == 0:
-                buffers = model_mod.update_occupancy_cache(model_cfg, params,
-                                                           buffers)
-            if global_step in cfg_train.pg_scale:
-                n_rest = (len(cfg_train.pg_scale)
-                          - cfg_train.pg_scale.index(global_step) - 1)
-                cur_voxels = int(cfg_model.num_voxels / (2 ** n_rest))
-                enc_opt = None  # the old moments go before the grids grow
-                model_cfg, params, buffers = trainer.scale_grids(
-                    model_mod, model_cfg, params, buffers, cur_voxels,
-                    cfg_train.decay_after_scale)
-                enc_opt = optim.init_state(params)
-                steps_since_reset = 0
-                steps.rebuild(model_cfg, params, buffers)
+        for global_step in range(1 + enc.start, 1 + cfg_train.N_iters):
+            if enc.advance(global_step):
+                steps.rebuild(enc.model_cfg, enc.params, enc.buffers)
 
-            _, psnr_sr, terms = steps(global_step, steps_since_reset, params,
-                                      buffers, enc_opt, sr_opt, d_opt)
-            steps_since_reset += 1
+            _, psnr_sr, terms = steps(global_step, enc.since_reset, enc.params,
+                                      enc.buffers, enc.opt, sr_opt, d_opt)
+            enc.since_reset += 1
             collector.report("train/psnr_sr", stats_mod.moments(psnr_sr))
             for k, t in terms.items():
                 collector.report(f"train/{k}", stats_mod.moments(t))
@@ -1154,9 +1046,10 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                 collector.reset()
 
             if args.i_val and global_step % args.i_val == 0 and len(i_val):
-                val = evaluate_sr(args, cfg, cfg_model, model_mod, model_cfg,
-                                  params, buffers, sr_model, data_dict,
-                                  render_kwargs, sr_ratio, device=dev)
+                val = evaluate_sr(args, cfg, cfg_model, model_mod,
+                                  enc.model_cfg, enc.params, enc.buffers,
+                                  sr_model, data_dict, render_kwargs,
+                                  sr_ratio, device=dev)
                 is_proxy = bool(val.get("lpips_sr_is_proxy"))
                 if writer is not None:
                     for k, vv in val.items():
@@ -1182,34 +1075,34 @@ def scene_rep_reconstruction_sr_patch(args, cfg, cfg_model, cfg_train,
                     best_psnr = max(best_psnr, val["psnr_sr"])
                     save_joint(os.path.join(rundir, "render_val",
                                             "best_joint.npz"),
-                               model_mod, model_cfg, params, buffers,
-                               sr_model, global_step, saver=saver,
-                               d_model=d_model)
+                               model_mod, enc.model_cfg, enc.params,
+                               enc.buffers, sr_model, global_step,
+                               saver=saver, d_model=d_model)
                 del val
 
             if args.i_weights and global_step % args.i_weights == 0:
                 save_joint(os.path.join(rundir, "ckpt_saved",
                                         f"{stage}_{global_step:06d}.npz"),
-                           model_mod, model_cfg, params, buffers, sr_model,
-                           global_step,
-                           opt_states={"enc": enc_opt, "sr": sr_opt,
+                           model_mod, enc.model_cfg, enc.params,
+                           enc.buffers, sr_model, global_step,
+                           opt_states={"enc": enc.opt, "sr": sr_opt,
                                        "d": d_opt},
-                           steps_since_reset=steps_since_reset, saver=saver,
+                           steps_since_reset=enc.since_reset, saver=saver,
                            d_model=d_model)
                 print(f"sr ({stage}): async checkpoint dispatched at iter "
                       f"{global_step}", flush=True)
 
         saver.wait_for_pending_saves()
-        if cfg_train.N_iters > start:
-            save_joint(last_ckpt_path, model_mod, model_cfg, params, buffers,
-                       sr_model, cfg_train.N_iters,
-                       opt_states={"enc": enc_opt, "sr": sr_opt,
+        if cfg_train.N_iters > enc.start:
+            save_joint(last_ckpt_path, model_mod, enc.model_cfg, enc.params,
+                       enc.buffers, sr_model, cfg_train.N_iters,
+                       opt_states={"enc": enc.opt, "sr": sr_opt,
                                    "d": d_opt},
-                       steps_since_reset=steps_since_reset, d_model=d_model)
+                       steps_since_reset=enc.since_reset, d_model=d_model)
             print(f"sr ({stage}): saved checkpoint at {last_ckpt_path}")
     finally:
         saver.close()
-    return model_mod, model_cfg, params, buffers, sr_model
+    return model_mod, enc.model_cfg, enc.params, enc.buffers, sr_model
 
 
 def refuse_dim_rend(cfg_model):

@@ -414,6 +414,30 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t
 
 
+def patch_origins(H: int, W: int, patch: int):
+    """Grid-aligned patch rows and columns, clamped to the border."""
+    rows = sorted({min(r, H - patch) for r in range(0, H, patch)})
+    cols = sorted({min(c, W - patch) for c in range(0, W, patch)})
+    return rows, cols
+
+
+def epoch_sampler(items: list, seed: int):
+    """``sample(step) -> item`` for the 0-based draw ``step``: every item
+    once an epoch, in the order of numpy
+    ``default_rng((seed, epoch)).permutation``."""
+    cache = {"epoch": -1, "order": None}
+
+    def sample(step: int):
+        epoch, i = divmod(step, len(items))
+        if cache["epoch"] != epoch:
+            cache["epoch"] = epoch
+            cache["order"] = np.random.default_rng((seed, epoch)).permutation(
+                len(items))
+        return items[cache["order"][i]]
+
+    return sample
+
+
 def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int,
                        hit: np.ndarray | None = None):
     """``sample(step) -> (kind, indices)`` for the 0-based draw ``step``
@@ -462,8 +486,7 @@ def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int,
         P = max((int(np.sqrt(n_rand)) // 8) * 8, 8)
     else:
         P = max((min(n_rand // 64, H, W) // 8) * 8, 8)
-    rows = sorted({min(r, H - P) for r in range(0, H, P)})
-    cols = sorted({min(c, W - P) for c in range(0, W, P)})
+    rows, cols = patch_origins(H, W, P)
     pos = [(r, c) for r in rows for c in cols]
     if sampler == "patch_simg":
         def sample(step: int):
@@ -478,15 +501,7 @@ def make_batch_sampler(sampler: str, flat: dict, n_rand: int, seed: int,
                     if hit[v][r:r + P, c:c + P].any()]
             if kept:  # never filter down to nothing
                 combos = kept
-        cache = {"epoch": -1, "order": None}
-
-        def sample(step: int):
-            epoch, i = divmod(step, len(combos))
-            if cache["epoch"] != epoch:
-                cache["epoch"] = epoch
-                cache["order"] = np.random.default_rng(
-                    (seed, epoch)).permutation(len(combos))
-            return "patch", combos[cache["order"][i]]
+        sample = epoch_sampler([("patch", cb) for cb in combos], seed)
 
     sample.patch = P
     return sample
@@ -536,6 +551,38 @@ def _unflatten(like, it):
     return next(it)
 
 
+def live_groups(tree: dict, groups) -> dict:
+    """The groups of ``tree`` named in ``groups``, every leaf a detached
+    copy that requires grad: the leaves a step differentiates."""
+    return {k: _detached_leaves(tree[k]) for k in groups}
+
+
+def tree_grads(loss, *trees) -> tuple:
+    """The gradients of ``loss`` with respect to the leaves of each tree of
+    ``trees``, one tree of gradients for each in its layout, by one
+    ``autograd.grad``; a leaf that the loss does not reach gets zeros."""
+    leaves = []
+    for tree in trees:
+        _flatten(tree, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    filled = (torch.zeros_like(x) if g is None else g
+              for x, g in zip(leaves, grads))
+    return tuple(_unflatten(tree, filled) for tree in trees)
+
+
+def forward_kwargs(model_mod, render_kwargs: dict) -> dict:
+    """The keyword arguments of a family's training forward from a stage's
+    ``render_kwargs``; a DirectVoxGO (a bounded scene) also samples between
+    ``near`` and ``far``."""
+    kw = dict(stepsize=render_kwargs["stepsize"], bg=render_kwargs["bg"],
+              rand_bkgd=bool(render_kwargs.get("rand_bkgd", False)),
+              is_train=True,
+              ndc_planes=bool(render_kwargs.get("ndc_planes", False)))
+    if model_mod is dvgo:
+        kw.update(near=render_kwargs["near"], far=render_kwargs["far"])
+    return kw
+
+
 def add_tv_(model_mod, model_cfg, params, grads, weights: dict, n_rays: int,
             dense: bool) -> None:
     """Add to ``grads`` in place the TV gradient of each grid that
@@ -576,14 +623,7 @@ class TrainStep:
         self.cfg_train = cfg_train
         self.skip_zero_grad = frozenset(skip_zero_grad)
         self.near_thres = near_thres
-        self.fwd_kw = dict(
-            stepsize=render_kwargs["stepsize"], bg=render_kwargs["bg"],
-            rand_bkgd=bool(render_kwargs.get("rand_bkgd", False)),
-            is_train=True,
-            ndc_planes=bool(render_kwargs.get("ndc_planes", False)))
-        if model_mod is dvgo:  # bounded scenes sample between near and far
-            self.fwd_kw.update(near=render_kwargs["near"],
-                               far=render_kwargs["far"])
+        self.fwd_kw = forward_kwargs(model_mod, render_kwargs)
         self.weight_tv_density = float(cfg_train.weight_tv_density)
         self.weight_tv_k0 = float(cfg_train.weight_tv_k0)
 
@@ -597,7 +637,7 @@ class TrainStep:
         """:meth:`loss_and_grads` and the forward's ``vq_state`` (None for
         a model without a codebook)."""
         rays_o, rays_d, viewdirs, target = batch
-        live = {k: _detached_leaves(params[k]) for k in groups}
+        live = live_groups(params, groups)
         with _FORWARD:
             out = self.forward_fn(
                 self.model_cfg, {**params, **live}, buffers, rays_o, rays_d,
@@ -605,13 +645,10 @@ class TrainStep:
             loss, terms = losses.encoder_losses(out, target, self.cfg_train,
                                                 rays_o.shape[0],
                                                 near_thres=self.near_thres)
-        leaves = _flatten(live, [])
         with _BACKWARD:
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = [torch.zeros_like(x) if g is None else g
-                     for x, g in zip(leaves, grads)]
+            grads, = tree_grads(loss, live)
         return (loss.detach(), {k: v.detach() for k, v in terms.items()},
-                _unflatten(live, iter(grads)), out.get("vq_state"))
+                grads, out.get("vq_state"))
 
     @trace.span("train.tv")
     @torch.no_grad()
@@ -668,9 +705,7 @@ def compute_box_plans(model_cfg, rays: dict, render_kwargs: dict,
                                         near=near)
         if plan is None:
             return None, None
-        H, W = ro.shape[:2]
-        rows = sorted({min(r, H - patch) for r in range(0, H, patch)})
-        cols = sorted({min(c, W - patch) for c in range(0, W, patch)})
+        rows, cols = patch_origins(*ro.shape[:2], patch)
 
         def tiles(x):
             return torch.stack([x[r:r + patch, c:c + patch].reshape(-1, 3)
@@ -710,32 +745,146 @@ def make_box_train_steps(model_mod, model_cfg, cfg_train, *, render_kwargs,
     return step_for
 
 
-def _periodic_step(path: str, stage: str):
-    """The step of a periodic checkpoint ``<stage>_<step>.npz``, else
-    None (the last and temporary files do not parse)."""
-    name = os.path.basename(path)
-    if not (name.startswith(f"{stage}_") and name.endswith(".npz")):
-        return None
-    tail = name[len(stage) + 1:-len(".npz")]
-    return int(tail) if tail.isdigit() else None
-
-
-def find_reload_path(args, rundir: str, stage: str):
-    """The checkpoint a run resumes from: ``--ft_path``, else the stage's
-    last checkpoint, else the periodic one with the largest step (by the
-    parsed integer: ``fine_1000000`` comes after ``fine_999999``), else
-    None. ``--no_reload`` gives None."""
+def find_reload_path(args, rundir: str, stage: str, flag: str = "ft_path",
+                     periodic_dir: str = ""):
+    """The checkpoint a run resumes from: the path of its flag ``flag``
+    (run.py's ``--ft_path``, run_sr.py's ``--ftdv_path``), else the stage's
+    last checkpoint, else the periodic one under ``rundir/periodic_dir``
+    (run_sr.py's ``ckpt_saved``) with the largest step (by the parsed
+    integer: ``fine_1000000`` comes after ``fine_999999``; temporary files
+    do not parse), else None. ``--no_reload`` gives None."""
     if getattr(args, "no_reload", False):
         return None
-    if getattr(args, "ft_path", ""):
-        return args.ft_path
+    if getattr(args, flag, ""):
+        return getattr(args, flag)
     last = os.path.join(rundir, f"{stage}_last.npz")
     if os.path.isfile(last):
         return last
-    steps = {p: _periodic_step(p, stage)
-             for p in glob.glob(os.path.join(rundir, f"{stage}_*.npz"))}
-    steps = {p: s for p, s in steps.items() if s is not None}
+    steps = {}
+    for p in glob.glob(os.path.join(rundir, periodic_dir, f"{stage}_*.npz")):
+        tail = os.path.basename(p)[len(stage) + 1:-len(".npz")]
+        if tail.isdigit():  # not the last or a temporary file
+            steps[p] = int(tail)
     return max(steps, key=steps.get) if steps else None
+
+
+def steps_since_reset_at(pg_scale, start: int) -> int:
+    """Optimizer steps since the last progressive-scaling boundary at or
+    before ``start`` (the global step a run starts after)."""
+    prior = [b for b in pg_scale if b <= start]
+    return start - (max(prior) if prior else 0)
+
+
+def tv_schedule(cfg_train, global_step: int) -> tuple:
+    """``(apply_tv, tv_dense)`` of ``global_step``: TV on every
+    ``tv_every``-th step strictly between ``tv_after`` and ``tv_before``,
+    dense before ``tv_dense_before``."""
+    return (bool(cfg_train.tv_after < global_step < cfg_train.tv_before
+                 and global_step % cfg_train.tv_every == 0),
+            bool(global_step < cfg_train.tv_dense_before))
+
+
+def stage_render_kwargs(model_mod, model_cfg, cfg, cfg_model,
+                        data_dict) -> dict:
+    """A stage's render settings: ``near``, ``far``, ``bg``, ``rand_bkgd``,
+    ``stepsize`` and, for a DirectMPIGO, ``ndc_planes``."""
+    rk = {"near": float(data_dict["near"]), "far": float(data_dict["far"]),
+          "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+          "rand_bkgd": bool(cfg.data.rand_bkgd),
+          "stepsize": float(cfg_model.stepsize)}
+    if model_mod is dmpigo:
+        rk["ndc_planes"] = dmpigo.plane_aligned_ok(model_cfg, rk["stepsize"],
+                                                   cfg.data.ndc)
+    return rk
+
+
+class EncoderStage:
+    """One stage's encoder as both loops (:func:`scene_rep_reconstruction`,
+    ``sr_trainer.scene_rep_reconstruction_sr_patch``) run it
+    (run.py:280-332, :455-476): new, or reloaded from ``reload_path``;
+    its ``render_kwargs``; its lr clock ``since_reset``, which the loop
+    counts up after each step; :meth:`advance` before each step. The loop
+    owns its step, its optimizer state ``opt`` and its saves."""
+
+    def __init__(self, model_mod, cfg, cfg_model, cfg_train, xyz_min,
+                 xyz_max, data_dict, *, reload_path, coarse_ckpt_path, seed,
+                 device):
+        """New: in the box grown by ``world_bound_scale``, at the first
+        ``pg_scale`` size, on the free-space mask of ``coarse_ckpt_path``
+        unless NDC. Reloaded: a reference ``.tar``, or an ``.npz`` whose
+        optimizer state, global step and metadata are ``opt_loaded``,
+        ``start`` and ``meta``."""
+        dev = resolve_device(device)
+        self.model_mod, self.cfg_model = model_mod, cfg_model
+        self.cfg_train = cfg_train
+        self.start, self.opt_loaded, self.meta, self.opt = 0, None, {}, None
+        if reload_path is None:
+            if abs(cfg_model.world_bound_scale - 1) > 1e-9:
+                shift = ((xyz_max - xyz_min)
+                         * (cfg_model.world_bound_scale - 1) / 2)
+                xyz_min, xyz_max = xyz_min - shift, xyz_max + shift
+            kw = dict(cfg_model)
+            if len(cfg_train.pg_scale):
+                kw["num_voxels"] = int(kw["num_voxels"]
+                                       / (2 ** len(cfg_train.pg_scale)))
+            if model_mod not in (dmpigo, dvqgo):  # only the MPI family's
+                kw.pop("mpi_depth", None)
+            self.model_cfg = model_mod.make_config(xyz_min=xyz_min,
+                                                   xyz_max=xyz_max, **kw)
+            mask_kw = {}
+            if not cfg.data.ndc and coarse_ckpt_path:
+                mask_kw["init_mask"] = coarse_mask_on_grid(
+                    self.model_cfg, coarse_ckpt_path,
+                    cfg_model.mask_cache_thres, dev)
+            self.params, self.buffers = model_mod.init(
+                self.model_cfg, generator=torch.Generator().manual_seed(seed),
+                device=dev, **mask_kw)
+        else:
+            if reload_path.endswith(".tar"):  # a reference torch checkpoint
+                kwargs, p_np, b_np, self.start = \
+                    checkpoints.import_torch_encoder_checkpoint(reload_path)
+                self.params, self.buffers = (weights.to_torch(t, dev)
+                                             for t in (p_np, b_np))
+            else:
+                (kwargs, self.params, self.buffers, self.opt_loaded,
+                 self.start, self.meta) = checkpoints.load_checkpoint(
+                    reload_path, device=dev)
+            self.model_cfg = model_mod.make_config(**kwargs)
+        self.render_kwargs = stage_render_kwargs(
+            model_mod, self.model_cfg, cfg, cfg_model, data_dict)
+        self.since_reset = int(self.meta["steps_since_reset"]) \
+            if "steps_since_reset" in self.meta \
+            else steps_since_reset_at(cfg_train.pg_scale, self.start)
+
+    def advance(self, global_step: int) -> bool:
+        """Before step ``global_step``: the occupancy refresh
+        (run.py:461-462); at a ``pg_scale`` boundary (run.py:465-476) the
+        grids resampled (DirectMPIGO keeps its depth and lowers its
+        act_shift by ``decay_after_scale``), fresh moments and the clock
+        reset, and True (the loop rebuilds its step for the new
+        ``model_cfg``)."""
+        if (global_step + 500) % 1000 == 0:
+            self.buffers = self.model_mod.update_occupancy_cache(
+                self.model_cfg, self.params, self.buffers)
+        pg_scale = self.cfg_train.pg_scale
+        if global_step not in pg_scale:
+            return False
+        n_rest = len(pg_scale) - pg_scale.index(global_step) - 1
+        num_voxels = int(self.cfg_model.num_voxels / (2 ** n_rest))
+        self.opt = None  # the old moments go before the grids grow
+        if self.model_mod is dmpigo:
+            self.model_cfg, self.params, buffers = dmpigo.scale_volume_grid(
+                self.model_cfg, self.params, self.buffers, num_voxels,
+                self.model_cfg.mpi_depth)
+            self.buffers = dmpigo.decay_act_shift(
+                buffers, self.cfg_train.decay_after_scale)
+        else:
+            self.model_cfg, self.params, self.buffers = \
+                self.model_mod.scale_volume_grid(
+                    self.model_cfg, self.params, self.buffers, num_voxels)
+        self.opt = optim.init_state(self.params)
+        self.since_reset = 0
+        return True
 
 
 def coarse_mask_on_grid(model_cfg, coarse_ckpt_path: str, thres: float,
@@ -759,21 +908,6 @@ def coarse_mask_on_grid(model_cfg, coarse_ckpt_path: str, thres: float,
         torch.as_tensor(m_max, dtype=torch.float32, device=dev))
 
 
-def scale_grids(model_mod, model_cfg, params, buffers, num_voxels: int,
-                decay_after_scale: float):
-    """A progressive-scaling step of any family (run.py:465-476): the
-    grids resampled to ``num_voxels``; DirectMPIGO keeps its depth and
-    lowers its act_shift by ``decay_after_scale``. Returns (model_cfg,
-    params, buffers)."""
-    if model_mod is not dmpigo:
-        return model_mod.scale_volume_grid(model_cfg, params, buffers,
-                                           num_voxels)
-    model_cfg, params, buffers = dmpigo.scale_volume_grid(
-        model_cfg, params, buffers, num_voxels, model_cfg.mpi_depth)
-    return model_cfg, params, dmpigo.decay_act_shift(buffers,
-                                                     decay_after_scale)
-
-
 def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                              xyz_max, data_dict, stage: str,
                              coarse_ckpt_path: str | None = None,
@@ -782,66 +916,36 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     that is not NDC starts from the mask of ``coarse_ckpt_path``. Returns
     (model_mod, model_cfg, params, buffers)."""
     dev = resolve_device(device)
-    model_mod = _select_model_mod(cfg)
+    model_mod = select_model_mod(cfg)
     _refuse_unscalable(model_mod, cfg_train)
-    if abs(cfg_model.world_bound_scale - 1) > 1e-9:
-        xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
-        xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift
     if cfg_train.pervoxel_lr and model_mod in (dmpigo, dvqgo):
         raise ValueError("the per-voxel lr counts the views of a box's "
                          "voxels (DirectVoxGO, DirectContractedVoxGO)")
     seed = int(getattr(args, "seed", 777))
     rundir = os.path.join(cfg.basedir, cfg.expname)
     last_ckpt_path = os.path.join(rundir, f"{stage}_last.npz")
-    near, far = float(data_dict["near"]), float(data_dict["far"])
+    near = float(data_dict["near"])
 
     # --- model: new, or reloaded (run.py:280-332) ---------------------------
-    model_kwargs = dict(cfg_model)
-    num_voxels = model_kwargs.pop("num_voxels")
-    if len(cfg_train.pg_scale):
-        num_voxels = int(num_voxels / (2 ** len(cfg_train.pg_scale)))
     reload_path = find_reload_path(args, rundir, stage)
-    start, opt_state_l, meta_l = 0, None, {}
-    if reload_path is None:
-        model_cfg = _make_cfg(model_mod, xyz_min, xyz_max, num_voxels,
-                              model_kwargs)
-        mask_kw = {}
-        if not cfg.data.ndc and coarse_ckpt_path:
-            mask_kw["init_mask"] = coarse_mask_on_grid(
-                model_cfg, coarse_ckpt_path, cfg_model.mask_cache_thres, dev)
-        params, buffers = model_mod.init(
-            model_cfg, generator=torch.Generator().manual_seed(seed),
-            device=dev, **mask_kw)
-        if cfg_model.maskout_near_cam_vox and model_mod is dvgo:
-            params = dvgo.maskout_near_cam_vox(
-                model_cfg, params,
-                np.asarray(data_dict["poses"])[data_dict["i_train"], :3, 3],
-                near)
-    else:
+    if reload_path is not None:
         print(f"scene_rep_reconstruction ({stage}): reload from {reload_path}")
-        if reload_path.endswith(".tar"):  # a reference torch checkpoint
-            kwargs_l, p_np, b_np, start = \
-                checkpoints.import_torch_encoder_checkpoint(reload_path)
-            params, buffers = (weights.to_torch(t, dev) for t in (p_np, b_np))
-        else:
-            kwargs_l, params, buffers, opt_state_l, start, meta_l = \
-                checkpoints.load_checkpoint(reload_path, device=dev)
-        model_cfg = model_mod.make_config(**kwargs_l)
-
-    render_kwargs = {
-        "near": near, "far": far,
-        "bg": 1.0 if cfg.data.white_bkgd else 0.0,
-        "rand_bkgd": bool(cfg.data.rand_bkgd),
-        "stepsize": float(cfg_model.stepsize),
-    }
-    if model_mod is dmpigo:
-        render_kwargs["ndc_planes"] = dmpigo.plane_aligned_ok(
-            model_cfg, render_kwargs["stepsize"], cfg.data.ndc)
+    enc = EncoderStage(model_mod, cfg, cfg_model, cfg_train, xyz_min, xyz_max,
+                       data_dict, reload_path=reload_path,
+                       coarse_ckpt_path=coarse_ckpt_path, seed=seed,
+                       device=dev)
+    if (reload_path is None and cfg_model.maskout_near_cam_vox
+            and model_mod is dvgo):
+        enc.params = dvgo.maskout_near_cam_vox(
+            enc.model_cfg, enc.params,
+            np.asarray(data_dict["poses"])[data_dict["i_train"], :3, 3], near)
+    render_kwargs = enc.render_kwargs
     data_flags = DataFlags.from_config(cfg.data)
 
     # --- rays and sampler ----------------------------------------------------
     flat, ray_lists = gather_training_rays(
-        cfg, cfg_train, data_dict, dev, model=(model_mod, model_cfg, buffers),
+        cfg, cfg_train, data_dict, dev,
+        model=(model_mod, enc.model_cfg, enc.buffers),
         render_kwargs=render_kwargs)
     sample_batch = make_batch_sampler(cfg_train.ray_sampler, flat,
                                       cfg_train.N_rand, seed,
@@ -852,37 +956,40 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     per_lr = None
     if cfg_train.pervoxel_lr:
         cnt = dvgo.voxel_count_views(
-            model_cfg, ray_lists["rays_o"], ray_lists["rays_d"], near,
+            enc.model_cfg, ray_lists["rays_o"], ray_lists["rays_d"], near,
             cfg_model.stepsize, downrate=cfg_train.pervoxel_lr_downrate)
         per_lr = {"density": cnt / cnt.max().clamp_min(1.0)}
-        if tuple(cnt.shape[:3]) == tuple(buffers["mask_cache"].shape):
-            buffers = {**buffers,
-                       "mask_cache": buffers["mask_cache"] & (cnt[..., 0] > 2)}
+        if tuple(cnt.shape[:3]) == tuple(enc.buffers["mask_cache"].shape):
+            enc.buffers = {**enc.buffers, "mask_cache":
+                           enc.buffers["mask_cache"] & (cnt[..., 0] > 2)}
         del cnt
     if cfg_train.get("maskout_lt_nviews", 0) > 0 and model_mod is dmpigo:
-        buffers = dmpigo.update_occupancy_cache_lt_nviews(
-            model_cfg, buffers, ray_lists["rays_o"], ray_lists["rays_d"],
-            cfg_model.stepsize, cfg_train.maskout_lt_nviews)
+        enc.buffers = dmpigo.update_occupancy_cache_lt_nviews(
+            enc.model_cfg, enc.buffers, ray_lists["rays_o"],
+            ray_lists["rays_d"], cfg_model.stepsize,
+            cfg_train.maskout_lt_nviews)
     del ray_lists
 
     # --- optimizer -------------------------------------------------------------
-    base_lrs = optim.build_group_lrs(cfg_train, params)
+    base_lrs = optim.build_group_lrs(cfg_train, enc.params)
     skip_zero = frozenset(cfg_train.skip_zero_grad_fields)
-    opt_state = optim.init_state(params)
+    enc.opt = optim.init_state(enc.params)
     if not getattr(args, "no_reload_optimizer", False):
-        opt_state, restored = optim.restore_state(opt_state_l, opt_state)
+        enc.opt, restored = optim.restore_state(enc.opt_loaded, enc.opt)
         if restored:
             print(f"scene_rep_reconstruction ({stage}): restored optimizer "
                   "state")
-    del opt_state_l
+    enc.opt_loaded = None
     # the near-clip loss's distance on the normalised lattice (run.py:528)
     near_thres = None
     if model_mod is dcvgo and data_dict.get("near_clip") is not None:
         near_thres = (float(data_dict["near_clip"])
-                      / model_cfg.scene_radius[0])
-    train_step = TrainStep(model_mod, model_cfg, cfg_train,
-                           render_kwargs=render_kwargs,
-                           skip_zero_grad=skip_zero, near_thres=near_thres)
+                      / enc.model_cfg.scene_radius[0])
+
+    def make_step(mcfg):
+        return TrainStep(model_mod, mcfg, cfg_train,
+                         render_kwargs=render_kwargs,
+                         skip_zero_grad=skip_zero, near_thres=near_thres)
 
     # patch_box: the slab sweep with a static plan per view; the gather
     # forward takes a stage that cannot have one (trainer.py:824-843 of
@@ -901,49 +1008,28 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             skip_zero_grad=skip_zero, Pu=pupv[0], Pv=pupv[1],
             near_thres=near_thres)
 
+    train_step = make_step(enc.model_cfg)
     box_plans, box_step_for = None, None
     patch_box = cfg_train.ray_sampler == "patch_box"
     if patch_box:
         if model_mod is dvgo:
-            box_plans, box_step_for = setup_box_steps(model_cfg)
+            box_plans, box_step_for = setup_box_steps(enc.model_cfg)
         else:
             print(f"scene_rep_reconstruction ({stage}): patch_box -> gather "
                   "forward (the slab sweep serves DirectVoxGO)")
     box_routes = {"slab": 0, "gather": 0}
 
-    # the lr-decay clock restarts at each pg_scale boundary: take it from
-    # the checkpoint, where it is kept
-    if "steps_since_reset" in meta_l:
-        steps_since_reset = int(meta_l["steps_since_reset"])
-    else:
-        prior = [b for b in cfg_train.pg_scale if b <= start]
-        steps_since_reset = start - (max(prior) if prior else 0)
     collector = stats_mod.Collector()
     best_val_psnr = -1.0
     time0 = time.time()
     saver = checkpoints.AsyncSaver()
     try:
-        for global_step in range(1 + start, 1 + cfg_train.N_iters):
-            if (global_step + 500) % 1000 == 0:  # run.py:461-462
-                buffers = model_mod.update_occupancy_cache(model_cfg, params,
-                                                           buffers)
-            if global_step in cfg_train.pg_scale:  # run.py:465-476
-                n_rest = (len(cfg_train.pg_scale)
-                          - cfg_train.pg_scale.index(global_step) - 1)
-                cur_voxels = int(cfg_model.num_voxels / (2 ** n_rest))
-                opt_state = None  # the old moments go before the grids grow
-                model_cfg, params, buffers = scale_grids(
-                    model_mod, model_cfg, params, buffers, cur_voxels,
-                    cfg_train.decay_after_scale)
-                opt_state = optim.init_state(params)
-                steps_since_reset = 0
-                train_step = TrainStep(model_mod, model_cfg, cfg_train,
-                                       render_kwargs=render_kwargs,
-                                       skip_zero_grad=skip_zero,
-                                       near_thres=near_thres)
+        for global_step in range(1 + enc.start, 1 + cfg_train.N_iters):
+            if enc.advance(global_step):
+                train_step = make_step(enc.model_cfg)
                 if box_step_for is not None:
                     # the voxel size halved: S and the window change
-                    box_plans, box_step_for = setup_box_steps(model_cfg)
+                    box_plans, box_step_for = setup_box_steps(enc.model_cfg)
 
             kind, sel = sample_batch(global_step - 1)
             batch = gather_batch(flat, kind, sel, patch)
@@ -953,18 +1039,16 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                 box_routes[route] += 1
                 if box_step_for is not None:
                     step_fn = box_step_for(*box_plans[sel[0]])
-            lrs = {k: optim.group_lr(v, steps_since_reset,
+            lrs = {k: optim.group_lr(v, enc.since_reset,
                                      cfg_train.lrate_decay)
                    for k, v in base_lrs.items()}
             noise = (bkgd_noise(seed, global_step, batch[0].shape[0], dev)
                      if render_kwargs["rand_bkgd"] else None)
-            apply_tv = (cfg_train.tv_after < global_step < cfg_train.tv_before
-                        and global_step % cfg_train.tv_every == 0)
-            loss, psnr = step_fn(
-                params, buffers, opt_state, batch, lrs, per_lr, noise,
-                apply_tv=bool(apply_tv),
-                tv_dense=bool(global_step < cfg_train.tv_dense_before))
-            steps_since_reset += 1
+            apply_tv, tv_dense = tv_schedule(cfg_train, global_step)
+            loss, psnr = step_fn(enc.params, enc.buffers, enc.opt, batch, lrs,
+                                 per_lr, noise, apply_tv=apply_tv,
+                                 tv_dense=tv_dense)
+            enc.since_reset += 1
             collector.report("train/loss", stats_mod.moments(loss))
             collector.report("train/psnr", stats_mod.moments(psnr))
 
@@ -982,7 +1066,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             i_val = data_dict["i_val"]
             if args.i_val and global_step % args.i_val == 0 and len(i_val):
                 res = render_viewpoints(
-                    model_mod, model_cfg, params, buffers,
+                    model_mod, enc.model_cfg, enc.params, enc.buffers,
                     data_dict["poses"][i_val], data_dict["HW"][i_val],
                     data_dict["Ks"][i_val], data=data_flags,
                     render_kwargs=render_kwargs,
@@ -998,15 +1082,15 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                     best_val_psnr = val_psnr
                     checkpoints.save_checkpoint(
                         os.path.join(rundir, "best_psnr.npz"),
-                        model_mod.get_kwargs(model_cfg), params, buffers,
-                        global_step=global_step, saver=saver)
+                        model_mod.get_kwargs(enc.model_cfg), enc.params,
+                        enc.buffers, global_step=global_step, saver=saver)
 
             if args.i_weights and global_step % args.i_weights == 0:
                 checkpoints.save_checkpoint(
                     os.path.join(rundir, f"{stage}_{global_step:06d}.npz"),
-                    model_mod.get_kwargs(model_cfg), params, buffers,
-                    opt_state, global_step,
-                    extra_meta={"steps_since_reset": steps_since_reset},
+                    model_mod.get_kwargs(enc.model_cfg), enc.params,
+                    enc.buffers, enc.opt, global_step,
+                    extra_meta={"steps_since_reset": enc.since_reset},
                     saver=saver)
 
         saver.wait_for_pending_saves()
@@ -1016,17 +1100,17 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                   "gather forward")
         if cfg_train.N_iters > 0:
             checkpoints.save_checkpoint(
-                last_ckpt_path, model_mod.get_kwargs(model_cfg), params,
-                buffers, opt_state, cfg_train.N_iters,
-                extra_meta={"steps_since_reset": steps_since_reset})
+                last_ckpt_path, model_mod.get_kwargs(enc.model_cfg),
+                enc.params, enc.buffers, enc.opt, cfg_train.N_iters,
+                extra_meta={"steps_since_reset": enc.since_reset})
             print(f"scene_rep_reconstruction ({stage}): saved checkpoint at "
                   f"{last_ckpt_path}")
     finally:
         saver.close()
-    return model_mod, model_cfg, params, buffers
+    return model_mod, enc.model_cfg, enc.params, enc.buffers
 
 
-def _select_model_mod(cfg):
+def select_model_mod(cfg):
     """The model family of a config (run.py:286-313,
     ``models.model_module``): DirectMPIGO for NDC scenes (DirectQVGO with
     ``mode_type`` adain_vq), DirectContractedVoxGO for unbounded
@@ -1050,19 +1134,6 @@ def _refuse_unscalable(model_mod, cfg_train):
             "pg_scale=[]")
 
 
-def _make_cfg(model_mod, xyz_min, xyz_max, num_voxels, model_kwargs):
-    kw = dict(model_kwargs)
-    if model_mod in (dmpigo, dvqgo):  # the MPI family takes mpi_depth
-        return model_mod.make_config(xyz_min=xyz_min, xyz_max=xyz_max,
-                                     num_voxels=num_voxels,
-                                     mpi_depth=kw.pop("mpi_depth"), **kw)
-    kw.pop("mpi_depth", None)
-    return model_mod.make_config(
-        xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
-        num_voxels_base=kw.pop("num_voxels_base"),
-        alpha_init=kw.pop("alpha_init"), **kw)
-
-
 def train(args, cfg, data_dict, writer=None, device=None):
     """Fit a scene (run.py:636-685) on ``device`` (default ``cuda``): the
     box of the training cameras' frustums (an unbounded scene's cube of
@@ -1072,7 +1143,7 @@ def train(args, cfg, data_dict, writer=None, device=None):
     reads it); then the
     fine stage (on the coarse mask, unless NDC). Returns (model_mod,
     model_cfg, params, buffers) of the fine stage."""
-    model_mod = _select_model_mod(cfg)
+    model_mod = select_model_mod(cfg)
     stages = [cfg.fine_train] + ([cfg.coarse_train]
                                  if cfg.coarse_train.N_iters > 0 else [])
     for c in stages:

@@ -1,18 +1,13 @@
-"""Runtime helpers: shape assertions, profiler ranges and a device timer
-(on ``utils/trace``), an endless sampler and a replica-consistency check
-(the port's form of the JAX package's ``utils/misc.py``, after
-frozoul/4K-NeRF torch_utils/misc.py)."""
+"""Runtime helpers: shape assertions, an endless sampler and a
+replica-consistency check (the port's form of the JAX package's
+``utils/misc.py``, after frozoul/4K-NeRF torch_utils/misc.py)."""
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import Iterator, Sequence
 
 import numpy as np
 import torch
-
-from fourk_nerf_torch.utils import trace
 
 
 def assert_shape(x, ref_shape: Sequence[int | None]) -> None:
@@ -24,37 +19,6 @@ def assert_shape(x, ref_shape: Sequence[int | None]) -> None:
         if r is not None and s != r:
             raise AssertionError(
                 f"dim {i}: {s} != {r} (full: {shape} vs {ref_shape})")
-
-
-def profiled_function(fn):
-    """Run ``fn`` inside a span named after it (``trace.span``): a
-    ``torch.profiler.record_function`` range, so a profiler trace shows
-    the call."""
-    return trace.span(fn.__name__)(fn)
-
-
-@contextlib.contextmanager
-def device_timer(label: str = "", device=None):
-    """Time the block: by a CUDA event pair of ``trace``'s pool on a CUDA
-    ``device`` (the work queued inside the block, waited for at its end),
-    by the host clock otherwise. Yields a dict that holds ``seconds``
-    after the block."""
-    box: dict = {}
-    cuda = device is not None and torch.device(device).type == "cuda"
-    if cuda:
-        e0, e1 = trace.take_event(), trace.take_event()
-        e0.record()
-    t0 = time.perf_counter()
-    yield box
-    if cuda:
-        e1.record()
-        e1.synchronize()
-        box["seconds"] = e0.elapsed_time(e1) / 1e3
-        trace.give_events(e0, e1)
-    else:
-        box["seconds"] = time.perf_counter() - t0
-    if label:
-        print(f"{label}: {box['seconds']:.4f}s")
 
 
 def infinite_sampler(n: int, rng: np.random.Generator, shuffle: bool = True,

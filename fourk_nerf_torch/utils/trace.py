@@ -105,16 +105,11 @@ class span:
 
 def take_event() -> torch.cuda.Event:
     """A timing CUDA event of the current device: from the pool, else a
-    new one. Give it back with :func:`give_events` once read."""
+    new one."""
     free = _pool.setdefault(torch.cuda.current_device(), [])
     if not free:
         _harvest()
     return free.pop() if free else torch.cuda.Event(enable_timing=True)
-
-
-def give_events(*events) -> None:
-    """Return read events of the current device to the pool."""
-    _pool.setdefault(torch.cuda.current_device(), []).extend(events)
 
 
 def _open(sp: span) -> None:

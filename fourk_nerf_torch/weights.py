@@ -92,7 +92,7 @@ def _as_float(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32))
 
 
-def _load_flax_convs(model, tree: dict):
+def load_flax_convs(model, tree: dict):
     """Copy a flax tree (arrays or tensors) into ``model`` by name: every
     :class:`Conv` takes ``kernel`` (HWIO -> OIHW) and ``bias`` of the node
     at its path."""
@@ -125,7 +125,7 @@ def sftnet_from_flax(tree: dict, device=None) -> sr_esrnet.SFTNet:
         num_grow_ch=dim(tree["body0"]["rdb1"]["conv1"], 3)
         if num_block else 32,
         num_cond=dim(tree["cond0"], 2))
-    return _load_flax_convs(model, tree).to(dev).eval()
+    return load_flax_convs(model, tree).to(dev).eval()
 
 
 def sftnet_params(model) -> dict:
@@ -284,7 +284,7 @@ def rrdbnet_bps_from_flax(tree: dict, device=None) -> sr_esrnet.RRDBNetBPS:
         num_block=num_block,
         num_grow_ch=int(np.shape(tree["body0"]["rdb1"]["conv1"]["kernel"])[3])
         if num_block else 32)
-    return _load_flax_convs(model, tree).to(dev).eval()
+    return load_flax_convs(model, tree).to(dev).eval()
 
 
 def sftnet_init(*, num_block: int = 5, scale: int = 4, seed: int = 0,

@@ -156,12 +156,3 @@ def test_misc_helpers_match_jax():
     b = jmisc.infinite_sampler(5, np.random.default_rng(0), rank=1,
                                num_replicas=2)
     assert [next(a) for _ in range(9)] == [next(b) for _ in range(9)]
-
-    @tmisc.profiled_function
-    def double(v):
-        return 2 * v
-
-    assert double.__name__ == "double" and double(3) == 6
-    with tmisc.device_timer(device="cpu") as box:
-        double(x)
-    assert box["seconds"] >= 0.0

@@ -36,7 +36,7 @@ from fourk_nerf_tpu.models import dcvgo as jd
 from fourk_nerf_tpu.ops import rays as jrays
 from fourk_nerf_tpu.train import losses as jl
 from fourk_nerf_torch import weights
-from fourk_nerf_torch.models import dcvgo as td
+from fourk_nerf_torch.models import common, dcvgo as td
 from fourk_nerf_torch.tools import tiny_scene
 from fourk_nerf_torch.train import losses as tl
 
@@ -340,10 +340,13 @@ def test_tv_grads_match_jax(dense):
                           0.0).astype(np.float32) for k in ("density", "k0")}
     jp = jax.tree.map(jnp.asarray, params)
     p, _ = weights.dcvgo_from_numpy(params, {}, "cpu")
-    for name, jf, tf in (("density", jd.density_tv_grad, td.density_tv_grad),
-                         ("k0", jd.k0_tv_grad, td.k0_tv_grad)):
+    for name, jf in (("density", jd.density_tv_grad),
+                     ("k0", jd.k0_tv_grad)):
         want = jf(jc, jp, 0.1, dense, 256, jnp.asarray(sparse[name]))
-        got = tf(tc, p, 0.1, dense, 256, torch.as_tensor(sparse[name]))
+        got = common.grid_tv_grad(
+            getattr(tc, f"{name}_type"), p[name],
+            *td.tv_weights(tc, 0.1, 256),
+            None if dense else torch.as_tensor(sparse[name]))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-7, err_msg=name)
 

@@ -295,7 +295,7 @@ def test_training_run_matches_jax(tmp_path, monkeypatch):
     tmod, tcfg, tp, tb = tt.scene_rep_reconstruction(
         _args(ft_path=init), t, t.fine_model_and_render, t.fine_train, *xyz,
         dd, stage="fine", writer=tw, device="cpu")
-    assert jmod is jq and tmod is tq and tt._select_model_mod(t) is tq
+    assert jmod is jq and tmod is tq and tt.select_model_mod(t) is tq
     assert len(tw.losses()) == 6
     np.testing.assert_allclose(tw.losses(), jw.losses(), rtol=1e-4)
     _close(tb["vq_state"], jb["vq_state"], 1e-6, "vq_state", rtol=1e-4)

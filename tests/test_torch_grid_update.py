@@ -107,11 +107,12 @@ def _filled(params, seed):
 
 def _plain_tv(mod, cfg, params, grads, wd, wk, dense, n):
     """The gradients after the TV the way the step added it before the
-    in-place entry points: ``grad + *_tv_grad(...)``."""
+    in-place entry points: ``grad + common.grid_tv_grad(...)``."""
     out = {}
-    for k, fn, w in (("density", mod.density_tv_grad, wd),
-                     ("k0", mod.k0_tv_grad, wk)):
-        tv = fn(cfg, params, w, dense, n, grads[k])
+    for k, w in (("density", wd), ("k0", wk)):
+        tv = common.grid_tv_grad(getattr(cfg, f"{k}_type"), params[k],
+                                 *mod.tv_weights(cfg, w, n),
+                                 None if dense else grads[k])
         out[k] = ({f: grads[k][f] + tv[f] for f in grads[k]}
                   if isinstance(grads[k], dict) else grads[k] + tv)
     return out
@@ -170,8 +171,9 @@ def test_dvqgo_density_tv_add_():
     got = {"density": grads["density"].clone()}
     trainer.add_tv_(dvqgo, cfg, params, got, {"density": 1e-2, "k0": 1e-3},
                     64, False)
-    want = grads["density"] + dmpigo.density_tv_grad(
-        cfg, params, 1e-2, False, 64, grads["density"])
+    want = grads["density"] + common.grid_tv_grad(
+        cfg.density_type, params["density"],
+        *dmpigo.tv_weights(cfg, 1e-2, 64), grads["density"])
     assert list(got) == ["density"]
     assert torch.equal(_bits(got["density"]), _bits(want))
 

@@ -26,7 +26,7 @@ from fourk_nerf_tpu.utils import metrics as jm
 from fourk_nerf_torch import pipeline, weights
 from fourk_nerf_torch.models import dmpigo as td, sr_esrnet as tsr
 from fourk_nerf_torch.ops import plane_sweep as tps
-from fourk_nerf_torch.train import sr_trainer as tst
+from fourk_nerf_torch.train import sr_trainer as tst, trainer as ttr
 from fourk_nerf_torch.utils import metrics as tm
 
 
@@ -62,7 +62,7 @@ def test_sweep_sizes_match_jax():
     b = rd[None, ..., :2] / (mx[:2] - mn[:2]) * (sizes - 1) / (Z - 1)
     tcfg = td.make_config(**jd.get_kwargs(cfg))
     for P in (4, 8, 16):
-        rows, cols = tst.patch_origins(32, 32, P)
+        rows, cols = ttr.patch_origins(32, 32, P)
         sp = tst.sweep_patch_size_for(tcfg, a, b, rows, cols, P)
         assert sp == jst.sweep_patch_size_for(cfg, a, b, rows, cols, P)
         assert tst.sweep_window_size_for(tcfg, a, b, rows, cols, P, sp) \

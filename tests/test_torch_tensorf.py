@@ -286,9 +286,11 @@ def test_scaling_occupancy_and_tv_match_jax(family):
     _close({g: tp2[g] for g in ("density", "k0")},
            {g: jp2[g] for g in ("density", "k0")}, 1e-5, "scaled")
     _close(tb2["mask_cache"], jb2["mask_cache"], 0, "scaled mask")
-    _close(tmod.density_tv_grad(tcfg, tp, 0.5, True, 8, None), jtvd, 1e-7,
+    _close(tcommon.grid_tv_grad(tcfg.density_type, tp["density"],
+                                *tmod.tv_weights(tcfg, 0.5, 8)), jtvd, 1e-7,
            "density tv")
-    _close(tmod.k0_tv_grad(tcfg, tp, 0.3, True, 8, None), jtvk, 1e-7,
+    _close(tcommon.grid_tv_grad(tcfg.k0_type, tp["k0"],
+                                *tmod.tv_weights(tcfg, 0.3, 8)), jtvk, 1e-7,
            "k0 tv")
 
 

@@ -86,7 +86,7 @@ def test_plain_dense_block_and_rrdb_match_flax():
     p = numpy_params(jsr.RRDB(16, 8), rng, jnp.asarray(x))
     ref = np.asarray(jax.jit(jsr.RRDB(16, 8).apply)({"params": p},
                                                     jnp.asarray(x)))
-    trr = weights._load_flax_convs(tsr.RRDB(16, 8), p)
+    trr = weights.load_flax_convs(tsr.RRDB(16, 8), p)
     with torch.no_grad():
         got = trr(torch.as_tensor(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     np.testing.assert_allclose(got.numpy(), ref, atol=_tol(ref))

@@ -327,19 +327,3 @@ def test_readers_of_spans_and_counters(monkeypatch, name):
         hand["spans"][key] = {"device_ms": 1.0}
         del hand["roots"][root]
     assert read(traced) is None
-
-
-def test_misc_helpers_run_on_trace():
-    from fourk_nerf_torch.utils import misc
-
-    @misc.profiled_function
-    def double(v):
-        return 2 * v
-
-    assert double(3) == 6 and trace._records == []
-    trace.enable()
-    assert double(4) == 8
-    assert trace.summary()["spans"]["double"]["count"] == 1
-    with misc.device_timer(device="cpu") as box:
-        double(1)
-    assert box["seconds"] >= 0.0

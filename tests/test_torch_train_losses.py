@@ -16,7 +16,7 @@ from fourk_nerf_tpu.config import ConfigDict as JConfigDict
 from fourk_nerf_tpu.models import dmpigo as jd
 from fourk_nerf_tpu.ops import render as jr
 from fourk_nerf_tpu.train import losses as jl
-from fourk_nerf_torch.models import dmpigo as td
+from fourk_nerf_torch.models import common, dmpigo as td
 from fourk_nerf_torch.ops import render as tr
 from fourk_nerf_torch.train import losses as tl
 
@@ -132,11 +132,13 @@ def test_dmpigo_tv_grads_match_jax(dense):
              for k, v in params.items()}
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     tp = {k: _t(v) for k, v in params.items()}
-    for name, jf, tf, weight in (
-            ("density", jd.density_tv_grad, td.density_tv_grad, 1e-5),
-            ("k0", jd.k0_tv_grad, td.k0_tv_grad, 1e-6)):
+    for name, jf, weight in (("density", jd.density_tv_grad, 1e-5),
+                             ("k0", jd.k0_tv_grad, 1e-6)):
         want = np.asarray(jf(jcfg, jp, weight, dense, 4096,
                              jnp.asarray(grads[name])))
-        got = tf(tcfg, tp, weight, dense, 4096, _t(grads[name])).numpy()
+        got = common.grid_tv_grad(
+            getattr(tcfg, f"{name}_type"), tp[name],
+            *td.tv_weights(tcfg, weight, 4096),
+            None if dense else _t(grads[name])).numpy()
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-14,
                                    err_msg=name)

@@ -348,7 +348,7 @@ def _tiny_sftnet(mp, rng):
     mp.setattr(tsr, "SFTNet", lambda **kw: orig_t(**{**kw, **small}))
     from fourk_nerf_torch import weights
     mp.setattr(tsr, "init_like_jax",
-               lambda model, gen: weights._load_flax_convs(model, tree))
+               lambda model, gen: weights.load_flax_convs(model, tree))
 
 
 def test_joint_trainer_builds_the_jax_family(tmp_path, monkeypatch):
