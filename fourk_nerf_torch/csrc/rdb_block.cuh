@@ -1,6 +1,10 @@
 // The SFT residual dense block of the SFTNet decoder as device code for
-// Hopper (sm_90a), shared by rdb.cu (one block per launch) and rrdb.cu (a
-// whole RRDB per launch).
+// Hopper (sm_90a) on mma.sync: rrdb.cu runs it three blocks deep (a whole
+// RRDB per launch), and uptail.cu takes its primitives (swz, ldmatrix_x4,
+// mma_bf16, pack2, bfr). rdb.cu (one block per launch) takes its geometry
+// (the tile, the halo-5 window, conv5's rows), its primitives and
+// cond_frag, and runs the convs on wgmma with a window layout and a weight
+// stream of its own.
 //
 // dense_block_tile computes one 8x16 output tile of one dense block from a
 // halo-5 window (five 3x3 convs deep):
@@ -28,12 +32,13 @@
 // mma.sync C layout) into the swizzled slab.
 //
 // Weights. The host packs each conv in fragment order (cuda_sr.py,
-// pack_rdb_weights): per (tap, 16-channel chunk) step and per 16 output
-// channels, 512 bytes in which lane l finds its two B fragments of two
-// n8 tiles as one 16-byte word, read by each warp from L2 through L1
-// (the eight warps read the same step at about the same time). Staging
-// the weights in shared memory through a cp.async ring, one barrier per
-// slab, measured slower on the H100 than these loads (PERF.md).
+// pack_rdb_weights, RdbWeights.conv): per (tap, 16-channel chunk) step and
+// per 16 output channels, 512 bytes in which lane l finds its two B
+// fragments of two n8 tiles as one 16-byte word, read by each warp from L2
+// through L1 (the eight warps read the same step at about the same time).
+// Staging the weights in shared memory through a cp.async ring, one
+// barrier per slab, measured slower on the H100 than these loads; rdb.cu's
+// ring has a barrier per stage and no block-wide one (PERF.md).
 //
 // SFT. Each SFT is two 1x1 branches, [pixels, 32] x [32, 32] to a
 // bf16-rounded hidden layer, then [pixels, 32] x [32, C], on the tensor

@@ -59,10 +59,14 @@ UPCHAINS = ("materialized", "dilated")
 class RdbWeights:
     """One dense block's weights in the kernel's layout.
 
-    ``conv``: the five 3x3 kernels back to back, bf16, each in the
-    kernel's fragment order (:func:`_to_fragments`: per tap and 16-channel
-    input chunk, per 16 output channels, 32 lanes x 8 values that are one
-    lane's B operands of ``mma.sync`` m16n8k16 for two 8-channel tiles).
+    ``conv``: the five 3x3 kernels back to back, bf16, each in
+    ``mma.sync`` fragment order (:func:`_to_fragments`: per tap and
+    16-channel input chunk, per 16 output channels, 32 lanes x 8 values that
+    are one lane's B operands of ``mma.sync`` m16n8k16 for two 8-channel
+    tiles), as the whole-RRDB kernel reads them. ``conva``: the same values
+    as the dense-block kernel streams them, ``wgmma`` A tiles of output
+    channels by 16 inputs (:func:`_conv_a_tiles`, :func:`_to_afrag`; convs
+    1-4 pair two taps in a tile and carry zeros beside their third).
     ``bias [5, 64]`` float32. ``sftm [12, 32, 64]``
     float32 holding bf16-rounded 1x1 weights ``[in, out]``, zero-padded:
     rows 0..3 sft0, 4..7 sft1, 8..11 the RRDB's trailing SFT (tail mode),
@@ -77,6 +81,7 @@ class RdbWeights:
     sftb: torch.Tensor
     sftk: torch.Tensor
     tail: bool
+    conva: torch.Tensor
 
 
 # a B operand [K, N] as K / 16 steps of 16 rows k = 8 khi + 2 t + klo, with
@@ -106,6 +111,68 @@ _FRAG8 = (0, 4, 2, 1, 3)
 _UNFRAG8 = tuple(_FRAG8.index(d) for d in range(5))
 
 
+# The dense-block kernel's conv weights: wgmma A tiles of 64 rows x 16
+# inputs, one a step. Conv5 (64 outputs): a step per tap and 16-channel
+# input chunk, tap-major, rows = output channels. Convs 1-4 (32 outputs): a
+# step per kernel row dy and chunk, first the pairs (rows 16 w + r: channel
+# 8 w + r of tap (dy, -1); rows 16 w + 8 + r: the same of tap (dy, 0)) of
+# dy = -1, 0, 1, then the taps (dy, +1) alone (zero rows below). In a tile
+# the rows 16 w .. 16 w + 15 of warp w come as the four 8 x 8 pieces one
+# ldmatrix.x4 reads, 128 bytes each: (rows 0-7, inputs 0-7), (8-15, 0-7),
+# (0-7, 8-15), (8-15, 8-15).
+
+
+def _conv_a_tiles(hwio):
+    """A conv ``[3, 3, Cin, Cout]`` (Cout 32 or 64) -> its A tiles
+    ``[steps, 64, 16]`` in the dense-block kernel's step order."""
+    cin, cout = hwio.shape[2], hwio.shape[3]
+    nch = cin // 16
+    if cout == 64:
+        return hwio.reshape(9, nch, 16, 64).permute(0, 1, 3, 2) \
+            .reshape(-1, 64, 16)
+    k = hwio.reshape(3, 3, nch, 16, cout)
+    tiles = []
+    for j in range(6):
+        dy = j % 3
+        up = k[dy, 0] if j < 3 else k[dy, 2]
+        low = k[dy, 1] if j < 3 else torch.zeros_like(up)
+        t = torch.stack([up, low], 1).reshape(nch, 2, 16, 4, 8)
+        tiles.append(t.permute(0, 3, 1, 4, 2).reshape(nch, 64, 16))
+    return torch.cat(tiles)
+
+
+def _conv_from_a_tiles(tiles, cin: int, cout: int):
+    """The inverse of :func:`_conv_a_tiles`: HWIO ``[3, 3, Cin, Cout]``
+    and, for Cout 32, the rows the single taps leave zero."""
+    nch = cin // 16
+    if cout == 64:
+        k = tiles.reshape(9, nch, 64, 16).permute(0, 1, 3, 2)
+        return k.reshape(3, 3, cin, 64), tiles.new_zeros(0)
+    t = tiles.reshape(6, nch, 4, 2, 8, 16).permute(0, 3, 1, 5, 2, 4) \
+        .reshape(6, 2, nch, 16, cout)
+    k = torch.stack([torch.stack([t[dy, 0], t[dy, 1], t[3 + dy, 0]])
+                     for dy in range(3)])
+    return k.reshape(3, 3, cin, cout), t[3:, 1]
+
+
+def _to_afrag(tiles):
+    """A tiles ``[steps, 64, 16]`` -> the flat order the kernel reads with
+    ``ldmatrix``."""
+    return tiles.reshape(-1, 4, 2, 8, 2, 8).permute(0, 1, 4, 2, 3, 5) \
+        .reshape(-1)
+
+
+def _tiles_from_afrag(flat):
+    """The inverse of :func:`_to_afrag`."""
+    return flat.reshape(-1, 4, 2, 2, 8, 8).permute(0, 1, 3, 4, 2, 5) \
+        .reshape(-1, 64, 16)
+
+
+# conva's elements: 6 (convs 1-4) or 9 (conv5) steps a chunk, 1024 a step
+_CONVA = tuple((6 if co == _G else 9) * (ci // 16) * 1024
+               for ci, co in zip(_CIN, _COUT))
+
+
 def _to_fragments8(k):
     """A B operand ``[K, 8]`` -> the kernel's flat n8 fragment order."""
     return k.reshape(-1, 2, 4, 2, 8).permute(_FRAG8).reshape(-1)
@@ -126,7 +193,7 @@ def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
     """Pack a ``ResidualDenseBlockSFT`` module (and, for an RRDB's third
     block, the RRDB's ``sft0``) for :func:`rdb_apply`."""
     dev = rdb.conv1.weight.device
-    convs = []
+    convs, conva = [], []
     bias = torch.zeros((5, 64), dtype=torch.float32, device=dev)
     for s in range(5):
         conv = getattr(rdb, f"conv{s + 1}")
@@ -134,7 +201,9 @@ def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
         if tuple(w.shape) != (_COUT[s], _CIN[s], 3, 3):
             raise ValueError(f"conv{s + 1}: expected {(_COUT[s], _CIN[s], 3, 3)}"
                              f", got {tuple(w.shape)} (num_feat 64, grow 32)")
-        convs.append(_to_fragments(w.permute(2, 3, 1, 0)))
+        hwio = w.permute(2, 3, 1, 0)
+        convs.append(_to_fragments(hwio))
+        conva.append(_to_afrag(_conv_a_tiles(hwio)))
         bias[s, :_COUT[s]] = conv.bias.detach().float()
     sftm = torch.zeros((12, 32, 64), dtype=torch.float32, device=dev)
     sftb = torch.zeros((12, 64), dtype=torch.float32, device=dev)
@@ -149,7 +218,8 @@ def pack_rdb_weights(rdb, rrdb_sft=None) -> RdbWeights:
     bf = torch.bfloat16
     return RdbWeights(torch.cat(convs).to(bf).contiguous(), bias, sftm, sftb,
                       _to_fragments(sftm).to(bf).contiguous(),
-                      rrdb_sft is not None)
+                      rrdb_sft is not None,
+                      torch.cat(conva).to(bf).contiguous())
 
 
 def _unpack_conv(w: RdbWeights, s: int):
@@ -210,7 +280,7 @@ def rdb_apply(x, cond, w: RdbWeights, xin=None):
     if (xin is not None) != w.tail:
         raise ValueError("rdb_apply: xin must be given exactly for weights "
                          "packed with the RRDB's trailing SFT")
-    tensors = [x, cond, w.conv, w.bias, w.sftm, w.sftb, w.sftk] + (
+    tensors = [x, cond, w.conva, w.bias, w.sftm, w.sftb, w.sftk] + (
         [xin] if xin is not None else [])
     if all(t.device.type == "cpu" for t in tensors):
         return rdb_plain(x, cond, w, xin)
@@ -228,8 +298,8 @@ def rdb_apply(x, cond, w: RdbWeights, xin=None):
                               or not t.is_contiguous()):
             raise ValueError(f"rdb_apply: {name} must be contiguous bf16 "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
-    if w.conv.dtype != torch.bfloat16 or w.conv.numel() != sum(
-            9 * ci * co for ci, co in zip(_CIN, _COUT)):
+    if w.conva.dtype != torch.bfloat16 or w.conva.numel() != sum(_CONVA) \
+            or not w.conva.is_contiguous():
         raise ValueError("rdb_apply: bad packed conv weights")
     out = torch.empty_like(x)
     lib = _build.load("rdb")
@@ -237,7 +307,7 @@ def rdb_apply(x, cond, w: RdbWeights, xin=None):
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(x.data_ptr(), cond.data_ptr(),
              xin.data_ptr() if xin is not None else None, out.data_ptr(),
-             w.conv.data_ptr(), w.bias.data_ptr(), w.sftk.data_ptr(),
+             w.conva.data_ptr(), w.bias.data_ptr(), w.sftk.data_ptr(),
              w.sftb.data_ptr(), H, W, int(xin is not None),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "rdb_error_string", err, "rdb kernel")
@@ -252,25 +322,27 @@ rdb_apply.launches = 0
 class RrdbWeights:
     """One RRDB's three dense-block packs stacked on a leading axis:
     ``conv [3, n]`` bf16, ``bias [3, 5, 64]``, ``sftm [3, 12, 32, 64]``,
-    ``sftb [3, 12, 64]``, ``sftk [3, 12 * 2048]``. The third block's SFT
-    rows 8..11 hold the RRDB's trailing SFT."""
+    ``sftb [3, 12, 64]``, ``sftk [3, 12 * 2048]``, ``conva [3, n]``. The
+    third block's SFT rows 8..11 hold the RRDB's trailing SFT."""
 
     conv: torch.Tensor
     bias: torch.Tensor
     sftm: torch.Tensor
     sftb: torch.Tensor
     sftk: torch.Tensor
+    conva: torch.Tensor
 
     def block(self, r: int) -> RdbWeights:
         return RdbWeights(self.conv[r], self.bias[r], self.sftm[r],
-                          self.sftb[r], self.sftk[r], r == 2)
+                          self.sftb[r], self.sftk[r], r == 2, self.conva[r])
 
 
 def _stack_packs(packs) -> RrdbWeights:
     """Three dense-block packs (the third with the RRDB's SFT) stacked."""
     return RrdbWeights(*(torch.stack([getattr(p, f) for p in packs])
                          .contiguous()
-                         for f in ("conv", "bias", "sftm", "sftb", "sftk")))
+                         for f in ("conv", "bias", "sftm", "sftb", "sftk",
+                                   "conva")))
 
 
 def pack_rrdb_weights(body) -> RrdbWeights:

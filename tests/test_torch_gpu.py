@@ -100,12 +100,15 @@ def test_sweep_kernel_matches_plain(cuda, use_bf16, width, depth, act, hw,
 
 @pytest.mark.parametrize("tail", [False, True])
 @pytest.mark.parametrize("h,w", [(37, 55), (5, 9), (8, 16), (40, 64),
-                                 (9, 17)])
+                                 (9, 17), (96, 256), (756, 1008), (800, 800)])
 def test_rdb_kernel_matches_plain(cuda, tail, h, w):
     """Frames that do not divide the 8x16 tile, smaller than it, one exact
-    tile, one of several whole tiles with interior ones, and one a pixel
-    over a tile boundary each way: SAME zero padding at every frame edge,
-    the swizzled slabs and the staged weights across tiles."""
+    tile, one of several whole tiles with interior ones, one a pixel over a
+    tile boundary each way, one of 192 tiles (more than the SMs, so a
+    persistent block walks several and the weight ring wraps across tiles)
+    and the two render cells' frames (1008x756 of the LLFF encoder, 800x800
+    of the Blender one): SAME zero padding at every frame edge, the swizzled
+    slabs and the streamed weights across tiles, one launch a call."""
     model = weights.sftnet_init(num_block=1, seed=2, device=cuda)
     rng = np.random.default_rng(1)
     t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
@@ -113,7 +116,9 @@ def test_rdb_kernel_matches_plain(cuda, tail, h, w):
     x, c, xin = t(h, w, 64), t(h, w, 32), t(h, w, 64)
     wts = cuda_sr.pack_rdb_weights(model.body0.rdb3,
                                    model.body0.sft0 if tail else None)
+    n0 = cuda_sr.rdb_apply.launches
     got = cuda_sr.rdb_apply(x, c, wts, xin=xin if tail else None)
+    assert cuda_sr.rdb_apply.launches == n0 + 1
     ref = cuda_sr.rdb_plain(x, c, wts, xin=xin if tail else None)
     torch.cuda.synchronize()
     assert float((got.float() - ref.float()).abs().max()) <= 0.05

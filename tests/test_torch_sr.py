@@ -139,6 +139,52 @@ def test_pack_rdb_weights_roundtrip():
                                k.to(torch.bfloat16).float())
 
 
+@pytest.mark.parametrize("s", range(5))
+def test_pack_rdb_weights_afrag_matches_fragments(s):
+    """The dense-block kernel's conv weights (``conva``, wgmma A tiles in
+    ldmatrix order) hold the numbers of the fragment-order ``conv`` element
+    for element, zeros where a single tap leaves its rows empty, and the
+    tile layout the kernel reads: step i, tile row m, input k at
+    i 1024 + (m // 16) 256 + (k // 8) 128 + (m % 16 // 8) 64 + (m % 8) 8 +
+    k % 8."""
+    model = weights.sftnet_init(num_block=1, seed=3, device="cpu")
+    w = cuda_sr.pack_rdb_weights(model.body0.rdb3, model.body0.sft0)
+    cin, cout = cuda_sr._CIN[s], cuda_sr._COUT[s]
+    off = sum(9 * cuda_sr._CIN[t] * cuda_sr._COUT[t] for t in range(s))
+    offa = sum(cuda_sr._CONVA[:s])
+    assert w.conva.dtype == torch.bfloat16 and w.conva.is_contiguous()
+    assert w.conva.numel() == sum(cuda_sr._CONVA)
+    flat = w.conva[offa:offa + cuda_sr._CONVA[s]]
+    tiles = cuda_sr._tiles_from_afrag(flat)
+    assert torch.equal(cuda_sr._to_afrag(tiles), flat)
+    got, empty = cuda_sr._conv_from_a_tiles(tiles, cin, cout)
+    want = cuda_sr._from_fragments(
+        w.conv[off:off + 9 * cin * cout].float(), cin, cout)
+    assert torch.equal(got.float(), want)
+    assert not empty.float().abs().sum()
+    i, m, k = np.meshgrid(np.arange(tiles.shape[0]), np.arange(64),
+                          np.arange(16), indexing="ij")
+    idx = (i * 1024 + (m // 16) * 256 + (k // 8) * 128 + (m % 16 // 8) * 64
+           + (m % 8) * 8 + k % 8)
+    assert torch.equal(flat[torch.as_tensor(idx)], tiles)
+    if cout == 32:  # step (pair dy = -1, chunk 0), warp 1, row 8 + 3: tap (-1, 0)
+        assert torch.equal(tiles[0, 16 + 8 + 3], got[0, 1, :16, 8 + 3])
+    conv = getattr(model.body0.rdb3, f"conv{s + 1}").weight
+    torch.testing.assert_close(got.permute(3, 2, 0, 1).float(),
+                               conv.detach().to(torch.bfloat16).float())
+
+
+def test_rrdb_packs_carry_afrag_blocks():
+    model = weights.sftnet_init(num_block=1, seed=3, device="cpu")
+    rr = cuda_sr.pack_rrdb_weights(model.body0)
+    for r, blk in enumerate((model.body0.rdb1, model.body0.rdb2,
+                             model.body0.rdb3)):
+        one = cuda_sr.pack_rdb_weights(
+            blk, model.body0.sft0 if r == 2 else None)
+        assert torch.equal(rr.block(r).conva, one.conva)
+        assert rr.block(r).tail == (r == 2)
+
+
 def test_rdb_apply_refuses_wrong_tail_weights():
     _, _, _, trr, _ = _rrdb(H=8, W=8)
     x = torch.zeros((8, 8, 64), dtype=torch.bfloat16)
